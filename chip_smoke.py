@@ -1,0 +1,318 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases:
+  1. setup: the card, a parallel build of the port's native sources;
+  2. kernels: K1 (factor+solve), K2 (solve) and K3 (factor) against their
+     plain PyTorch versions on the card, at the flagship shapes
+     (B=1024, n=149, w=4) and a ragged one (B=1000, n=69, w=9), timed with
+     CUDA events;
+  3. the slice: the flagship fleet (examples/mpc_dcmotor, T=30, B=1024,
+     float32) through solve_many, with the kernel launch counts read
+     around it, then one single solve;
+  4. cross-check: eight of the fleet's instances solved again by the port
+     on the CPU (plain versions of the kernels);
+  5. a profile of one fleet solve (device busy share, top kernels).
+
+It prints a JSON line of the kernels, the card's name and power limit,
+and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
+without that line, when CUDA is missing or any check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+FLEET_B, FLEET_T = 1024, 30
+# same operations in the same order without contraction into fused
+# multiply-adds: the kernels are expected to match the plain versions
+# to the last bit; the check allows a few roundings of the result scale
+KERNEL_RTOL = 1e-5
+# the reference's batched-vs-single float32 tolerance on u
+U_ATOL = 2e-3
+SOURCE = "tenscalc_tpu_torch/csrc/fleet_banded.cu"
+REPLACES = {
+    "factor_solve": "tenscalc_tpu/kkt/fleet_banded.py:198",
+    "solve": "tenscalc_tpu/kkt/fleet_banded.py:138",
+    "factor": "tenscalc_tpu/kkt/fleet_banded.py:75",
+}
+NAMES = {"factor_solve": "K1 fleet_banded_factor_solve",
+         "solve": "K2 fleet_banded_solve", "factor": "K3 fleet_banded_factor"}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median of ``reps`` single-call times, CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def test_band(B: int, n: int, w: int, seed: int):
+    """Symmetric-indefinite bands with rows dominated by diagonals of
+    either sign, zeros past the last row; and a right-hand side."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    band = torch.randn(B, n, w + 1, generator=g)
+    sign = torch.where(torch.rand(B, n, generator=g) < 0.5, -1.0, 1.0)
+    band[:, :, 0] = sign * (2 * w + 1 + torch.rand(B, n, generator=g))
+    for i in range(1, w + 1):
+        band[:, n - i:, i] = 0.0
+    return band.cuda(), torch.randn(B, n, generator=g).cuda()
+
+
+def bound(kind: str, B: int, n: int, w: int):
+    """Least time (ms) for the work: bytes each input read once and each
+    output written once, and the float32 operations these shapes need."""
+    R = w + 1
+    factor_ops = 2 * w + w * (w + 1)          # divisions, d*r_i, updates
+    solve_ops = 2 * (2 * w + 1)               # forward and backward rows
+    if kind == "factor_solve":
+        nbytes, ops = 4 * (2 * B * n * R + 2 * B * n), factor_ops + solve_ops
+    elif kind == "solve":
+        nbytes, ops = 4 * (B * n * R + 2 * B * n), solve_ops
+    else:
+        nbytes, ops = 4 * 2 * B * n * R, factor_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * n * ops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(fb):
+    """K1-K3 against their plain versions; returns per-kernel records."""
+    recs = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    clamp = 1e-7
+    for B, n, w in ((FLEET_B, 149, 4), (1000, 69, 9)):
+        band, rhs = test_band(B, n, w, seed=n + w)
+        f1, x1 = fb.fleet_banded_factor_solve_batched(band, rhs, w, clamp)
+        x2 = fb.fleet_banded_solve_batched(f1, rhs, w)
+        f3 = fb.fleet_banded_factor_batched(band, w, clamp)
+        pf, px = fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)
+        px2 = fb.fleet_banded_solve_plain(pf, rhs, w)
+        torch.cuda.synchronize()
+        errs = {
+            "factor_solve": max((f1 - pf).abs().max().item(),
+                                (x1 - px).abs().max().item()),
+            "solve": (x2 - px2).abs().max().item(),
+            "factor": (f3 - pf).abs().max().item(),
+        }
+        scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+        for k, e in errs.items():
+            check(np.isfinite(e) and e <= KERNEL_RTOL * scale,
+                  f"{k} at B={B} n={n} w={w}: max abs err {e}")
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+        # kernel time on kernel-layout buffers; plain time on the same
+        # inputs; the band (3 MB) stays in L2 as it does after assembly
+        bt = band.permute(1, 2, 0).contiguous()
+        rt = rhs.t().contiguous()
+        fbt, xt = torch.empty_like(bt), torch.empty_like(rt)
+        fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp)
+        times = {
+            "factor_solve": (
+                cuda_ms(lambda: fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp), 50),
+                cuda_ms(lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp), 20)),
+            "solve": (
+                cuda_ms(lambda: fb.launch_solve(fbt, rt, xt, w), 50),
+                cuda_ms(lambda: fb.fleet_banded_solve_plain(pf, rhs, w), 20)),
+            "factor": (
+                cuda_ms(lambda: fb.launch_factor(bt, fbt, w, clamp), 50),
+                cuda_ms(lambda: fb.fleet_banded_factor_plain(band, w, clamp), 20)),
+        }
+        for k, (ms, plain_ms) in times.items():
+            bms, by = bound(k, B, n, w)
+            log(f"[kernels] {NAMES[k]} B={B} n={n} w={w}: max_abs_err "
+                f"{errs[k]:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                f"bound {bms:.5f} ms ({by})")
+            if (B, n, w) == (FLEET_B, 149, 4):
+                recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return recs
+
+
+class _BandOnly:
+    """A KKT operator reduced to what the adapter's inertia reads."""
+
+    def __init__(self, band, perm):
+        self.band = band
+        self.perm = perm
+
+
+def phase_slice(mpc, fb):
+    ns = "fleet_"
+    solver = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32")
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul is off")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is 'highest'")
+    check((solver.nU, solver.nG, solver.nF) == (89, 60, 174), "flagship sizes")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode == "hoisted"
+          and solver.kkt_plan.bandwidth == 4, "fleet banded, hoisted band, w=4")
+    params, inits = mpc.fleet_inputs(FLEET_T, FLEET_B, ns, seed=0)
+
+    def run():
+        res = solver.solve_many(params, inits=inits, mu0=1e-3, max_iter=100)
+        torch.cuda.synchronize()
+        return res
+
+    run()  # warm-up (first-call allocations)
+    for k in fb.LAUNCHES:
+        fb.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (FLEET_B, solver.nU), "u shape")
+    check(bool(torch.isfinite(res.u).all()), "finite u")
+    check(int((status == 0).sum()) == FLEET_B,
+          f"all {FLEET_B} instances at status 0 (got {np.bincount(status)})")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0,
+          f"K1 and K2 ran on the main path: {launches}")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    log(f"[slice] fleet B={FLEET_B} T={FLEET_T} f32: status 0 for all; iters "
+        f"max {iters.max()} mean {iters.mean():.2f}; wall {wall:.4f} s; "
+        f"{FLEET_B / wall:.1f} solves/s; launches {launches}; per lockstep "
+        f"iteration K1 {launches['factor_solve'] / lockstep:.2f} "
+        f"K2 {launches['solve'] / lockstep:.2f} K3 {launches['factor'] / lockstep:.2f}")
+
+    # K3 is off the fleet's path: it runs on a path of its own, the
+    # adapter's inertia asked before any solve (the D-sign count of a
+    # fresh factorization), driven with every count at 0
+    band, _ = test_band(FLEET_B, solver.nU + solver.nG, 4, seed=3)
+    op = _BandOnly(band, torch.as_tensor(solver.kkt_plan.perm, device="cuda"))
+    for k in fb.LAUNCHES:
+        fb.LAUNCHES[k] = 0
+    mp, mn = fb.FleetBandedFromBand(op, solver.kkt_plan).inertia()
+    torch.cuda.synchronize()
+    check(fb.LAUNCHES == {"factor_solve": 0, "solve": 0, "factor": 1},
+          f"the inertia query ran K3 alone: {fb.LAUNCHES}")
+    fleet_k3 = launches["factor"]
+    launches["factor"] = fb.LAUNCHES["factor"]
+    check(bool(((mp + mn) == op.band.shape[1]).all()), "inertia counts every pivot")
+    log(f"[slice] inertia path on a flagship-shaped band: K3 launches "
+        f"{launches['factor']} (the fleet path: {fleet_k3})")
+
+    one = {k: (v[0] if k in (ns + "ref", ns + "xinit") else v)
+           for k, v in params.items()}
+    sol = solver.solve(one, init={k: v[0] for k, v in inits.items()},
+                       mu0=1e-3, max_iter=100)
+    check(sol.status == 0, f"single solve status {sol.describe()}")
+    log(f"[slice] single solve: status 0, {sol.iters} iters, {sol.time:.4f} s")
+    return solver, params, inits, res, launches
+
+
+def phase_cross_check(mpc, params, inits, res):
+    ns = "fleet_"
+    idx = np.arange(0, FLEET_B, FLEET_B // 8)
+    cpu = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32", device="cpu")
+    sub_p = {k: (v[idx] if k in (ns + "ref", ns + "xinit") else v)
+             for k, v in params.items()}
+    sub_i = {k: v[idx] for k, v in inits.items()}
+    r = cpu.solve_many(sub_p, inits=sub_i, mu0=1e-3, max_iter=100)
+    st_gpu = res.status.cpu().numpy()[idx]
+    du = np.abs(r.u.numpy() - res.u.cpu().numpy()[idx]).max()
+    check((r.status.numpy() == st_gpu).all(), "status equal on card and CPU")
+    check(du <= U_ATOL, f"u within {U_ATOL} (max diff {du:.3e})")
+    log(f"[cross-check] 8 instances on the CPU: status equal, max |du| "
+        f"{du:.3e}, iters card {res.iters.cpu().numpy()[idx].tolist()} "
+        f"cpu {r.iters.numpy().tolist()}")
+
+
+def phase_profile(solver, params, inits):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve_many(params, inits=inits, mu0=1e-3, max_iter=100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: operator events also carry their kernels' time
+    dev_us = {
+        e.key: e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    }
+    check(bool(dev_us), "the profiler saw device kernels")
+    busy = sum(dev_us.values()) / 1e6
+    log(f"[profile] fleet solve under the profiler: wall {wall:.4f} s, device "
+        f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
+    for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[profile]   {v / 1e3:9.3f} ms  {k[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from tenscalc_tpu_torch import native
+    from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
+    from tenscalc_tpu_torch.kkt import fleet_banded as fb
+
+    card = card_line()
+    log(f"[setup] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(fb._load), pool.submit(native._load)]:
+            f.result()
+    log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
+
+    recs = phase_kernels(fb)
+    solver, params, inits, res, launches = phase_slice(mpc, fb)
+    phase_cross_check(mpc, params, inits, res)
+    phase_profile(solver, params, inits)
+
+    kernels = [
+        {"name": NAMES[k], "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[k], "launches": launches[k],
+         "max_abs_err": recs[k]["max_abs_err"], "ms": recs[k]["ms"],
+         "plain_ms": recs[k]["plain_ms"], "bound_ms": recs[k]["bound_ms"],
+         "bound_by": recs[k]["bound_by"], "library_ms": None}
+        for k in ("factor_solve", "solve", "factor")
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,351 @@
+"""Problem-definition API (port of ``tenscalc_tpu/api.py``).
+
+:func:`optimize` takes a symbolic objective, optimization variables,
+constraints, parameters and output expressions, and returns an
+:class:`OptimizeSolver` whose ``solve`` runs the primal-dual IPM on one
+instance and whose ``solve_many`` runs a fleet.  The solver runs on the
+card (``device=None`` means ``"cuda"``) unless the caller asks for the
+CPU; without CUDA it raises rather than quietly running on the CPU.
+
+This slice resolves ``kkt_backend='auto'`` to ``'fleet_banded'`` on
+every device: it has no other backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .expr import Constraint, Expr, Variable
+from .ipm.options import SolverOptions
+from .ipm.solver import IPMFunctions, IPMResult, build_ipm, dense_condensed_kkt
+from .ipm.status import describe_status
+from .pack import Packing
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; a CUDA device without CUDA raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to solve on the CPU"
+        )
+    return device
+
+
+def full_precision_matmul() -> None:
+    """float32 products in full precision (no TF32), as the reference
+    computes them at Precision.HIGHEST."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _split_constraints(constraints):
+    """Split into (F >= 0 list, G == 0 list)."""
+    Fs, Gs = [], []
+    for c in constraints or []:
+        if not isinstance(c, Constraint):
+            raise TypeError(
+                f"constraints must be built with >=, <= or == on Expr; got {c!r}"
+            )
+        (Fs if c.kind == "ineq" else Gs).append(c.expr)
+    return Fs, Gs
+
+
+def problem_functions(objective: Expr, variables: Sequence[Variable],
+                      constraints, parameters: Sequence[Variable],
+                      dt: torch.dtype):
+    """(IPMFunctions, Packing, nF, nG) of a problem; validates that every
+    expression reads only declared parameters and variables."""
+    packing = Packing(variables)
+    F_exprs, G_exprs = _split_constraints(constraints)
+    known = {p.name for p in parameters} | set(packing.names)
+    for e in [objective] + F_exprs + G_exprs:
+        extra = e.deps - known
+        if extra:
+            raise ValueError(
+                f"expression depends on undeclared symbols {sorted(extra)}; "
+                "declare them as parameters or optimization variables"
+            )
+
+    def stack(exprs, u, penv):
+        env = {**penv, **packing.unpack(u)}
+        if not exprs:
+            return u.new_zeros(0)
+        return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt)
+
+    def f_fn(u, penv):
+        env = {**penv, **packing.unpack(u)}
+        return objective(env).to(dt).reshape(())
+
+    def F_fn(u, penv):
+        return stack(F_exprs, u, penv)
+
+    def G_fn(u, penv):
+        return stack(G_exprs, u, penv)
+
+    nF = int(sum(e.size for e in F_exprs))
+    nG = int(sum(e.size for e in G_exprs))
+    return IPMFunctions(f=f_fn, F=F_fn, G=G_fn), packing, nF, nG
+
+
+@dataclasses.dataclass
+class Solution:
+    """Result of one solve."""
+
+    status: int
+    iters: int
+    outputs: Dict[str, Any]
+    variables: Dict[str, Any]
+    mu: float
+    norminf_grad: float
+    norminf_eq: float
+    gap: float
+    objective: float
+    lam: Any
+    nu: Any
+    time: float = 0.0
+
+    @property
+    def ok(self) -> bool:
+        return int(self.status) == 0
+
+    def describe(self) -> str:
+        return describe_status(int(self.status))
+
+
+class OptimizeSolver:
+    """A constrained-minimization solver instance."""
+
+    def __init__(self, objective: Expr,
+                 optimizationVariables: Sequence[Variable],
+                 constraints: Sequence[Constraint] = (),
+                 parameters: Sequence[Variable] = (),
+                 outputExpressions: Optional[Mapping[str, Expr]] = None,
+                 options: Optional[SolverOptions] = None,
+                 device=None, **option_kwargs):
+        self.opts = (
+            (options or SolverOptions()).replace(**option_kwargs).resolved("optimize")
+        )
+        if self.opts.kkt_backend not in ("auto", "fleet_banded"):
+            raise NotImplementedError(
+                f"kkt_backend={self.opts.kkt_backend!r} is not ported yet "
+                "(ROADMAP items M4, M10, M11 and M16)"
+            )
+        self.device = resolve_device(device)
+        full_precision_matmul()
+        dt = self.opts.torch_dtype
+        self.variables = list(optimizationVariables)
+        self.parameters = list(parameters)
+        self.objective = objective
+        self.outputExpressions = dict(outputExpressions or {})
+        self._fns, self.packing, self.nF, self.nG = problem_functions(
+            objective, self.variables, constraints, self.parameters, dt
+        )
+        self.nU = self.packing.total
+
+        from .ipm.hoist import analyze_hoistable, analyze_scale_free
+
+        shapes = {p.name: p.shape for p in self.parameters}
+        self._hoist = analyze_hoistable(
+            self._fns, self.nU, self.nF, self.nG, dt, shapes
+        )
+        self._hoist_scale_free = bool(self._hoist[0]) and analyze_scale_free(
+            self._fns, self.nU, self.nF, self.nG, dt, shapes,
+            taint_ineq=bool(self.opts.scaleInequalities) and self.nF > 0,
+            taint_cost=self.opts.scaleCost > 0,
+        )
+        self._hoist_param_deps = None
+        if self._hoist_scale_free and self._hoist[1]:
+            self._hoist_param_deps = self._param_deps(dt)
+        self.kkt_backend_resolved = None
+        self._plan_structure()
+
+    def _param_deps(self, dt):
+        """Parameter-value dependencies of the hoisted H, Fu and Gu."""
+        from torch.func import grad, jacfwd
+
+        from .ipm.hoist import param_value_deps
+
+        fns, nF, nG = self._fns, self.nF, self.nG
+        penv_d = {p.name: torch.zeros(p.shape, dtype=dt) for p in self.parameters}
+        u_d = torch.zeros(self.nU, dtype=dt)
+
+        def Hfun(penv, u, nu, lam):
+            def lagr(uu):
+                val = fns.f(uu, penv)
+                if nF > 0:
+                    val = val - lam @ fns.F(uu, penv)
+                if nG > 0:
+                    val = val + nu @ fns.G(uu, penv)
+                return val
+
+            return jacfwd(grad(lagr))(u)
+
+        h_deps = param_value_deps(
+            Hfun, penv_d, u_d, torch.zeros(nG, dtype=dt), torch.ones(nF, dtype=dt)
+        )
+        fu_deps = param_value_deps(
+            lambda penv, u: jacfwd(lambda uu: fns.F(uu, penv))(u), penv_d, u_d
+        ) if nF > 0 else set()
+        gu_deps = param_value_deps(
+            lambda penv, u: jacfwd(lambda uu: fns.G(uu, penv))(u), penv_d, u_d
+        ) if nG > 0 else set()
+        return h_deps, fu_deps, gu_deps
+
+    def _plan_structure(self) -> None:
+        """Probe the KKT sparsity pattern on the CPU, plan the RCM band
+        and install the fleet banded backend."""
+        from .kkt.fleet_banded import FleetBandedFromBand
+        from .kkt.structure import plan_banded, probe_pattern
+
+        dt = self.opts.torch_dtype
+        nK = self.nU + self.nG
+        if nK < 64:
+            raise NotImplementedError(
+                f"nK={nK} < 64 needs the dense fleet backend, not ported "
+                "yet (ROADMAP item M10)"
+            )
+        assemble_dense = dense_condensed_kkt(
+            self._fns, self.nU, self.nF, self.nG, self.opts
+        )
+
+        def assemble(trial: int):
+            rng = np.random.default_rng(trial)
+            penv = {
+                p.name: torch.as_tensor(rng.standard_normal(p.shape), dtype=dt)
+                for p in self.parameters
+            }
+            u = torch.as_tensor(rng.standard_normal(self.nU), dtype=dt)
+            lam = torch.as_tensor(rng.uniform(0.5, 1.5, self.nF), dtype=dt)
+            nu = torch.as_tensor(rng.standard_normal(self.nG), dtype=dt)
+            WW = assemble_dense(
+                u, nu, lam, 1e-3, 1e-3, penv,
+                torch.ones(self.nF, dtype=dt), torch.ones((), dtype=dt),
+            )
+            return WW.numpy()
+
+        plan = plan_banded(probe_pattern(assemble, nK))
+        if not plan.worthwhile:
+            raise NotImplementedError(
+                "the KKT has no worthwhile band; the dense fleet backend "
+                "is not ported yet (ROADMAP item M10)"
+            )
+        self.kkt_plan = plan
+        n_ref = self.opts.refine_for("fleet_banded")
+        self._kkt_solver = lambda WW: FleetBandedFromBand(WW, plan, n_refine=n_ref)
+        self.kkt_backend_resolved = "fleet_banded"
+        self._solve_raw = build_ipm(
+            self._fns, self.nU, self.nF, self.nG, self.opts,
+            kkt_solver=self._kkt_solver, hoist=self._hoist, band_plan=plan,
+            hoist_scale_free=self._hoist_scale_free,
+            hoist_param_deps=self._hoist_param_deps,
+        )
+
+    # -- parameter/init handling --------------------------------------
+    def _param_env(self, parameters: Optional[Mapping[str, Any]]):
+        parameters = dict(parameters or {})
+        dt = self.opts.torch_dtype
+        env = {}
+        for p in self.parameters:
+            if p.name not in parameters:
+                raise ValueError(f"missing parameter {p.name!r}")
+            v = torch.as_tensor(np.asarray(parameters[p.name]), dtype=dt,
+                                device=self.device)
+            if tuple(v.shape) != p.shape:
+                raise ValueError(
+                    f"parameter {p.name!r}: expected shape {p.shape}, got {tuple(v.shape)}"
+                )
+            env[p.name] = v
+        extra = set(parameters) - set(env)
+        if extra:
+            raise ValueError(f"unknown parameters {sorted(extra)}")
+        return env
+
+    def _pack_init(self, init: Optional[Mapping[str, Any]]) -> torch.Tensor:
+        init = dict(init or {})
+        dt = self.opts.torch_dtype
+        env = {
+            v.name: torch.as_tensor(
+                np.asarray(init[v.name]) if v.name in init else np.zeros(v.shape),
+                dtype=dt, device=self.device,
+            )
+            for v in self.variables
+        }
+        return self.packing.pack(env)
+
+    # -- solving -------------------------------------------------------
+    def solve(self, parameters: Optional[Mapping[str, Any]] = None,
+              init: Optional[Mapping[str, Any]] = None, mu0: float = 1.0,
+              max_iter: Optional[int] = None,
+              addEye2Hessian=(1e-9, 1e-9)) -> Solution:
+        """One instance: the fleet path at B = 1, every parameter shared."""
+        penv = self._param_env(parameters)
+        u0 = self._pack_init(init)[None]
+        t0 = time.perf_counter()
+        res = self._solve_raw(
+            u0, penv, frozenset(penv), mu0, max_iter,
+            addEye2Hessian[0], addEye2Hessian[1],
+        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t0
+        return self._make_solution(res, penv, elapsed)
+
+    def solve_many(self, parameters: Mapping[str, Any],
+                   inits: Optional[Mapping[str, Any]] = None,
+                   mu0: float = 1.0, max_iter: Optional[int] = None,
+                   addEye2Hessian=(1e-9, 1e-9)) -> IPMResult:
+        """A fleet: every batched parameter/init leaf has a leading batch
+        dimension; a parameter in its declared shape is shared."""
+        from .parallel.batch import solve_batched
+
+        return solve_batched(
+            self, parameters, inits=inits, mu0=mu0, max_iter=max_iter,
+            addEye2Hessian=addEye2Hessian,
+        )
+
+    def _make_solution(self, res: IPMResult, penv, elapsed: float) -> Solution:
+        var_env = self.packing.unpack(res.u[0])
+        out_env = {**penv, **var_env, **self._internal_env(res)}
+        outputs = {
+            name: e(out_env).cpu().numpy() if isinstance(e, Expr) else e
+            for name, e in self.outputExpressions.items()
+        }
+        return Solution(
+            status=int(res.status[0]), iters=int(res.iters[0]), outputs=outputs,
+            variables={k: v.cpu().numpy() for k, v in var_env.items()},
+            mu=float(res.mu[0]), norminf_grad=float(res.norminf_grad[0]),
+            norminf_eq=float(res.norminf_eq[0]), gap=float(res.gap[0]),
+            objective=float(res.f[0]), lam=res.lam[0].cpu().numpy(),
+            nu=res.nu[0].cpu().numpy(), time=elapsed,
+        )
+
+    @staticmethod
+    def _internal_env(res: IPMResult):
+        """Solver internals that outputExpressions may read."""
+        return {
+            "lambda_": res.lam[0], "nu_": res.nu[0], "mu_": res.mu[0],
+            "status_": res.status[0], "iter_": res.iters[0],
+        }
+
+
+def optimize(objective: Expr, optimizationVariables: Sequence[Variable],
+             constraints: Sequence[Constraint] = (),
+             parameters: Sequence[Variable] = (),
+             outputExpressions: Optional[Mapping[str, Expr]] = None,
+             options: Optional[SolverOptions] = None, device=None,
+             **option_kwargs) -> OptimizeSolver:
+    """Create a constrained-minimization solver on ``device`` (the card
+    when None)."""
+    return OptimizeSolver(
+        objective, optimizationVariables, constraints, parameters,
+        outputExpressions, options, device=device, **option_kwargs,
+    )

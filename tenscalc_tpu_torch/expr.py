@@ -1,0 +1,402 @@
+"""Deferred tensor expressions evaluated with PyTorch (port of
+``tenscalc_tpu/expr.py``).
+
+An :class:`Expr` is a pure function from an environment (dict of named
+tensors) to a tensor, with a static shape.  Derivatives come from
+``torch.func`` applied to the evaluated functions, never from the
+expressions themselves, so any operator written in plain tensor ops is
+differentiable.
+
+Python numbers stay Python numbers inside an expression, so they take
+the tensor's dtype the way JAX's weakly typed scalars do; array
+constants are materialized on the environment's device and float dtype
+when evaluated.
+"""
+
+from __future__ import annotations
+
+import numbers
+import operator
+from typing import Callable, Dict, FrozenSet, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Env = Dict[str, torch.Tensor]
+
+
+def _normalize_shape(shape) -> Tuple[int, ...]:
+    if shape is None:
+        return ()
+    if isinstance(shape, (int, np.integer)):
+        return (int(shape),)
+    return tuple(int(s) for s in shape)
+
+
+def _env_like(env: Env) -> Tuple[torch.dtype, torch.device]:
+    """Float dtype and device of the environment's tensors (float64 on
+    the CPU for an empty environment)."""
+    for v in env.values():
+        if isinstance(v, torch.Tensor):
+            dt = v.dtype if v.is_floating_point() else torch.float64
+            return dt, v.device
+    return torch.float64, torch.device("cpu")
+
+
+class Expr:
+    """A deferred tensor computation: ``env -> tensor`` with static shape.
+
+    ``deps`` is the set of variable/parameter names the expression reads.
+    """
+
+    __slots__ = ("fn", "shape", "deps", "name")
+    __array_priority__ = 100  # win ufunc dispatch against numpy arrays
+
+    def __init__(self, fn: Callable[[Env], torch.Tensor],
+                 shape: Tuple[int, ...], deps: FrozenSet[str],
+                 name: str = ""):
+        self.fn = fn
+        self.shape = _normalize_shape(shape)
+        self.deps = frozenset(deps)
+        self.name = name
+
+    def __call__(self, env: Env) -> torch.Tensor:
+        return self.fn(env)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    def __len__(self) -> int:
+        if not self.shape:
+            raise TypeError("len() of scalar Expr")
+        return self.shape[0]
+
+    def __repr__(self) -> str:
+        nm = f" {self.name}" if self.name else ""
+        return f"Expr{nm}[{','.join(map(str, self.shape))} deps={sorted(self.deps)}]"
+
+    # -- arithmetic ---------------------------------------------------
+    def __add__(self, other):
+        return binary_op(operator.add, self, other)
+
+    def __radd__(self, other):
+        return binary_op(operator.add, other, self)
+
+    def __sub__(self, other):
+        return binary_op(operator.sub, self, other)
+
+    def __rsub__(self, other):
+        return binary_op(operator.sub, other, self)
+
+    def __mul__(self, other):
+        return binary_op(operator.mul, self, other)
+
+    def __rmul__(self, other):
+        return binary_op(operator.mul, other, self)
+
+    def __truediv__(self, other):
+        return binary_op(operator.truediv, self, other)
+
+    def __rtruediv__(self, other):
+        return binary_op(operator.truediv, other, self)
+
+    def __pow__(self, other):
+        return binary_op(operator.pow, self, other)
+
+    def __rpow__(self, other):
+        return binary_op(operator.pow, other, self)
+
+    def __neg__(self):
+        return unary_op(operator.neg, self)
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        return unary_op(torch.abs, self)
+
+    def __matmul__(self, other):
+        return binary_op(torch.matmul, self, other)
+
+    def __rmatmul__(self, other):
+        return binary_op(torch.matmul, other, self)
+
+    # -- indexing / shaping -------------------------------------------
+    def __getitem__(self, idx):
+        return unary_op(lambda x: x[idx], self)
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return unary_op(lambda x: torch.reshape(x, shape), self)
+
+    def ravel(self):
+        return unary_op(torch.ravel, self)
+
+    def flatten(self):
+        return self.ravel()
+
+    @property
+    def T(self):
+        return unary_op(
+            lambda x: x.transpose(-1, -2) if x.dim() >= 2 else x, self
+        )
+
+    def transpose(self, *axes):
+        if not axes:
+            return self.T
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return unary_op(lambda x: x.permute(axes), self)
+
+    def sum(self, axis=None, keepdims=False):
+        if axis is None:
+            return unary_op(torch.sum, self)
+        return unary_op(
+            lambda x: torch.sum(x, dim=axis, keepdim=keepdims), self
+        )
+
+    def min(self, axis=None, keepdims=False):
+        if axis is None:
+            return unary_op(torch.amin, self)
+        return unary_op(
+            lambda x: torch.amin(x, dim=axis, keepdim=keepdims), self
+        )
+
+    def max(self, axis=None, keepdims=False):
+        if axis is None:
+            return unary_op(torch.amax, self)
+        return unary_op(
+            lambda x: torch.amax(x, dim=axis, keepdim=keepdims), self
+        )
+
+    def trace(self):
+        return unary_op(torch.trace, self)
+
+    def diag(self):
+        return unary_op(torch.diag, self)
+
+    # -- comparisons create constraints -------------------------------
+    def __ge__(self, other) -> "Constraint":
+        return Constraint("ineq", binary_op(operator.sub, self, other))
+
+    def __le__(self, other) -> "Constraint":
+        return Constraint("ineq", binary_op(operator.sub, other, self))
+
+    def __gt__(self, other) -> "Constraint":
+        return self.__ge__(other)
+
+    def __lt__(self, other) -> "Constraint":
+        return self.__le__(other)
+
+    def __eq__(self, other) -> "Constraint":  # type: ignore[override]
+        return Constraint("eq", binary_op(operator.sub, self, other))
+
+    def __ne__(self, other):  # type: ignore[override]
+        raise TypeError("!= is not a valid constraint; use ==, >= or <=")
+
+    def __hash__(self):
+        return id(self)
+
+
+# Registry of declared variable shapes, used to infer expression shapes.
+_VARIABLE_SHAPES: Dict[str, Tuple[int, ...]] = {}
+
+
+class Variable(Expr):
+    """A named leaf that reads its value from the environment; the
+    problem builder decides whether it is an optimization variable or a
+    parameter."""
+
+    __slots__ = ()
+
+    def __init__(self, name: str, shape=()):
+        shape = _normalize_shape(shape)
+        super().__init__(lambda env, _n=name: env[_n], shape, {name}, name)
+        prev = _VARIABLE_SHAPES.get(name)
+        if prev is not None and prev != self.shape:
+            raise ValueError(
+                f"variable {name!r} re-declared with shape {self.shape}, "
+                f"previously {prev}"
+            )
+        _VARIABLE_SHAPES[name] = self.shape
+
+    def __repr__(self) -> str:
+        return f"Variable {self.name}[{','.join(map(str, self.shape))}]"
+
+    def __hash__(self):
+        return id(self)
+
+
+def variable(name: str, shape=()) -> Variable:
+    """Create a named tensor variable."""
+    return Variable(name, shape)
+
+
+def parameter(name: str, shape=()) -> Variable:
+    """Alias of :func:`variable`; the role is decided by the problem builder."""
+    return Variable(name, shape)
+
+
+Tvariable = variable
+
+
+def clear_variables() -> None:
+    """Forget all declared variable shapes."""
+    _VARIABLE_SHAPES.clear()
+
+
+def constant(value, shape=None) -> Expr:
+    """Embed a constant array.  Float constants take the environment's
+    float dtype and device when evaluated."""
+    arr = np.asarray(value)
+    if shape is not None:
+        arr = np.broadcast_to(arr, _normalize_shape(shape))
+    is_float = arr.dtype.kind == "f"
+
+    def fn(env, _a=arr):
+        dt, dev = _env_like(env)
+        return torch.as_tensor(_a, dtype=dt if is_float else None, device=dev)
+
+    return Expr(fn, arr.shape, frozenset(), "const")
+
+
+Tconstant = constant
+
+
+def Tzeros(shape=()) -> Expr:
+    shape = _normalize_shape(shape)
+
+    def fn(env):
+        dt, dev = _env_like(env)
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return Expr(fn, shape, frozenset(), "zeros")
+
+
+def Tones(shape=()) -> Expr:
+    shape = _normalize_shape(shape)
+
+    def fn(env):
+        dt, dev = _env_like(env)
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    return Expr(fn, shape, frozenset(), "ones")
+
+
+def to_expr(x) -> Expr:
+    """Coerce scalars/arrays to Expr."""
+    if isinstance(x, Expr):
+        return x
+    return constant(x)
+
+
+def _operand(x):
+    """Expr operand, or a Python number kept as it is (weakly typed)."""
+    if isinstance(x, Expr):
+        return x
+    if isinstance(x, numbers.Real) and not isinstance(x, (bool, np.bool_)):
+        return float(x) if isinstance(x, (float, np.floating)) else int(x)
+    return constant(x)
+
+
+def _value(x, env):
+    return x(env) if isinstance(x, Expr) else x
+
+
+def _deps(*xs) -> FrozenSet[str]:
+    return frozenset().union(*[x.deps for x in xs if isinstance(x, Expr)])
+
+
+def _shape_of(fn: Callable[[Env], torch.Tensor],
+              deps: FrozenSet[str]) -> Tuple[int, ...]:
+    """Static output shape, by evaluating ``fn`` on meta tensors (no
+    data is allocated or computed)."""
+    env = {
+        n: torch.empty(_VARIABLE_SHAPES[n], dtype=torch.float32, device="meta")
+        for n in deps
+    }
+    return tuple(torch.as_tensor(fn(env)).shape)
+
+
+def unary_op(f: Callable, a) -> Expr:
+    a = to_expr(a)
+
+    def fn(env, _f=f, _a=a):
+        return _f(_a(env))
+
+    return Expr(fn, _shape_of(fn, a.deps), a.deps)
+
+
+def binary_op(f: Callable, a, b) -> Expr:
+    a, b = _operand(a), _operand(b)
+    deps = _deps(a, b)
+
+    def fn(env, _f=f, _a=a, _b=b):
+        return _f(_value(_a, env), _value(_b, env))
+
+    return Expr(fn, _shape_of(fn, deps), deps)
+
+
+def nary_op(f: Callable, *args) -> Expr:
+    exprs = [to_expr(a) for a in args]
+    deps = _deps(*exprs)
+
+    def fn(env, _f=f, _es=tuple(exprs)):
+        return _f(*[e(env) for e in _es])
+
+    return Expr(fn, _shape_of(fn, deps), deps)
+
+
+def lift(f: Callable) -> Callable:
+    """Lift a torch function to operate on Expr arguments.
+
+    Python numbers pass through as they are; keyword args must be static.
+    """
+
+    def wrapped(*args, **kwargs):
+        if not any(isinstance(a, Expr) for a in args):
+            return f(*args, **kwargs)
+        ops = [_operand(a) for a in args]
+        deps = _deps(*ops)
+
+        def fn(env, _f=f, _ops=tuple(ops), _kw=kwargs):
+            return _f(*[_value(o, env) for o in _ops], **_kw)
+
+        return Expr(fn, _shape_of(fn, deps), deps)
+
+    wrapped.__name__ = getattr(f, "__name__", "lifted")
+    return wrapped
+
+
+def concat(exprs: Sequence, axis: int = 0) -> Expr:
+    return nary_op(
+        lambda *xs: torch.cat([torch.atleast_1d(x) for x in xs], dim=axis),
+        *exprs,
+    )
+
+
+class Constraint:
+    """A parsed constraint: ``expr >= 0`` (ineq) or ``expr == 0`` (eq)."""
+
+    __slots__ = ("kind", "expr")
+
+    def __init__(self, kind: str, expr: Expr):
+        if kind not in ("ineq", "eq"):
+            raise ValueError(f"constraint kind must be 'ineq' or 'eq', not {kind!r}")
+        self.kind = kind
+        self.expr = expr
+
+    def __repr__(self) -> str:
+        op = ">= 0" if self.kind == "ineq" else "== 0"
+        return f"Constraint[{','.join(map(str, self.expr.shape))}] {op}"
+
+    def __bool__(self):
+        raise TypeError(
+            "Constraint is not a boolean; pass it in the `constraints` list"
+        )

@@ -1,0 +1,71 @@
+"""Carrying solve inputs and results across from numpy.
+
+The analog of a model's weights here is the build-time plan plus the
+solve inputs.  The plan is rebuilt from the same expressions; the
+inputs (parameters, initial points) are made once with numpy, and the
+same arrays go to this package and to the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(solver, params: Mapping[str, Any], device, dtype):
+    """Batched parameter environment of a fleet.
+
+    A parameter given in its declared shape is shared by the fleet (its
+    hoisted derivatives are computed once); any other must carry a
+    leading batch dimension B.  Returns ``(penv, shared, B)``."""
+    penv: Dict[str, torch.Tensor] = {}
+    shared = set()
+    B = None
+    for p in solver.parameters:
+        if p.name not in params:
+            raise ValueError(f"missing parameter {p.name!r}")
+        v = torch.as_tensor(np.asarray(params[p.name]), dtype=dtype, device=device)
+        if tuple(v.shape) == p.shape:
+            shared.add(p.name)
+        elif tuple(v.shape[1:]) != p.shape:
+            raise ValueError(
+                f"parameter {p.name!r}: expected batched shape (B,)+{p.shape} "
+                f"or shared shape {p.shape}, got {tuple(v.shape)}"
+            )
+        elif B is None:
+            B = v.shape[0]
+        elif v.shape[0] != B:
+            raise ValueError("inconsistent batch sizes")
+        penv[p.name] = v
+    extra = set(params) - set(penv)
+    if extra:
+        raise ValueError(f"unknown parameters {sorted(extra)}")
+    if B is None:
+        raise ValueError("at least one batched parameter required")
+    return penv, frozenset(shared), B
+
+
+def inits_from_numpy(solver, inits: Optional[Mapping[str, Any]], B: int,
+                     device, dtype) -> torch.Tensor:
+    """Packed initial points (B, nU); a variable without an init starts
+    at zero."""
+    inits = dict(inits or {})
+    parts = []
+    for v in solver.variables:
+        if v.name in inits:
+            arr = torch.as_tensor(np.asarray(inits[v.name]), dtype=dtype, device=device)
+            if tuple(arr.shape) != (B,) + v.shape:
+                raise ValueError(
+                    f"init {v.name!r}: expected shape (B,)+{v.shape}, got {tuple(arr.shape)}"
+                )
+        else:
+            arr = torch.zeros((B,) + v.shape, dtype=dtype, device=device)
+        parts.append(arr.reshape(B, -1))
+    return torch.cat(parts, dim=1)
+
+
+def result_to_numpy(res) -> Dict[str, np.ndarray]:
+    """Every field of an IPMResult as a numpy array on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()}

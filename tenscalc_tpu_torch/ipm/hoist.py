@@ -1,0 +1,194 @@
+"""Loop-invariant derivative hoisting for the IPM (port of
+``tenscalc_tpu/ipm/hoist.py``).
+
+A derivative whose value does not depend on the iterate (the Hessian of
+a quadratic, the Jacobian of a linear constraint) is computed once per
+solve instead of in every iteration.  The decision is a structural
+certificate: the derivative function is traced once into an FX graph of
+ATen operations, and taint from the iterate arguments is propagated
+through every node.  A numeric probe would not be a certificate.
+
+The trace runs under ``torch.func.functionalize`` with views and
+mutations removed, so every node is a pure function of its arguments.
+Three facts keep the analysis from rejecting every quadratic:
+
+* factory ops whose output depends only on the shape of their tensor
+  argument (``ones_like``, ``new_zeros``, ``fill.Scalar``, ...) carry
+  no value dependency;
+* ``x ** 0`` (``aten.pow.Tensor_Scalar`` with exponent 0) is 1
+  whatever ``x`` is, and appears in the second derivative of ``x ** 2``;
+* every other node's outputs are tainted when any input is (sound
+  over-approximation), so a false "depends" only costs speed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+import torch.utils._pytree as pytree
+from torch.fx.experimental.proxy_tensor import make_fx
+
+# ATen overload packets whose output depends only on the shape, dtype
+# and device of their tensor arguments, never on the values.
+_SHAPE_ONLY = frozenset(
+    {
+        "ones_like", "zeros_like", "empty_like", "full_like",
+        "new_ones", "new_zeros", "new_empty", "new_full", "new_empty_strided",
+        "scalar_tensor", "_efficientzerotensor", "zeros", "ones", "full",
+        "empty", "empty_strided", "arange",
+    }
+)
+
+
+def _packet_name(target) -> str:
+    packet = getattr(target, "overloadpacket", None)
+    if packet is None:
+        return ""
+    return packet.__name__
+
+
+def _value_free(node: torch.fx.Node) -> bool:
+    """True when the node's value cannot depend on its tensor inputs."""
+    name = _packet_name(node.target)
+    if name in _SHAPE_ONLY:
+        return True
+    overload = getattr(node.target, "_overloadname", "")
+    if name == "fill" and overload == "Scalar":
+        return True
+    if name == "pow" and overload == "Tensor_Scalar":
+        return float(node.args[1]) == 0.0
+    return False
+
+
+def _trace(fn: Callable, flat_args: Sequence[torch.Tensor]) -> torch.fx.Graph:
+    gm = make_fx(torch.func.functionalize(fn, remove="mutations_and_views"))(
+        *flat_args
+    )
+    return gm.graph
+
+
+def _propagate(graph: torch.fx.Graph, in_taint: Sequence[bool]) -> bool:
+    """Whether any graph output is tainted, given per-placeholder taint."""
+    placeholders = [n for n in graph.nodes if n.op == "placeholder"]
+    tainted = {n for n, t in zip(placeholders, in_taint) if t}
+    out = False
+    for node in graph.nodes:
+        if node.op == "placeholder":
+            continue
+        inputs = node.all_input_nodes
+        if node.op == "output":
+            out = any(n in tainted for n in inputs)
+            continue
+        if node.op == "call_function" and _value_free(node):
+            continue
+        if any(n in tainted for n in inputs):
+            tainted.add(node)
+    return out
+
+
+def _flat_fn(fn: Callable, example_args):
+    flat, spec = pytree.tree_flatten(list(example_args))
+
+    def flat_call(*leaves):
+        return fn(*pytree.tree_unflatten(list(leaves), spec))
+
+    return flat_call, flat
+
+
+def output_independent_of(fn: Callable, n_tainted: int, *example_args) -> bool:
+    """True if every output of ``fn(*example_args)`` is independent of
+    the first ``n_tainted`` (pytree) arguments."""
+    flat_call, flat = _flat_fn(fn, example_args)
+    k = len(pytree.tree_leaves(list(example_args[:n_tainted])))
+    graph = _trace(flat_call, flat)
+    return not _propagate(graph, [i < k for i in range(len(flat))])
+
+
+def param_value_deps(fn: Callable, penv_example, *args) -> set:
+    """The parameter names (keys of the dict first argument) whose
+    VALUES the outputs of ``fn(penv, *args)`` depend on.
+
+    A fleet evaluates a hoisted derivative with the other parameters
+    replaced by zeros, so that it carries no batch dimension when its
+    true dependencies are shared by the fleet."""
+    keys = sorted(penv_example)
+
+    def call(pvals, *rest):
+        return fn(dict(zip(keys, pvals)), *rest)
+
+    flat_call, flat = _flat_fn(call, ([penv_example[k] for k in keys],) + args)
+    graph = _trace(flat_call, flat)
+    return {
+        key for i, key in enumerate(keys)
+        if _propagate(graph, [j == i for j in range(len(flat))])
+    }
+
+
+def _lagrangian(fns, nF: int, nG: int, penv):
+    def lagr(u, nu, lam, s_ineq, s_cost):
+        val = s_cost * fns.f(u, penv)
+        if nF > 0:
+            val = val - lam @ (s_ineq * fns.F(u, penv))
+        if nG > 0:
+            val = val + nu @ fns.G(u, penv)
+        return val
+
+    return lagr
+
+
+def _dummies(nU: int, nF: int, nG: int, dt, param_shapes):
+    penv = {k: torch.zeros(s, dtype=dt) for k, s in param_shapes.items()}
+    return (
+        penv, torch.zeros(nU, dtype=dt), torch.zeros(nG, dtype=dt),
+        torch.ones(nF, dtype=dt), torch.ones(nF, dtype=dt),
+        torch.ones((), dtype=dt),
+    )
+
+
+def analyze_scale_free(fns, nU: int, nF: int, nG: int, dt, param_shapes,
+                       taint_ineq: bool, taint_cost: bool) -> bool:
+    """True if the Lagrangian Hessian d2L/du2 is independent of the
+    runtime scaling factors (scale_ineq, scale_cost) IN ADDITION to the
+    iterates.  ``taint_ineq`` / ``taint_cost``: whether the respective
+    scale actually varies at run time."""
+    penv, u, nu, lam, s_ineq, s_cost = _dummies(nU, nF, nG, dt, param_shapes)
+    lagr = _lagrangian(fns, nF, nG, penv)
+    n_taint = 3 + int(taint_ineq) + int(taint_cost)
+    args = [u, nu, lam]
+    if taint_ineq:
+        args.append(s_ineq)
+    if taint_cost:
+        args.append(s_cost)
+
+    def Hfun(*a):
+        si = a[3] if taint_ineq else s_ineq
+        sc = a[3 + int(taint_ineq)] if taint_cost else s_cost
+        return torch.func.jacfwd(torch.func.grad(lagr, argnums=0), argnums=0)(
+            a[0], a[1], a[2], si, sc
+        )
+
+    return output_independent_of(Hfun, n_taint, *args)
+
+
+def analyze_hoistable(fns, nU: int, nF: int, nG: int, dt, param_shapes):
+    """Decide which IPM derivative matrices are iteration-invariant.
+
+    Returns ``(h_const, fu_const, gu_const)`` for the Lagrangian Hessian
+    d2L/du2 (w.r.t. u, nu, lam jointly) and the constraint Jacobians
+    dF/du, dG/du (w.r.t. u).  Zeros stand in for the parameter values
+    (the analysis is shape-only)."""
+    penv, u, nu, lam, s_ineq, s_cost = _dummies(nU, nF, nG, dt, param_shapes)
+    lagr = _lagrangian(fns, nF, nG, penv)
+    jac = torch.func.jacfwd
+    h_const = output_independent_of(
+        jac(torch.func.grad(lagr, argnums=0), argnums=0),
+        3, u, nu, lam, s_ineq, s_cost,
+    )
+    fu_const = nF > 0 and output_independent_of(
+        lambda uu: jac(lambda v: fns.F(v, penv))(uu), 1, u
+    )
+    gu_const = nG > 0 and output_independent_of(
+        lambda uu: jac(lambda v: fns.G(v, penv))(uu), 1, u
+    )
+    return h_const, bool(fu_const), bool(gu_const)

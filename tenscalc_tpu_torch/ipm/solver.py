@@ -1,0 +1,844 @@
+"""Primal-dual interior-point method over an explicit batch dimension
+(port of ``tenscalc_tpu/ipm/solver.py``).
+
+The JAX package runs ``vmap`` of a ``lax.while_loop`` whose finished
+instances are frozen by ``lax.cond(st.done)``, and the in-iteration
+``addEye2Hessian`` adaptation loop runs until no instance needs a
+retry.  Here both loops are Python loops over a leading batch dimension
+B: every tensor of the state carries it, per-instance masks decide what
+each instance keeps (``torch.where``), and a single solve is B = 1
+through the same code.  Instances that are done, or stop at this
+iteration, are computed with the rest and discarded, as under ``vmap``.
+
+This slice ports the path the flagship MPC fleet takes: the condensed
+standard Newton matrix with hoisted (iteration-invariant) derivatives,
+assembled directly into band storage (``BandKKT``, band mode 'hoisted')
+and factored by the fleet banded LDL^T; the Mehrotra predictor/
+corrector; the ``addEye2Hessian`` adaptation with the relative float32
+direction-error gate and the progress guard; both line searches; the mu
+schedule; the CG nu-initializer; and the exit tests and final status
+flags.  The dense condensed assembly is ported for the structure probe.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+from torch.func import grad, jacfwd, vmap
+
+from ..kkt.dense import hdot, hdotT
+from .options import SolverOptions
+
+STEPBACK = 0.99  # reference: stepback=.99, lib/ipmPD_CSsolver.c:174
+K_ADAPT = 14     # x10 bumps enough to climb 1e-9 -> 1e2 in one iteration
+
+
+class IPMFunctions(NamedTuple):
+    """Problem callables of one instance: (u, penv) -> tensor."""
+
+    f: Callable  # scalar objective
+    F: Callable  # (nF,) inequality constraints (>= 0)
+    G: Callable  # (nG,) equality residuals (== 0)
+
+
+class IPMState(NamedTuple):
+    """Solver state; every field has the batch as its leading dimension."""
+
+    u: torch.Tensor
+    nu: torch.Tensor
+    lam: torch.Tensor
+    mu: torch.Tensor
+    addU: torch.Tensor
+    addEq: torch.Tensor
+    addU_next: torch.Tensor
+    addEq_next: torch.Tensor
+    alphaPrimal: torch.Tensor
+    alphaDualIneq: torch.Tensor
+    alphaDualEq: torch.Tensor
+    status: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    derr_prev: torch.Tensor
+    inc_prev: torch.Tensor
+
+
+class IPMResult(NamedTuple):
+    u: torch.Tensor
+    nu: torch.Tensor
+    lam: torch.Tensor
+    mu: torch.Tensor
+    status: torch.Tensor
+    iters: torch.Tensor
+    norminf_grad: torch.Tensor
+    norminf_eq: torch.Tensor
+    gap: torch.Tensor
+    f: torch.Tensor
+    addU: torch.Tensor
+    addEq: torch.Tensor
+    scale_ineq: torch.Tensor
+    scale_cost: torch.Tensor
+
+
+class Direction(NamedTuple):
+    dU: torch.Tensor
+    dNu: torch.Tensor
+    dLambda: torch.Tensor
+    derr: torch.Tensor       # ||WW dx - b||_inf
+    curvature: torch.Tensor  # dU' WW11 dU
+    mp: torch.Tensor         # positive inertia count (useInertia only)
+    mn: torch.Tensor         # negative inertia count (useInertia only)
+    mu_new: torch.Tensor     # sigma-updated mu (Mehrotra); mu when skipAffine
+    sigma_fired: torch.Tensor
+    bscale: torch.Tensor     # scale the f32 direction-error gate is relative to
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Field-wise ``where(mask, a, b)`` of two NamedTuples of batched
+    tensors; ``mask`` is (B,)."""
+    out = []
+    for x, y in zip(a, b):
+        m = mask.view((-1,) + (1,) * (x.dim() - 1))
+        out.append(torch.where(m, x, y))
+    return type(a)(*out)
+
+
+def _norminf(x: torch.Tensor) -> torch.Tensor:
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape[:-1])
+    return x.abs().amax(dim=-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(dim=-1)
+
+
+def _clp(x: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """max{alpha >= 0 : x + alpha dx >= 0} per instance, x > 0."""
+    neg = dx < 0
+    ratio = torch.where(neg, -x / torch.where(neg, dx, -1.0), math.inf)
+    return ratio.amin(dim=-1)
+
+
+def _first_true(ok: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none)."""
+    return torch.argmax(ok.to(torch.float32), dim=-1, keepdim=True)
+
+
+def _recip(c: float, dt, dev) -> torch.Tensor:
+    """1/c rounded in the working type, as a 0-dim tensor."""
+    one = torch.ones((), dtype=dt, device=dev)
+    return one / torch.full((), c, dtype=dt, device=dev)
+
+
+def line_search_combined(minF_of_alpha, alpha_bt, opts: SolverOptions):
+    """Combined-direction backtracking search over a batched alpha grid
+    (lib/ipmPD_CSsolver.c:679-756).  ``alpha_bt`` (B,) is
+    min(stepback*maxAlpha, alphaMax); ``minF_of_alpha`` maps (B, C)
+    candidates to (B, C) values of min F.  Returns (alpha, nan_fail)."""
+    s = STEPBACK
+    K = opts.linesearch_points
+    dt, dev = alpha_bt.dtype, alpha_bt.device
+    # the reference's compiler turns x / c into x * (1/c), with 1/c
+    # rounded in the working type, and folds (x / s) * s into
+    # x * ((1/s) * s); the boundary tests below branch on roundings of
+    # zero, so the port forms the same numbers
+    inv_s = _recip(s, dt, dev)
+    inv_10 = _recip(10.0, dt, dev)
+    a1 = alpha_bt * inv_s
+    grid = alpha_bt[:, None] * 0.95 / (2.0 ** torch.arange(K, dtype=dt, device=dev))
+    cands = torch.cat(
+        [a1[:, None], torch.full_like(a1[:, None], opts.alphaMin / s), grid], dim=1
+    )
+    both = minF_of_alpha(torch.cat([cands, cands * s], dim=1))
+    vals, vals_sb = both[:, : K + 2], both[:, K + 2:]
+    ineq_a1, ineq_min = vals[:, 0], vals[:, 1]
+    ineq1_a1 = vals_sb[:, 0]
+    nan_fail = torch.isnan(ineq_a1)
+    accept_max = (ineq_a1 > 0) & (ineq1_a1 > ineq_a1 * inv_10)
+    gv, gs = vals[:, 2:], vals_sb[:, 2:]
+    ok = (gv > 0) & (gs > gv * inv_10) & (grid >= opts.alphaMin)
+    grid_alpha = torch.where(
+        ok.any(dim=1), grid.gather(1, _first_true(ok))[:, 0] * s, 0.0
+    )
+    alpha_else = torch.where(ineq_min > 0, grid_alpha, 0.0)
+    alpha = torch.where(accept_max, alpha_bt * (inv_s * s), alpha_else)
+    alpha = torch.where(alpha_bt >= opts.alphaMin, alpha, 0.0)
+    return alpha.to(dt), nan_fail
+
+
+def line_search_affine(minF_of_alpha, alpha_max_, opts: SolverOptions):
+    """Affine-direction search (lib/ipmPD_CSsolver.c:583-631)."""
+    K = opts.linesearch_points
+    dt, dev = alpha_max_.dtype, alpha_max_.device
+    grid = alpha_max_[:, None] * 0.95 / (2.0 ** torch.arange(K, dtype=dt, device=dev))
+    cands = torch.cat(
+        [alpha_max_[:, None], torch.full_like(alpha_max_[:, None], opts.alphaMin),
+         grid],
+        dim=1,
+    )
+    vals = minF_of_alpha(cands)
+    ok_max = vals[:, 0] >= 0
+    ok_min = vals[:, 1] > 0
+    ok = (vals[:, 2:] >= 0) & (grid >= opts.alphaMin)
+    grid_alpha = torch.where(ok.any(dim=1), grid.gather(1, _first_true(ok))[:, 0], 0.0)
+    alpha = torch.where(ok_max, alpha_max_, torch.where(ok_min, grid_alpha, 0.0))
+    alpha = torch.where(alpha_max_ >= opts.alphaMin, alpha, 0.0)
+    return alpha.to(dt)
+
+
+class BandKKT:
+    """Condensed KKT matrix of a batch in permuted lower-band storage,
+    with structured matvecs: the dense (nK, nK) matrix is never formed.
+
+    ``band`` is (B, nK, w+1) with band[b, c, i] = Wp[c+i, c] and
+    Wp = WW[perm][:, perm].  H, Fu, Gu are shared (2-D) or per instance
+    (3-D); ``dF`` (B, nF) are the barrier weights with the inequality
+    scaling folded in."""
+
+    __slots__ = ("band", "perm", "H", "Fu", "Gu", "dF", "addU", "addEq",
+                 "nU", "nG")
+
+    def __init__(self, band, perm, H, Fu, Gu, dF, addU, addEq, nU, nG):
+        self.band = band
+        self.perm = perm
+        self.H = H
+        self.Fu = Fu
+        self.Gu = Gu
+        self.dF = dF
+        self.addU = addU
+        self.addEq = addEq
+        self.nU = nU
+        self.nG = nG
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """WW @ x through the constituents, x (B, nK)."""
+        xu, xn = x[:, : self.nU], x[:, self.nU:]
+        yu = hdot(self.H, xu) + self.addU[:, None] * xu
+        yu = yu + hdotT(self.Fu, self.dF * hdot(self.Fu, xu))
+        if self.nG == 0:
+            return yu
+        yu = yu + hdotT(self.Gu, xn)
+        yn = hdot(self.Gu, xu) - self.addEq[:, None] * xn
+        return torch.cat([yu, yn], dim=1)
+
+    def abs_rowsum_max(self) -> torch.Tensor:
+        """Upper bound on max_i sum_j |WW[i, j]| per instance (the
+        backward-error scale), through the constituents."""
+        absFu = self.Fu.abs()
+        ru = self.H.abs().sum(dim=-1) + self.addU[:, None].abs()
+        ru = ru + hdotT(absFu, self.dF * absFu.sum(dim=-1))
+        m = ru.amax(dim=1)
+        if self.nG > 0:
+            absGu = self.Gu.abs()
+            ru_g = absGu.sum(dim=-2)
+            rn = absGu.sum(dim=-1) + self.addEq[:, None].abs()
+            m = torch.maximum(m, (ru + ru_g).amax(dim=1))
+            m = torch.maximum(m, rn.amax(dim=1))
+        return m
+
+
+def _band_of(W: torch.Tensor, perm: torch.Tensor, w: int) -> torch.Tensor:
+    """Lower band (..., n, w+1) of W[perm][:, perm]."""
+    Wp = W[..., perm, :][..., :, perm]
+    cols = [
+        Fn.pad(torch.diagonal(Wp, offset=-i, dim1=-2, dim2=-1), (0, i))
+        for i in range(w + 1)
+    ]
+    return torch.stack(cols, dim=-1)
+
+
+def _deferred(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP item {item})"
+    )
+
+
+def dense_condensed_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int,
+                        opts: SolverOptions):
+    """Single-instance dense condensed KKT assembly (the branch the
+    build-time structure probe reads):
+    ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``."""
+
+    def assemble(u, nu, lam, addU, addEq, penv, scale_ineq, scale_cost):
+        dt = u.dtype
+
+        def Fs(uu):
+            return scale_ineq * fns.F(uu, penv)
+
+        def Gs(uu):
+            return fns.G(uu, penv)
+
+        def lagr(uu, nn, ll):
+            val = scale_cost * fns.f(uu, penv)
+            if nF > 0:
+                val = val - ll @ Fs(uu)
+            if nG > 0:
+                val = val + nn @ Gs(uu)
+            return val
+
+        H = jacfwd(grad(lagr, argnums=0), argnums=0)(u, nu, lam)
+        H = 0.5 * (H + H.T)
+        WW = H + addU * torch.eye(nU, dtype=dt)
+        if nF > 0:
+            Fu = jacfwd(Fs)(u)
+            Fval = Fs(u)
+            Fdiv = Fval if dt == torch.float64 else torch.clamp(Fval, min=1e-8)
+            WW = WW + Fu.T @ ((lam / Fdiv)[:, None] * Fu)
+        if nG == 0:
+            return WW
+        Gu = jacfwd(Gs)(u)
+        return torch.cat(
+            [torch.cat([WW, Gu.T], dim=1),
+             torch.cat([Gu, -addEq * torch.eye(nG, dtype=dt)], dim=1)],
+            dim=0,
+        )
+
+    return assemble
+
+
+def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
+              opts: SolverOptions, kkt_solver, hoist, band_plan,
+              hoist_scale_free: bool = False, hoist_param_deps=None):
+    """Build the batched ``solve`` function for a problem.
+
+    ``solve(u0, penv, shared, mu0, max_iter, addU0, addEq0)``: ``u0`` is
+    (B, nU); each ``penv`` entry has a leading batch dimension except the
+    parameters named in ``shared``, which every instance shares.
+
+    ``hoist`` = (H, Fu, Gu) iteration-invariance flags from
+    :func:`tenscalc_tpu_torch.ipm.hoist.analyze_hoistable`."""
+    hoist_H, hoist_Fu, hoist_Gu = hoist
+    dt = opts.torch_dtype
+    f64 = dt == torch.float64
+    small = bool(opts.smallerNewtonMatrix)
+    if not small:
+        raise _deferred("the large/timesLambda Newton-matrix variants", "M7")
+    if opts.profiling or opts.allowSave:
+        raise _deferred("profiling and allowSave", "M17/M7")
+    nK = nU + nG
+    band_mode = (
+        band_plan is not None
+        and hoist_H
+        and hoist_Fu
+        and (nG == 0 or hoist_Gu)
+        and nF > 0
+        and kkt_solver is not None
+        and (hoist_scale_free or not (opts.scaleInequalities or opts.scaleCost > 0))
+    )
+    if not band_mode:
+        raise _deferred(
+            "a problem outside hoisted band mode (per-iteration band "
+            "assembly or a dense factorization)", "M7/M8",
+        )
+    mp_desired = float(nU)
+    mn_desired = float(nG)
+    adapt = opts.addEye2Hessian and opts.adjustAddEye2Hessian
+    F_affine = opts.linesearch_affine_F  # hoist_Fu holds in band mode
+    w_band = int(band_plan.bandwidth)
+    perm_np = np.asarray(band_plan.perm)
+
+    def _lagr(u, nu, lam, penv, si, sc):
+        Fv = si * fns.F(u, penv)
+        Gv = fns.G(u, penv) if nG > 0 else u.new_zeros(0)
+        val = sc * fns.f(u, penv)
+        if nF > 0:
+            val = val - lam @ Fv
+        if nG > 0:
+            val = val + nu @ Gv
+        return val, (Fv, Gv)
+
+    def solve(u0: torch.Tensor, penv, shared=frozenset(), mu0: float = 1.0,
+              max_iter: Optional[int] = None, addU0: float = 1e-9,
+              addEq0: float = 1e-9) -> IPMResult:
+        max_iter_v = opts.maxIter if max_iter is None else int(max_iter)
+        dev = u0.device
+        u0 = u0.to(dt)
+        B = u0.shape[0]
+        pdims = {k: (None if k in shared else 0) for k in penv}
+        shapes = {k: tuple(v.shape[0 if k in shared else 1:]) for k, v in penv.items()}
+        addU0 = addU0 if opts.addEye2Hessian else 0.0
+        addEq0 = addEq0 if opts.addEye2Hessian else 0.0
+
+        def full(v, dtype=dt):
+            return torch.full((B,), v, dtype=dtype, device=dev)
+
+        F_b = vmap(fns.F, in_dims=(0, pdims))
+        f_b = vmap(fns.f, in_dims=(0, pdims))
+        lagr_grad = vmap(
+            grad(_lagr, argnums=0, has_aux=True),
+            in_dims=(0, 0, 0, pdims, 0, 0),
+        )
+
+        # scaling factors, computed once at the initial point
+        F0 = F_b(u0, penv)
+        if opts.scaleInequalities:
+            scale_ineq = torch.abs(1.0 / F0).to(dt)
+        else:
+            scale_ineq = torch.ones_like(F0)
+        if opts.scaleCost > 0:
+            scale_cost = torch.abs(opts.scaleCost / f_b(u0, penv)).to(dt)
+            desired_gap = opts.desiredDualityGap * scale_cost
+        else:
+            scale_cost = full(1.0)
+            desired_gap = full(opts.desiredDualityGap)
+        mu_min = desired_gap / max(nF, 1) / 2.0
+        si, sc = scale_ineq, scale_cost
+
+        def Fs(u):
+            return si * F_b(u, penv)
+
+        # dual initialization: lam = mu0 / F; nu by CG on the normal
+        # equations (Gu Gu' + eps I) nu = Gu (Fu' lam - f_u)
+        lam0 = mu0 / (si * F0)
+        if nG > 0:
+            Gu0 = vmap(jacfwd(fns.G), in_dims=(0, pdims))(u0, penv)
+            Fu0 = si[:, :, None] * vmap(jacfwd(fns.F), in_dims=(0, pdims))(u0, penv)
+            f_u0 = vmap(grad(lambda uu, pe, c: c * fns.f(uu, pe)),
+                        in_dims=(0, pdims, 0))(u0, penv, sc)
+            btop = hdotT(Fu0, lam0) - f_u0
+            rhs0 = hdot(Gu0, btop)
+            eps0 = max(addEq0, 1e-8)
+            Mdiag = (Gu0 * Gu0).sum(dim=2) + eps0
+            x, r = torch.zeros_like(rhs0), rhs0
+            p = rhs0 / Mdiag
+            rz = _dot(rhs0, p)
+            for _ in range(min(2 * nG, 100)):
+                Ap = hdot(Gu0, hdotT(Gu0, p)) + eps0 * p
+                alpha = rz / torch.clamp(_dot(p, Ap), min=1e-30)
+                x = x + alpha[:, None] * p
+                r = r - alpha[:, None] * Ap
+                z = r / Mdiag
+                rz_new = _dot(r, z)
+                beta = rz_new / torch.clamp(rz, min=1e-30)
+                p = z + beta[:, None] * p
+                rz = rz_new
+            nu0 = x
+        else:
+            nu0 = u0.new_zeros(B, 0)
+
+        # hoisted derivatives at a dummy iterate with unit scales and the
+        # value-irrelevant parameters masked to zeros: with every
+        # remaining dependency shared they are computed once, unbatched
+        h_deps, fu_deps, gu_deps = (
+            hoist_param_deps if hoist_param_deps is not None else (None,) * 3
+        )
+
+        def hoisted(fn, deps):
+            keep = [k for k in penv if deps is None or k in deps]
+            env = {
+                k: (penv[k] if k in keep
+                    else torch.zeros(shapes[k], dtype=dt, device=dev))
+                for k in penv
+            }
+            if all(k in shared for k in keep):
+                return fn(env)
+            dims = {k: (0 if (k in keep and k not in shared) else None) for k in env}
+            return vmap(fn, in_dims=(dims,))(env)
+
+        u_d = torch.zeros(nU, dtype=dt, device=dev)
+        nu_d = torch.zeros(nG, dtype=dt, device=dev)
+        lam_d = torch.ones(nF, dtype=dt, device=dev)
+        ones_f = torch.ones(nF, dtype=dt, device=dev)
+        one_c = torch.ones((), dtype=dt, device=dev)
+
+        def H_of(env):
+            H0 = jacfwd(grad(lambda uu: _lagr(uu, nu_d, lam_d, env, ones_f, one_c)[0]))(u_d)
+            return 0.5 * (H0 + H0.transpose(-1, -2))
+
+        H = hoisted(H_of, h_deps)
+        Fu = hoisted(lambda env: jacfwd(lambda uu: fns.F(uu, env))(u_d), fu_deps)
+        if nG > 0:
+            Gu = hoisted(lambda env: jacfwd(lambda uu: fns.G(uu, env))(u_d), gu_deps)
+        else:
+            Gu = torch.zeros(0, nU, dtype=dt, device=dev)
+
+        # constant band of P [[H, Gu'], [Gu, 0]] P', and the per-diagonal
+        # pair products of the permuted UNSCALED Jacobian:
+        # band_F[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]
+        perm = torch.as_tensor(perm_np, device=dev)
+        lead = torch.broadcast_shapes(H.shape[:-2], Gu.shape[:-2])
+        Hb = H.expand(lead + H.shape[-2:])
+        Gb = Gu.expand(lead + Gu.shape[-2:])
+        Wconst = torch.cat(
+            [torch.cat([Hb, Gb.transpose(-1, -2)], dim=-1),
+             torch.cat([Gb, Gb.new_zeros(lead + (nG, nG))], dim=-1)],
+            dim=-2,
+        )
+        band_const = _band_of(Wconst, perm, w_band)
+        FuP = torch.cat([Fu, Fu.new_zeros(Fu.shape[:-1] + (nG,))], dim=-1)[..., perm]
+        FuPP = torch.stack(
+            [Fn.pad(FuP[..., i:] * FuP[..., : nK - i], (0, i))
+             for i in range(w_band + 1)],
+            dim=-2,
+        )  # (..., nF, w+1, nK)
+        FuPP_flat = FuPP.reshape(FuPP.shape[:-2] + ((w_band + 1) * nK,))
+        bmask_u = (perm < nU).to(dt)
+        bmask_g = (perm >= nU).to(dt)
+
+        def barrier_band(ds):
+            if FuPP_flat.dim() == 2:
+                flat = ds @ FuPP_flat
+            else:
+                flat = torch.bmm(ds.unsqueeze(1), FuPP_flat).squeeze(1)
+            return flat.view(B, w_band + 1, nK).transpose(1, 2)
+
+        def fu_mv(x):
+            return si * hdot(Fu, x)
+
+        def fuT_mv(y):
+            return hdotT(Fu, si * y)
+
+        def exit_metrics(st: IPMState):
+            grad_u, (Fval, Gval) = lagr_grad(st.u, st.nu, st.lam, penv, si, sc)
+            return (
+                _norminf(grad_u), _norminf(Gval), _dot(st.lam, Fval),
+                Fval.amin(dim=1), st.lam.amin(dim=1), (grad_u, Fval, Gval),
+            )
+
+        def compute_direction(u, nu, lam, mu, addU, addEq, cached,
+                              mehrotra_mu) -> Direction:
+            grad_u, Fval, Gval = cached
+            Fdiv = Fval if f64 else torch.clamp(Fval, min=1e-8)
+            muF = mu[:, None] / Fdiv
+            dF = lam / Fdiv
+            ds = dF * si * si
+            bandv = band_const + barrier_band(ds)
+            bandv[:, :, 0] += addU[:, None] * bmask_u - addEq[:, None] * bmask_g
+            WW = BandKKT(bandv, perm, H, Fu, Gu, ds, addU, addEq, nU, nG)
+
+            def lpg_mv(x):
+                return dF * fu_mv(x)
+
+            fac = kkt_solver(WW)
+            mu_new = mu
+            sigma_fired = torch.zeros(B, dtype=torch.bool, device=dev)
+            if not opts.skipAffine:
+                b_a = torch.cat([-grad_u - fuT_mv(lam), -Gval], dim=1)
+                dx_a = fac._solve32(b_a).to(dt)
+                dU_a = dx_a[:, :nU]
+                dLambda_a = -lpg_mv(dU_a) - lam
+                use_corr = torch.ones_like(mu)
+                if mehrotra_mu is not None:
+                    mu_new, sigma_fired = mehrotra_mu(dU_a, dLambda_a, Fval)
+                    use_corr = sigma_fired.to(dt)
+                muF_c = mu_new[:, None] / Fdiv
+                Meh = use_corr[:, None] * fu_mv(dU_a) * dLambda_a / Fdiv
+                r1 = -grad_u - fuT_mv(lam - muF_c + Meh)
+            else:
+                muF_c = muF
+                r1 = -grad_u - fuT_mv(lam - muF)
+            b = torch.cat([r1, -Gval], dim=1)
+            dx = fac.solve(b)
+            dU, dNu = dx[:, :nU], dx[:, nU:]
+            dLambda = muF_c - lpg_mv(dU) - lam
+            if not opts.skipAffine:
+                dLambda = dLambda - Meh
+            derr = _norminf(WW.matvec(dx) - b)
+            curvature = _dot(dU, hdot(H, dU) + addU[:, None] * dU)
+            if opts.useInertia:
+                # after the solves: reuses their factor, never launches K3
+                mp, mn = fac.inertia()
+            else:
+                mp = mn = torch.zeros_like(mu)
+            if f64:
+                bscale = _norminf(b)
+            else:
+                # backward-error scale bound ||WW||_inf ||dx||_inf + ||b||
+                bscale = WW.abs_rowsum_max() * _norminf(dx) + _norminf(b)
+            return Direction(dU, dNu, dLambda, derr, curvature, mp, mn,
+                             mu_new, sigma_fired, bscale)
+
+        # x + a * d is formed with one rounding (addcmul), as XLA fuses
+        # it: the step to the boundary makes min F(u + a dU) a rounding
+        # of zero, and the line search branches on its sign
+        def min_F(Fval, FdU, u, dU):
+            """(B, C) candidates -> (B, C) values of min F(u + a dU)."""
+            if F_affine:
+                def fn(alpha):
+                    return torch.addcmul(
+                        Fval[:, None, :], alpha[:, :, None], FdU[:, None, :]
+                    ).amin(-1)
+            else:
+                def fn(alpha):
+                    return torch.stack(
+                        [Fs(u + alpha[:, j: j + 1] * dU).amin(dim=1)
+                         for j in range(alpha.shape[1])],
+                        dim=1,
+                    )
+            return fn
+
+        def iterate(st: IPMState, ng, ne, gap, cached, run) -> IPMState:
+            u, nu, lam, mu = st.u, st.nu, st.lam, st.mu
+            addU, addEq = st.addU, st.addEq
+
+            def mehrotra_mu(dU_a, dLambda_a, Fval_):
+                # affine line search + sigma = rho^delta mu update,
+                # applied before the combined solve
+                # (lib/ipmPD_CSsolver.c:579-665)
+                FdU_a = fu_mv(dU_a)
+                aMax = torch.minimum(
+                    torch.clamp(_clp(Fval_, FdU_a), max=opts.alphaMax),
+                    _clp(lam, dLambda_a),
+                )
+                alpha_a = line_search_affine(min_F(Fval_, FdU_a, u, dU_a), aMax, opts)
+                if F_affine:
+                    newF_a = torch.addcmul(Fval_, alpha_a[:, None], FdU_a)
+                else:
+                    newF_a = Fs(u + alpha_a[:, None] * dU_a)
+                newLam_a = torch.addcmul(lam, alpha_a[:, None], dLambda_a)
+                rho = _dot(newF_a, newLam_a) / gap
+                sigma = torch.clamp(rho, 0.0, 1.0) ** opts.delta
+                eq_ok = (
+                    torch.ones_like(run) if nG == 0
+                    else (ne < 100 * opts.equalTolerance) | (ne < 1e-3)
+                )
+                do_sigma = (alpha_a > opts.alphaMax / 2) & eq_ok
+                # one iteration may cut mu by at most
+                # min(muFactorAggressive, sqrt(mu))
+                mu_floor = mu * torch.clamp(torch.sqrt(mu), max=opts.muFactorAggressive)
+                mu_c = torch.where(
+                    do_sigma,
+                    torch.maximum(torch.maximum(sigma * gap / nF, mu_floor), mu_min),
+                    mu,
+                )
+                return mu_c, do_sigma
+
+            meh = mehrotra_mu if not opts.skipAffine else None
+
+            def direction(aU, aE):
+                return compute_direction(u, nu, lam, mu, aU, aE, cached, meh)
+
+            addU_next, addEq_next = addU, addEq
+            inc_state = torch.zeros_like(run)
+            if not adapt:
+                dirn = direction(addU, addEq)
+            else:
+                MIN, MAX = opts.addEye2HessianMIN, opts.addEye2HessianMAX
+
+                def is_good(d):
+                    g = d.curvature > 0
+                    if opts.useInertia:
+                        g |= (d.mp == mp_desired) & (d.mn == mn_desired)
+                    return g & torch.isfinite(d.derr) & torch.isfinite(d.bscale)
+
+                # solve at least once; retry an instance whose direction
+                # is bad with a larger regularization: finite-but-bad
+                # directions retry once, non-finite ones keep climbing
+                k = torch.zeros(B, dtype=torch.int32, device=dev)
+                need = run.clone()
+                dirn = None
+                while bool(need.any()):
+                    d = direction(addU, addEq)
+                    finite = torch.isfinite(d.derr) & torch.isfinite(d.bscale)
+                    retry = ~is_good(d) & torch.where(finite, k == 0, k < K_ADAPT)
+                    if opts.useInertia:
+                        few_pos = d.mp < mp_desired
+                        facU = torch.where(few_pos, 10.0, 2.0).to(dt)
+                        facE = torch.where(few_pos, 2.0, 10.0).to(dt)
+                    else:
+                        facU = facE = 10.0
+                    aU2 = torch.where(
+                        retry & (addU < MAX),
+                        torch.clamp(facU * torch.clamp(addU, min=MIN), max=MAX), addU,
+                    )
+                    aE2 = torch.where(
+                        retry & (addEq < MAX),
+                        torch.clamp(facE * torch.clamp(addEq, min=MIN), max=MAX), addEq,
+                    )
+                    dirn = d if dirn is None else _select(need, d, dirn)
+                    k = torch.where(need, k + 1, k)
+                    addU = torch.where(need, aU2, addU)
+                    addEq = torch.where(need, aE2, addEq)
+                    need = need & retry
+                was_retry = k > 1
+
+                # delayed adjustment for the next iteration: absolute 1e-6
+                # gate in f64, relative to the backward-error scale in f32
+                derr = dirn.derr
+                if f64:
+                    derr_gate = torch.full_like(derr, opts.maxDirectionError)
+                else:
+                    derr_gate = opts.maxDirectionError * torch.clamp(
+                        torch.clamp(dirn.bscale, max=1e30), min=1.0
+                    )
+                dec = derr < derr_gate
+                inc_guard = torch.ones_like(run)
+                if not f64:
+                    # progress guard: raising again after a raise that did
+                    # not halve derr cannot help
+                    inc_guard = (~st.inc_prev) | (derr < 0.5 * st.derr_prev)
+                inc = ~(derr <= derr_gate) & inc_guard
+                addU_next = torch.where(
+                    dec & (addU > MIN), torch.clamp(0.75 * addU, min=MIN), addU
+                )
+                addU_next = torch.where(
+                    inc & (addU < MAX),
+                    torch.clamp(10.0 * torch.clamp(addU, min=MIN), max=MAX), addU_next,
+                )
+                addEq_next = torch.where(
+                    dec & (addEq > MIN), torch.clamp(0.75 * addEq, min=MIN), addEq
+                )
+                addEq_next = torch.where(
+                    inc & (addEq < MAX),
+                    torch.clamp(10.0 * torch.clamp(addEq, min=MIN), max=MAX), addEq_next,
+                )
+                addU_next = torch.where(was_retry, addU, addU_next)
+                addEq_next = torch.where(was_retry, addEq, addEq_next)
+                inc_state = inc
+
+            _, Fval, _ = cached
+            dU, dNu, dLambda = dirn.dU, dirn.dNu, dirn.dLambda
+            FdU = fu_mv(dU)
+            maxAlphaDualIneq = _clp(lam, dLambda)
+            alphaP = _clp(Fval, FdU)
+            if opts.coupledAlphas:
+                alphaP = torch.minimum(alphaP, maxAlphaDualIneq)
+            alpha_bt = torch.clamp(alphaP * STEPBACK, max=opts.alphaMax)
+            alphaPrimal, nan_fail = line_search_combined(
+                min_F(Fval, FdU, u, dU), alpha_bt, opts
+            )
+            if opts.coupledAlphas:
+                alphaDualIneq = alphaDualEq = alphaPrimal
+            else:
+                alphaDualIneq = torch.minimum(maxAlphaDualIneq * STEPBACK, alpha_bt)
+                alphaDualEq = alphaDualIneq
+            new_u = torch.addcmul(u, alphaPrimal[:, None], dU)
+            new_nu = torch.addcmul(nu, alphaDualEq[:, None], dNu)
+            new_lam = torch.addcmul(lam, alphaDualIneq[:, None], dLambda)
+
+            # mu schedule (lib/ipmPD_CSsolver.c:782-859): the update with
+            # skipAffine, the fallback when the sigma update did not fire
+            th_grad = ng < max(1e-6, opts.gradTolerance)
+            th_eq = (
+                torch.ones_like(run) if nG == 0
+                else ne < max(1e-5, opts.equalTolerance)
+            )
+            aggressive = (alphaPrimal > alpha_bt / 2) & th_grad & th_eq
+            mu_aggr = torch.maximum(
+                mu * torch.clamp(torch.sqrt(mu), max=opts.muFactorAggressive), mu_min
+            )
+            tiny_alpha = alphaPrimal < 0.1
+            mu_tiny = torch.clamp(mu * 1.1, max=mu0)
+            conservative = (alphaPrimal > 0.99) & th_eq
+            mu_cons = torch.maximum(mu * opts.muFactorConservative, mu_min)
+            mu_sched = torch.where(
+                aggressive, mu_aggr,
+                torch.where(tiny_alpha, mu_tiny, torch.where(conservative, mu_cons, mu)),
+            )
+            if opts.skipAffine:
+                new_mu = mu_sched
+                new_lam = torch.where(
+                    tiny_alpha[:, None], mu_tiny[:, None] / Fs(new_u), new_lam
+                )
+            else:
+                new_mu = torch.where(dirn.sigma_fired, dirn.mu_new, mu_sched)
+            stalled = (
+                (alphaPrimal < opts.alphaMin)
+                & (alphaDualIneq < opts.alphaMin)
+                & (alphaDualEq < opts.alphaMin)
+            )
+            new_mu = torch.where(
+                stalled,
+                torch.maximum(new_mu / opts.muFactorConservative ** 2, mu_min),
+                new_mu,
+            )
+            done = nan_fail
+            keep = done[:, None]
+            return IPMState(
+                u=torch.where(keep, u, new_u),
+                nu=torch.where(keep, nu, new_nu),
+                lam=torch.where(keep, lam, new_lam),
+                mu=new_mu, addU=addU, addEq=addEq,
+                addU_next=addU_next, addEq_next=addEq_next,
+                alphaPrimal=alphaPrimal, alphaDualIneq=alphaDualIneq,
+                alphaDualEq=alphaDualEq,
+                status=torch.where(nan_fail, 4, 0).to(torch.int32),
+                it=st.it, done=done,
+                derr_prev=dirn.derr.to(dt), inc_prev=inc_state,
+            )
+
+        def infeasible(v):
+            # f32: a legitimately active constraint rounds to 0 or -eps
+            return v <= 0 if f64 else v < -1e-6
+
+        def step(st: IPMState) -> IPMState:
+            it = st.it + 1
+            addU, addEq = st.addU_next, st.addEq_next
+            ng, ne, gap, ineq, dual, cached = exit_metrics(st)
+            status = torch.zeros(B, dtype=torch.int32, device=dev)
+            fail_maxiter = it > max_iter_v
+            status = torch.where(fail_maxiter, 8, status)
+            fail_nan = torch.isnan(ng)
+            status = torch.where(fail_nan & (status == 0), 4, status)
+            fail_ineq = infeasible(ineq)
+            status = torch.where(fail_ineq & (status == 0), 1, status)
+            fail_dual = infeasible(dual)
+            status = torch.where(fail_dual & (status == 0), 2, status)
+            converged = (ng <= opts.gradTolerance) & (gap <= desired_gap)
+            if nG > 0:
+                converged &= ne <= opts.equalTolerance
+            if adapt:
+                converged &= addU <= opts.addEye2HessianUtolerance
+            early = fail_maxiter | fail_nan | fail_ineq | fail_dual | converged
+            stop = st._replace(
+                it=it, addU=addU, addEq=addEq, addU_next=addU, addEq_next=addEq,
+                status=status.to(torch.int32), done=torch.ones_like(st.done),
+            )
+            run = ~st.done & ~early
+            if bool(run.any()):
+                new = iterate(
+                    st._replace(it=it, addU=addU, addEq=addEq),
+                    ng, ne, gap, cached, run,
+                )
+                stop = _select(run, new, stop)
+            return _select(st.done, st, stop)
+
+        st = IPMState(
+            u=u0, nu=nu0, lam=lam0, mu=full(mu0),
+            addU=full(addU0), addEq=full(addEq0),
+            addU_next=full(addU0), addEq_next=full(addEq0),
+            alphaPrimal=full(0.0), alphaDualIneq=full(0.0), alphaDualEq=full(0.0),
+            status=full(0, torch.int32), it=full(0, torch.int32),
+            done=full(False, torch.bool),
+            derr_prev=full(math.inf), inc_prev=full(False, torch.bool),
+        )
+        while not bool(st.done.all()):
+            st = step(st)
+
+        # status completion when maxIter was reached
+        # (lib/ipmPD_CSsolver.c:885-920)
+        ng, ne, gap, _, _, _ = exit_metrics(st)
+        status = st.status
+        is8 = status == 8
+
+        def add_flag(cond, flag, s):
+            return torch.where(is8 & cond, s | flag, s)
+
+        status = add_flag(ng > opts.gradTolerance, 16, status)
+        if nG > 0:
+            status = add_flag(ne > opts.equalTolerance, 32, status)
+        status = add_flag(gap > desired_gap, 64, status)
+        status = add_flag(st.mu > mu_min, 128, status)
+        aP, aDI, aDE = st.alphaPrimal, st.alphaDualIneq, st.alphaDualEq
+        negl = (aP <= opts.alphaMin) & (aDI < opts.alphaMin) & (aDE < opts.alphaMin)
+        small_a = (aP <= 0.1) & (aDI < 0.1) & (aDE < 0.1)
+        med_a = (aP <= 0.5) & (aDI < 0.5) & (aDE < 0.5)
+        status = add_flag(negl, 1792, status)
+        status = add_flag(~negl & small_a, 1536, status)
+        status = add_flag(~negl & ~small_a & med_a, 1024, status)
+        if adapt:
+            status = add_flag(st.addU > opts.addEye2HessianUtolerance, 2048, status)
+
+        return IPMResult(
+            u=st.u, nu=st.nu, lam=st.lam, mu=st.mu, status=status,
+            iters=st.it, norminf_grad=ng, norminf_eq=ne, gap=gap,
+            f=(sc * f_b(st.u, penv)) / sc, addU=st.addU, addEq=st.addEq,
+            scale_ineq=scale_ineq, scale_cost=scale_cost,
+        )
+
+    solve.band_mode = "hoisted"
+    return solve

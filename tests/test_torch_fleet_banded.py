@@ -1,0 +1,204 @@
+"""The port's fleet banded LDL^T (K1 factor+solve, K2 solve, K3 factor)
+held against the JAX package's entry points, which run their Pallas
+kernels in interpret mode on the CPU.  On the CPU the port's wrappers
+run the plain PyTorch versions of the CUDA kernels; the kernels
+themselves are held against those plain versions on the card by
+chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tenscalc_tpu.kkt import fleet_banded as jfb
+from tenscalc_tpu.kkt.dense import hdot as jhdot
+from tenscalc_tpu.kkt.structure import BandedPlan as JPlan
+from tenscalc_tpu_torch import expr as texpr
+from tenscalc_tpu_torch.kkt import fleet_banded as tfb
+from tenscalc_tpu_torch.kkt.structure import BandedPlan as TPlan
+
+torch.set_num_threads(1)
+
+# the plain versions perform the TPU kernels' operations in the same
+# order in float32; XLA fuses some multiply-adds, so results agree to a
+# few float32 roundings, not bitwise
+RTOL = ATOL = 1e-5
+CLAMP = 1e-7
+SHAPES = [(37, 1, 3), (69, 4, 5), (149, 4, 130), (60, 9, 3)]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_variables():
+    texpr.clear_variables()
+    yield
+    texpr.clear_variables()
+
+
+def _band(n, w, B, seed, zero_last_pivot=False):
+    """Symmetric-indefinite lower bands (B, n, w+1): diagonals of either
+    sign dominating their rows, zeros past the last row."""
+    rng = np.random.default_rng(seed)
+    band = rng.standard_normal((B, n, w + 1)).astype(np.float32)
+    sign = np.where(rng.random((B, n)) < 0.5, -1.0, 1.0)
+    band[:, :, 0] = sign * (2 * w + 1 + rng.random((B, n)))
+    for i in range(1, w + 1):
+        band[:, n - i:, i] = 0.0
+    if zero_last_pivot:
+        # an exactly zero pivot, untouched by the elimination, so the
+        # clamp decides it
+        band[:, n - 1, 0] = 0.0
+        for i in range(1, w + 1):
+            band[:, n - 1 - i, i] = 0.0
+    rhs = rng.standard_normal((B, n)).astype(np.float32)
+    return band, rhs
+
+
+CASES = [(n, w, B, False) for n, w, B in SHAPES] + [(37, 4, 3, True)]
+
+
+@pytest.mark.parametrize("n,w,B,zero_pivot", CASES)
+def test_plain_versions_match_jax_kernels(n, w, B, zero_pivot):
+    band, rhs = _band(n, w, B, seed=n + w + B, zero_last_pivot=zero_pivot)
+    jf, jx = jfb.fleet_banded_factor_solve_batched(
+        jnp.asarray(band), jnp.asarray(rhs), w, clamp=CLAMP
+    )
+    jf3 = jfb.fleet_banded_factor_batched(jnp.asarray(band), w, clamp=CLAMP)
+    jx2 = jfb.fleet_banded_solve_batched(jf, jnp.asarray(rhs), w)
+
+    tband, trhs = torch.from_numpy(band), torch.from_numpy(rhs)
+    tf, tx = tfb.fleet_banded_factor_solve_plain(tband, trhs, w, CLAMP)
+    tf3 = tfb.fleet_banded_factor_plain(tband, w, CLAMP)
+    tx2 = tfb.fleet_banded_solve_plain(tf, trhs, w)
+
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tf3.numpy(), np.asarray(jf3), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tx2.numpy(), np.asarray(jx2), rtol=RTOL, atol=ATOL)
+    if zero_pivot:
+        assert (tf[:, n - 1, 0] == CLAMP).all()
+
+
+def test_cpu_wrappers_run_plain_versions():
+    """A CPU tensor goes to the plain version and launches nothing."""
+    band, rhs = _band(69, 4, 5, seed=1)
+    tband, trhs = torch.from_numpy(band), torch.from_numpy(rhs)
+    before = dict(tfb.LAUNCHES)
+    f, x = tfb.fleet_banded_factor_solve_batched(tband, trhs, 4, CLAMP)
+    f3 = tfb.fleet_banded_factor_batched(tband, 4, CLAMP)
+    x2 = tfb.fleet_banded_solve_batched(f, trhs, 4)
+    pf, px = tfb.fleet_banded_factor_solve_plain(tband, trhs, 4, CLAMP)
+    assert torch.equal(f, pf) and torch.equal(x, px) and torch.equal(f3, pf)
+    assert torch.equal(x2, tfb.fleet_banded_solve_plain(pf, trhs, 4))
+    assert tfb.LAUNCHES == before
+
+
+def test_wrappers_reject_bad_inputs():
+    band, rhs = _band(20, 2, 2, seed=2)
+    tband, trhs = torch.from_numpy(band), torch.from_numpy(rhs)
+    with pytest.raises(ValueError):
+        tfb.fleet_banded_factor_batched(tband, 3)
+    with pytest.raises(TypeError):
+        tfb.fleet_banded_factor_batched(tband.double(), 2)
+    with pytest.raises(ValueError):
+        tfb.fleet_banded_solve_batched(tband, trhs[:, :5], 2)
+    with pytest.raises(ValueError):
+        tfb.fleet_banded_factor_batched(torch.zeros(2, 20, 18), 17)
+
+
+class _JaxOp:
+    """Single-instance operator in the JAX adapter's contract."""
+
+    def __init__(self, band, P, W):
+        self.band = jnp.asarray(band)
+        self.P = jnp.asarray(P)
+        self._W = jnp.asarray(W)
+
+    def matvec(self, x):
+        return jhdot(self._W, x)
+
+
+class _TorchOp:
+    """Batched operator in the port adapter's contract."""
+
+    def __init__(self, band, perm, W):
+        self.band = torch.from_numpy(band)
+        self.perm = torch.from_numpy(perm)
+        self._W = torch.from_numpy(W)
+
+    def matvec(self, x):
+        return torch.einsum("bij,bj->bi", self._W, x)
+
+
+def _kkt_fleet(n, w, B, seed):
+    """A fleet of symmetric band matrices in permuted order, with the
+    permutation and the dense matrices in original order."""
+    band, rhs = _band(n, w, B, seed)
+    perm = np.random.default_rng(seed).permutation(n).astype(np.int64)
+    Wp = np.zeros((B, n, n), np.float32)
+    for i in range(w + 1):
+        idx = np.arange(n - i)
+        Wp[:, idx + i, idx] = band[:, : n - i, i]
+        Wp[:, idx, idx + i] = band[:, : n - i, i]
+    W = np.empty_like(Wp)
+    W[:, perm[:, None], perm[None, :]] = Wp
+    iperm = np.argsort(perm)
+    plans = [
+        P(perm=perm, iperm=iperm, block=w, n_blocks=-(-n // w), n=n,
+          bandwidth=w, worthwhile=True)
+        for P in (JPlan, TPlan)
+    ]
+    return band, rhs, perm, W, plans
+
+
+def test_indexing_by_perm_equals_one_hot_product():
+    """The port permutes by index where the JAX adapter multiplies by a
+    one-hot matrix at HIGHEST precision: the values are identical."""
+    rng = np.random.default_rng(4)
+    n = 69
+    perm = rng.permutation(n)
+    P = np.eye(n, dtype=np.float32)[perm]
+    rhs = rng.standard_normal((5, n)).astype(np.float32)
+    one_hot = np.array(jnp.matmul(
+        jnp.asarray(P), jnp.asarray(rhs).T, precision="highest"
+    )).T
+    np.testing.assert_array_equal(
+        torch.from_numpy(rhs)[:, torch.from_numpy(perm)].numpy(), one_hot
+    )
+    back = np.asarray(jnp.matmul(
+        jnp.asarray(P).T, jnp.asarray(one_hot).T, precision="highest"
+    )).T
+    iperm = torch.argsort(torch.from_numpy(perm))
+    np.testing.assert_array_equal(
+        torch.from_numpy(one_hot)[:, iperm].numpy(), back
+    )
+
+
+def test_equilibration_and_adapter_match_jax():
+    n, w, B = 69, 4, 3
+    band, rhs, perm, W, (jplan, tplan) = _kkt_fleet(n, w, B, seed=5)
+    s_t = tfb._sym_equilibration(torch.from_numpy(band), n, w)
+    P = np.eye(n, dtype=np.float32)[perm]
+    top = _TorchOp(band, perm, W)
+    fac_t = tfb.FleetBandedFromBand(top, tplan, n_refine=1)
+    x_t = fac_t.solve(torch.from_numpy(rhs))
+    # inertia after a solve reuses its factor; before any solve it
+    # factors on its own (K3)
+    mp_t, mn_t = fac_t.inertia()
+    mp_t3, mn_t3 = tfb.FleetBandedFromBand(top, tplan).inertia()
+    for b in range(B):
+        s_j = jfb._sym_equilibration(jnp.asarray(band[b]), n, w)
+        np.testing.assert_allclose(s_t[b].numpy(), np.asarray(s_j), rtol=RTOL)
+        fac_j = jfb.FleetBandedFromBand(
+            _JaxOp(band[b], P, W[b]), jplan, n_refine=1
+        )
+        x_j = fac_j.solve(jnp.asarray(rhs[b]))
+        np.testing.assert_allclose(
+            x_t[b].numpy(), np.asarray(x_j), rtol=RTOL, atol=ATOL
+        )
+        mp_j, mn_j = fac_j.inertia()
+        assert (mp_t[b].item(), mn_t[b].item()) == (float(mp_j), float(mn_j))
+        assert (mp_t3[b].item(), mn_t3[b].item()) == (float(mp_j), float(mn_j))
+    # the solve is accurate, not just equal: refined residual
+    res = torch.from_numpy(rhs) - top.matvec(x_t)
+    assert res.abs().max().item() < 1e-4
