@@ -13,7 +13,17 @@ Phases:
      around it, then one single solve;
   4. cross-check: eight of the fleet's instances solved again by the port
      on the CPU (plain versions of the kernels);
-  5. a profile of one fleet solve (device busy share, top kernels).
+  5. a profile of one fleet solve (device busy share, top kernels);
+  6. kernels of slice 2: K9 (LU factor+solve), K10 (LU solve) and K11 (LU
+     factor) against their plain versions, at the MPC-MHE fleet's shapes
+     (B=1024, n=290, w=10) and ragged ones (B=1000, n=146, w=10 and
+     B=1000, n=69, w=3);
+  7. slice 2: the MPC-MHE equilibrium fleet (examples/mpcmhe_dcmotor,
+     T=12, L=16, B=1024, float32) through solve_many, with the launch
+     counts read around it, then one single solve;
+  8. its cross-check: 64 instances solved again on the CPU, and the card's
+     answers held to the exit tests there;
+  9. a profile of one MPC-MHE fleet solve.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -43,6 +53,8 @@ FLEET_B, FLEET_T = 1024, 30
 KERNEL_RTOL = 1e-5
 # the reference's batched-vs-single float32 tolerance on u
 U_ATOL = 2e-3
+# float32 objective of two solves inside the same convergence ball
+F_RTOL = 1e-3
 SOURCE = "tenscalc_tpu_torch/csrc/fleet_banded.cu"
 REPLACES = {
     "factor_solve": "tenscalc_tpu/kkt/fleet_banded.py:198",
@@ -51,6 +63,17 @@ REPLACES = {
 }
 NAMES = {"factor_solve": "K1 fleet_banded_factor_solve",
          "solve": "K2 fleet_banded_solve", "factor": "K3 fleet_banded_factor"}
+MMHE_B, MMHE_T, MMHE_L = 1024, 12, 16
+LU_SHAPE = (MMHE_B, 290, 10)  # the MPC-MHE fleet's stacked KKT band
+LU_SOURCE = "tenscalc_tpu_torch/csrc/banded_lu.cu"
+LU_REPLACES = {
+    "lu_factor_solve": "tenscalc_tpu/kkt/banded_lu.py:309",
+    "lu_solve": "tenscalc_tpu/kkt/banded_lu.py:252",
+    "lu_factor": "tenscalc_tpu/kkt/banded_lu.py:175",
+}
+LU_NAMES = {"lu_factor_solve": "K9 fleet_banded_lu_factor_solve",
+            "lu_solve": "K10 fleet_banded_lu_solve",
+            "lu_factor": "K11 fleet_banded_lu_factor"}
 
 
 def log(msg: str) -> None:
@@ -113,6 +136,116 @@ def bound(kind: str, B: int, n: int, w: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def reset_counts(*mods) -> None:
+    for m in mods:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def test_lu_band(B: int, n: int, w: int, seed: int):
+    """Unsymmetric bands (B, n, 2w+1) with rows dominated by diagonals of
+    either sign, zeros past the last row; and a right-hand side."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    band = torch.randn(B, n, 2 * w + 1, generator=g)
+    sign = torch.where(torch.rand(B, n, generator=g) < 0.5, -1.0, 1.0)
+    band[:, :, 0] = sign * (2 * w + 1 + torch.rand(B, n, generator=g))
+    for i in range(1, w + 1):
+        band[:, n - i:, i] = 0.0
+        band[:, n - i:, w + i] = 0.0
+    return band.cuda(), torch.randn(B, n, generator=g).cuda()
+
+
+def lu_bound(kind: str, B: int, n: int, w: int):
+    """Least time (ms) for the work of K9/K10/K11: bytes each input read
+    once and each output written once, and the float32 operations."""
+    R = 2 * w + 1
+    factor_ops = w + 2 * w * w + 2            # l = row / d, w^2 updates, clamp
+    solve_ops = 4 * w + 2                     # forward and backward rows
+    if kind == "lu_factor_solve":
+        nbytes, ops = 4 * (2 * B * n * R + 2 * B * n), factor_ops + solve_ops
+    elif kind == "lu_solve":
+        nbytes, ops = 4 * (B * n * R + 2 * B * n), solve_ops
+    else:
+        nbytes, ops = 4 * 2 * B * n * R, factor_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * n * ops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(mod, w: int) -> str:
+    """Registers a thread of a kernel library's three kernels at width
+    ``w``, from the ptxas report (-Xptxas -v) in its build log; fails on a
+    spill at any width."""
+    import re
+
+    from tenscalc_tpu_torch._build import build_log
+
+    regs, spills, name = {}, {}, None
+    for line in build_log(mod.LIB_PATH).read_text().splitlines():
+        m = re.search(r"Compiling entry function '.*\d((?:lu_)?(?:factor_solve|solve|factor)"
+                      r"_kernel)ILi(\d+)E", line)
+        if m:
+            name = (m.group(1), int(m.group(2)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    src = Path(mod.LIB_PATH).name
+    check(len(regs) == 3 * mod.MAX_W, f"{src}: ptxas reported {len(regs)} kernels")
+    check(not any(spills.values()), f"{src}: register spills: {spills}")
+    return ", ".join(f"{k} {r}" for (k, kw), r in sorted(regs.items()) if kw == w)
+
+
+def phase_lu_kernels(lu):
+    """K9-K11 against their plain versions; returns per-kernel records."""
+    recs = {k: {"max_abs_err": 0.0} for k in LU_REPLACES}
+    clamp = 1e-4
+    for B, n, w in (LU_SHAPE, (1000, 146, 10), (1000, 69, 3)):
+        band, rhs = test_lu_band(B, n, w, seed=n + w)
+        f9, x9 = lu.fleet_banded_lu_factor_solve_batched(band, rhs, w, clamp)
+        x10 = lu.fleet_banded_lu_solve_batched(f9, rhs, w)
+        f11 = lu.fleet_banded_lu_factor_batched(band, w, clamp)
+        pf, px = lu.fleet_banded_lu_factor_solve_plain(band, rhs, w, clamp)
+        px10 = lu.fleet_banded_lu_solve_plain(pf, rhs, w)
+        torch.cuda.synchronize()
+        errs = {
+            "lu_factor_solve": max((f9 - pf).abs().max().item(),
+                                   (x9 - px).abs().max().item()),
+            "lu_solve": (x10 - px10).abs().max().item(),
+            "lu_factor": (f11 - pf).abs().max().item(),
+        }
+        scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+        for k, e in errs.items():
+            check(np.isfinite(e) and e <= KERNEL_RTOL * scale,
+                  f"{k} at B={B} n={n} w={w}: max abs err {e}")
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+        bt = band.permute(1, 2, 0).contiguous()
+        rt = rhs.t().contiguous()
+        fbt, xt = torch.empty_like(bt), torch.empty_like(rt)
+        lu.launch_factor_solve(bt, rt, fbt, xt, w, clamp)
+        times = {
+            "lu_factor_solve": (
+                cuda_ms(lambda: lu.launch_factor_solve(bt, rt, fbt, xt, w, clamp), 50),
+                cuda_ms(lambda: lu.fleet_banded_lu_factor_solve_plain(band, rhs, w, clamp), 20)),
+            "lu_solve": (
+                cuda_ms(lambda: lu.launch_solve(fbt, rt, xt, w), 50),
+                cuda_ms(lambda: lu.fleet_banded_lu_solve_plain(pf, rhs, w), 20)),
+            "lu_factor": (
+                cuda_ms(lambda: lu.launch_factor(bt, fbt, w, clamp), 50),
+                cuda_ms(lambda: lu.fleet_banded_lu_factor_plain(band, w, clamp), 20)),
+        }
+        for k, (ms, plain_ms) in times.items():
+            bms, by = lu_bound(k, B, n, w)
+            log(f"[lu-kernels] {LU_NAMES[k]} B={B} n={n} w={w}: max_abs_err "
+                f"{errs[k]:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                f"bound {bms:.5f} ms ({by})")
+            if (B, n, w) == LU_SHAPE:
+                recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return recs
+
+
 def phase_kernels(fb):
     """K1-K3 against their plain versions; returns per-kernel records."""
     recs = {k: {"max_abs_err": 0.0} for k in REPLACES}
@@ -171,7 +304,7 @@ class _BandOnly:
         self.perm = perm
 
 
-def phase_slice(mpc, fb):
+def phase_slice(mpc, fb, lu):
     ns = "fleet_"
     solver = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32")
     check(solver.device.type == "cuda", "the default device is the card")
@@ -190,12 +323,12 @@ def phase_slice(mpc, fb):
         return res
 
     run()  # warm-up (first-call allocations)
-    for k in fb.LAUNCHES:
-        fb.LAUNCHES[k] = 0
+    reset_counts(fb, lu)
     t0 = time.perf_counter()
     res = run()
     wall = time.perf_counter() - t0
     launches = dict(fb.LAUNCHES)
+    check(not any(lu.LAUNCHES.values()), f"no LU kernel on the flagship path: {lu.LAUNCHES}")
     status = res.status.cpu().numpy()
     iters = res.iters.cpu().numpy()
     check(tuple(res.u.shape) == (FLEET_B, solver.nU), "u shape")
@@ -213,20 +346,19 @@ def phase_slice(mpc, fb):
 
     # K3 is off the fleet's path: it runs on a path of its own, the
     # adapter's inertia asked before any solve (the D-sign count of a
-    # fresh factorization), driven with every count at 0
+    # fresh factorization), driven with every count at 0; its count there
+    # is kept apart from the main path's
     band, _ = test_band(FLEET_B, solver.nU + solver.nG, 4, seed=3)
     op = _BandOnly(band, torch.as_tensor(solver.kkt_plan.perm, device="cuda"))
-    for k in fb.LAUNCHES:
-        fb.LAUNCHES[k] = 0
+    reset_counts(fb, lu)
     mp, mn = fb.FleetBandedFromBand(op, solver.kkt_plan).inertia()
     torch.cuda.synchronize()
     check(fb.LAUNCHES == {"factor_solve": 0, "solve": 0, "factor": 1},
           f"the inertia query ran K3 alone: {fb.LAUNCHES}")
-    fleet_k3 = launches["factor"]
-    launches["factor"] = fb.LAUNCHES["factor"]
+    entry_launches = {"factor": fb.LAUNCHES["factor"]}
     check(bool(((mp + mn) == op.band.shape[1]).all()), "inertia counts every pivot")
     log(f"[slice] inertia path on a flagship-shaped band: K3 launches "
-        f"{launches['factor']} (the fleet path: {fleet_k3})")
+        f"{entry_launches['factor']} (the fleet path: {launches['factor']})")
 
     one = {k: (v[0] if k in (ns + "ref", ns + "xinit") else v)
            for k, v in params.items()}
@@ -234,7 +366,7 @@ def phase_slice(mpc, fb):
                        mu0=1e-3, max_iter=100)
     check(sol.status == 0, f"single solve status {sol.describe()}")
     log(f"[slice] single solve: status 0, {sol.iters} iters, {sol.time:.4f} s")
-    return solver, params, inits, res, launches
+    return solver, params, inits, res, launches, entry_launches
 
 
 def phase_cross_check(mpc, params, inits, res):
@@ -254,12 +386,12 @@ def phase_cross_check(mpc, params, inits, res):
         f"cpu {r.iters.numpy().tolist()}")
 
 
-def phase_profile(solver, params, inits):
+def phase_profile(label: str, run_fleet):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve_many(params, inits=inits, mu0=1e-3, max_iter=100)
+        run_fleet()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel events only: operator events also carry their kernels' time
@@ -270,10 +402,123 @@ def phase_profile(solver, params, inits):
     }
     check(bool(dev_us), "the profiler saw device kernels")
     busy = sum(dev_us.values()) / 1e6
-    log(f"[profile] fleet solve under the profiler: wall {wall:.4f} s, device "
+    log(f"[{label}] fleet solve under the profiler: wall {wall:.4f} s, device "
         f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"[profile]   {v / 1e3:9.3f} ms  {k[:90]}")
+        log(f"[{label}]   {v / 1e3:9.3f} ms  {k[:90]}")
+
+
+def phase_mpcmhe(mm, fb, lu):
+    """Slice 2: the MPC-MHE equilibrium fleet on the card."""
+    ns = "mmhe_"
+    t0 = time.perf_counter()
+    solver = mm.build_solver(T=MMHE_T, L=MMHE_L, ns=ns, dtype="float32")
+    log(f"[slice2] solver built in {time.perf_counter() - t0:.1f} s")
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(solver._ipm_dims == (12, 30, 56, 24, 56, 0, 0, 56), "MPC-MHE sizes")
+    check(solver.kkt_backend_resolved == "fleet_banded_lu"
+          and solver._solve_raw.band_mode == "hoisted"
+          and solver.kkt_plan.n == 290 and solver.kkt_plan.bandwidth == 10,
+          "fleet banded LU, hoisted band, n=290, w=10")
+    params = mm.fleet_inputs(MMHE_T, MMHE_L, MMHE_B, ns, seed=0)
+
+    def run():
+        res = solver.solve_many(params, mu0=1e-3, max_iter=100)
+        torch.cuda.synchronize()
+        return res
+
+    run()  # warm-up (first-call allocations)
+    reset_counts(fb, lu)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(lu.LAUNCHES)
+    check(not any(fb.LAUNCHES.values()), f"no LDL kernel on the game path: {fb.LAUNCHES}")
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (MMHE_B, 98), "z shape")
+    check(bool(torch.isfinite(res.u).all()), "finite z")
+    check(int((status == 0).sum()) == MMHE_B,
+          f"all {MMHE_B} instances at status 0 (got {np.bincount(status)})")
+    check(launches["lu_factor_solve"] > 0 and launches["lu_solve"] > 0,
+          f"K9 and K10 ran on the main path: {launches}")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    log(f"[slice2] MPC-MHE fleet B={MMHE_B} T={MMHE_T} L={MMHE_L} f32: status 0 "
+        f"for all; iters max {iters.max()} mean {iters.mean():.2f}; wall "
+        f"{wall:.4f} s; {MMHE_B / wall:.1f} solves/s; launches {launches}; per "
+        f"lockstep iteration K9 {launches['lu_factor_solve'] / lockstep:.2f} "
+        f"K10 {launches['lu_solve'] / lockstep:.2f} "
+        f"K11 {launches['lu_factor'] / lockstep:.2f}")
+
+    # K11 is off the IPM path; its entry point (the JAX package's factor
+    # wrapper) is driven on its own, on a band of the fleet's shape, with
+    # every count at 0; its count there is kept apart from the main path's
+    band, _ = test_lu_band(*LU_SHAPE, seed=5)
+    reset_counts(fb, lu)
+    fband = lu.fleet_banded_lu_factor_batched(band, LU_SHAPE[2], 1e-4)
+    torch.cuda.synchronize()
+    check(lu.LAUNCHES == {"lu_factor_solve": 0, "lu_solve": 0, "lu_factor": 1},
+          f"the factor entry point ran K11 alone: {lu.LAUNCHES}")
+    check(bool(torch.isfinite(fband).all()), "finite K11 factor")
+    entry_launches = {"lu_factor": lu.LAUNCHES["lu_factor"]}
+    log(f"[slice2] factor entry point on an MPC-MHE-shaped band: K11 launches "
+        f"{entry_launches['lu_factor']} (the fleet path: {launches['lu_factor']})")
+
+    one = {k: (v[0] if k in (ns + "uPast", ns + "yPast", ns + "ref") else v)
+           for k, v in params.items()}
+    sol = solver.solve(one, mu0=1e-3, max_iter=100)
+    check(sol.status == 0, f"single solve status {sol.describe()}")
+    log(f"[slice2] single solve: status 0, {sol.iters} iters, {sol.time:.4f} s")
+    return solver, params, res, launches, entry_launches
+
+
+def phase_mpcmhe_cross_check(mm, params, res):
+    """64 of the card's MPC-MHE instances solved again on the CPU.
+
+    Status 0 stands for the exit tests (stationarity, equality and gap
+    within their tolerances), and that is what is held: both sides at
+    status 0 within one iteration of each other, and the card's answers,
+    evaluated again on the CPU from their final (z, nu, lam), pass the
+    exit tests.  uFuture is printed, not held: float32 solves of this
+    game that pass the gap test one update apart differ by a few 1e-3 in
+    uFuture, as much as an answer one update short of passing it."""
+    ns = "mmhe_"
+    per = (ns + "uPast", ns + "yPast", ns + "ref")
+    idx = np.arange(0, MMHE_B, MMHE_B // 64)
+    cpu = mm.build_solver(T=MMHE_T, L=MMHE_L, ns=ns, dtype="float32", device="cpu")
+    opts = cpu.opts
+    sub_p = {k: (v[idx] if k in per else v) for k, v in params.items()}
+    r = cpu.solve_many(sub_p, mu0=1e-3, max_iter=100)
+    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    m = {k: v.numpy() for k, v in cpu.exit_metrics(sub_p, card).items()}
+    st_gpu, st_cpu = card.status.cpu().numpy(), r.status.numpy()
+    it_gpu, it_cpu = card.iters.cpu().numpy(), r.iters.numpy()
+    du = np.abs(r.u.numpy()[:, :MMHE_T] - card.u.cpu().numpy()[:, :MMHE_T]).max(axis=1)
+    f_gpu, f_cpu = card.f.cpu().numpy(), r.f.numpy()
+    rel_df = np.abs(f_gpu - f_cpu) / np.abs(f_cpu)
+    same = it_gpu == it_cpu
+    check((st_gpu == 0).all() and (st_cpu == 0).all(), "status 0 on card and CPU")
+    check((np.abs(it_gpu - it_cpu) <= 1).all(), "iterations within one")
+    check(bool(np.isfinite(m["g"]).all() and (m["g"] <= opts.gradTolerance).all()),
+          f"card answers stationary on the CPU (max g {m['g'].max():.3e})")
+    check(bool((m["eq"] <= opts.equalTolerance).all()),
+          f"card answers feasible on the CPU (max |G| {m['eq'].max():.3e})")
+    check(bool((m["min_F"] > 0).all() and (m["min_lam"] > 0).all()),
+          "card answers strictly interior on the CPU")
+    # gap = lam . F is a sum of nF positive float32 products, each
+    # evaluation within (nF + 2) * 2^-24 of the exact value relative to it
+    nF = card.lam.shape[1]
+    gap_tol = opts.desiredDualityGap * (1 + 2 * (nF + 2) * 2.0**-24)
+    check(bool((m["gap"] <= gap_tol).all()),
+          f"card answers within the gap on the CPU (max {m['gap'].max():.6e})")
+    check(bool((rel_df <= F_RTOL).all()), f"objective within {F_RTOL} relative")
+    log(f"[cross-check2] {len(idx)} MPC-MHE instances on the CPU: status 0 on both; "
+        f"iterations equal on {int(same.sum())}, one apart on {int((~same).sum())}; "
+        f"the card's answers on the CPU: max g {m['g'].max():.3e} (tol "
+        f"{opts.gradTolerance}), max |G| {m['eq'].max():.3e}, max gap "
+        f"{m['gap'].max():.6e} (tol {opts.desiredDualityGap}); objective max rel "
+        f"diff {rel_df.max():.3e}; max |duFuture| {du[same].max(initial=0):.3e} "
+        f"at equal iterations, {du[~same].max(initial=0):.3e} one apart")
 
 
 def main() -> int:
@@ -283,28 +528,52 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from tenscalc_tpu_torch import native
     from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
+    from tenscalc_tpu_torch.examples import mpcmhe_dcmotor as mm
+    from tenscalc_tpu_torch.kkt import banded_lu as lu
     from tenscalc_tpu_torch.kkt import fleet_banded as fb
 
     card = card_line()
     log(f"[setup] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(fb._load), pool.submit(native._load)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(fb._load), pool.submit(lu._load),
+                  pool.submit(native._load)]:
             f.result()
     log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
+    log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W}; "
+        f"registers a thread at w=4: {ptxas_report(fb, 4)}")
+    log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W}; "
+        f"registers a thread at w=10: {ptxas_report(lu, 10)}")
 
     recs = phase_kernels(fb)
-    solver, params, inits, res, launches = phase_slice(mpc, fb)
+    solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
     phase_cross_check(mpc, params, inits, res)
-    phase_profile(solver, params, inits)
+    phase_profile("profile", lambda: solver.solve_many(
+        params, inits=inits, mu0=1e-3, max_iter=100))
+
+    lu_recs = phase_lu_kernels(lu)
+    msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)
+    phase_mpcmhe_cross_check(mm, mparams, mres)
+    phase_profile("profile2", lambda: msolver.solve_many(
+        mparams, mu0=1e-3, max_iter=100))
+
+    # launches: the main path's count; entry_point_launches: the count of
+    # the separate drive of a kernel the main path does not run
+    def entry(name, source, replaces, n_launch, n_entry, rec):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launch,
+                "entry_point_launches": n_entry,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None}
 
     kernels = [
-        {"name": NAMES[k], "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": recs[k]["max_abs_err"], "ms": recs[k]["ms"],
-         "plain_ms": recs[k]["plain_ms"], "bound_ms": recs[k]["bound_ms"],
-         "bound_by": recs[k]["bound_by"], "library_ms": None}
+        entry(NAMES[k], SOURCE, REPLACES[k], launches[k], entry_launches.get(k), recs[k])
         for k in ("factor_solve", "solve", "factor")
+    ] + [
+        entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
+              lu_entry_launches.get(k), lu_recs[k])
+        for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

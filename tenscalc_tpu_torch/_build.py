@@ -43,7 +43,8 @@ def find_tool(name: str, extra_dirs: Sequence[str] = ()) -> str:
 def build_shared_library(source: str, compiler: str, flags: Sequence[str],
                          timeout: float = 600.0) -> Path:
     """Compile ``csrc/<source>`` into ``_build/`` and return the path of
-    the shared library (reused when it already exists)."""
+    the shared library (reused when it already exists).  The compiler's
+    output is kept beside it, in :func:`build_log` of the library."""
     src = CSRC_DIR / source
     cmd_key = " ".join([Path(compiler).name, *flags])
     digest = hashlib.sha256(
@@ -64,5 +65,14 @@ def build_shared_library(source: str, compiler: str, flags: Sequence[str],
             f"building {src.name} failed ({compiler}, rc {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp_log, build_log(out))
     os.replace(tmp, out)
     return out
+
+
+def build_log(library: Path) -> Path:
+    """The compiler's output for a library built by
+    :func:`build_shared_library`."""
+    return library.with_suffix(".log")

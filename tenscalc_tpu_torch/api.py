@@ -7,8 +7,10 @@ instance and whose ``solve_many`` runs a fleet.  The solver runs on the
 card (``device=None`` means ``"cuda"``) unless the caller asks for the
 CPU; without CUDA it raises rather than quietly running on the CPU.
 
-This slice resolves ``kkt_backend='auto'`` to ``'fleet_banded'`` on
-every device: it has no other backend.
+For minimization, ``kkt_backend='auto'`` resolves to ``'fleet_banded'``
+on every device: it has no other backend.  :func:`equilibrium` builds a
+two-player Nash solver (:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose
+unsymmetric KKT goes to the fleet banded LU (``'fleet_banded_lu'``).
 """
 
 from __future__ import annotations
@@ -121,7 +123,69 @@ class Solution:
         return describe_status(int(self.status))
 
 
-class OptimizeSolver:
+class SolverBase:
+    """Parameter, init and result handling shared by the solvers.  A
+    subclass sets ``opts``, ``device``, ``parameters``, ``variables``,
+    ``packing`` (over the packed primal vector) and
+    ``outputExpressions``."""
+
+    def _param_env(self, parameters: Optional[Mapping[str, Any]]):
+        parameters = dict(parameters or {})
+        dt = self.opts.torch_dtype
+        env = {}
+        for p in self.parameters:
+            if p.name not in parameters:
+                raise ValueError(f"missing parameter {p.name!r}")
+            v = torch.as_tensor(np.asarray(parameters[p.name]), dtype=dt,
+                                device=self.device)
+            if tuple(v.shape) != p.shape:
+                raise ValueError(
+                    f"parameter {p.name!r}: expected shape {p.shape}, got {tuple(v.shape)}"
+                )
+            env[p.name] = v
+        extra = set(parameters) - set(env)
+        if extra:
+            raise ValueError(f"unknown parameters {sorted(extra)}")
+        return env
+
+    def _pack_init(self, init: Optional[Mapping[str, Any]]) -> torch.Tensor:
+        init = dict(init or {})
+        dt = self.opts.torch_dtype
+        env = {
+            v.name: torch.as_tensor(
+                np.asarray(init[v.name]) if v.name in init else np.zeros(v.shape),
+                dtype=dt, device=self.device,
+            )
+            for v in self.variables
+        }
+        return self.packing.pack(env)
+
+    def _make_solution(self, res: IPMResult, penv, elapsed: float) -> Solution:
+        var_env = self.packing.unpack(res.u[0])
+        out_env = {**penv, **var_env, **self._internal_env(res)}
+        outputs = {
+            name: e(out_env).cpu().numpy() if isinstance(e, Expr) else e
+            for name, e in self.outputExpressions.items()
+        }
+        return Solution(
+            status=int(res.status[0]), iters=int(res.iters[0]), outputs=outputs,
+            variables={k: v.cpu().numpy() for k, v in var_env.items()},
+            mu=float(res.mu[0]), norminf_grad=float(res.norminf_grad[0]),
+            norminf_eq=float(res.norminf_eq[0]), gap=float(res.gap[0]),
+            objective=float(res.f[0]), lam=res.lam[0].cpu().numpy(),
+            nu=res.nu[0].cpu().numpy(), time=elapsed,
+        )
+
+    @staticmethod
+    def _internal_env(res: IPMResult):
+        """Solver internals that outputExpressions may read."""
+        return {
+            "lambda_": res.lam[0], "nu_": res.nu[0], "mu_": res.mu[0],
+            "status_": res.status[0], "iter_": res.iters[0],
+        }
+
+
+class OptimizeSolver(SolverBase):
     """A constrained-minimization solver instance."""
 
     def __init__(self, objective: Expr,
@@ -249,38 +313,6 @@ class OptimizeSolver:
             hoist_param_deps=self._hoist_param_deps,
         )
 
-    # -- parameter/init handling --------------------------------------
-    def _param_env(self, parameters: Optional[Mapping[str, Any]]):
-        parameters = dict(parameters or {})
-        dt = self.opts.torch_dtype
-        env = {}
-        for p in self.parameters:
-            if p.name not in parameters:
-                raise ValueError(f"missing parameter {p.name!r}")
-            v = torch.as_tensor(np.asarray(parameters[p.name]), dtype=dt,
-                                device=self.device)
-            if tuple(v.shape) != p.shape:
-                raise ValueError(
-                    f"parameter {p.name!r}: expected shape {p.shape}, got {tuple(v.shape)}"
-                )
-            env[p.name] = v
-        extra = set(parameters) - set(env)
-        if extra:
-            raise ValueError(f"unknown parameters {sorted(extra)}")
-        return env
-
-    def _pack_init(self, init: Optional[Mapping[str, Any]]) -> torch.Tensor:
-        init = dict(init or {})
-        dt = self.opts.torch_dtype
-        env = {
-            v.name: torch.as_tensor(
-                np.asarray(init[v.name]) if v.name in init else np.zeros(v.shape),
-                dtype=dt, device=self.device,
-            )
-            for v in self.variables
-        }
-        return self.packing.pack(env)
-
     # -- solving -------------------------------------------------------
     def solve(self, parameters: Optional[Mapping[str, Any]] = None,
               init: Optional[Mapping[str, Any]] = None, mu0: float = 1.0,
@@ -312,29 +344,12 @@ class OptimizeSolver:
             addEye2Hessian=addEye2Hessian,
         )
 
-    def _make_solution(self, res: IPMResult, penv, elapsed: float) -> Solution:
-        var_env = self.packing.unpack(res.u[0])
-        out_env = {**penv, **var_env, **self._internal_env(res)}
-        outputs = {
-            name: e(out_env).cpu().numpy() if isinstance(e, Expr) else e
-            for name, e in self.outputExpressions.items()
-        }
-        return Solution(
-            status=int(res.status[0]), iters=int(res.iters[0]), outputs=outputs,
-            variables={k: v.cpu().numpy() for k, v in var_env.items()},
-            mu=float(res.mu[0]), norminf_grad=float(res.norminf_grad[0]),
-            norminf_eq=float(res.norminf_eq[0]), gap=float(res.gap[0]),
-            objective=float(res.f[0]), lam=res.lam[0].cpu().numpy(),
-            nu=res.nu[0].cpu().numpy(), time=elapsed,
-        )
+def equilibrium(*args, **kwargs):
+    """Create a two-player equilibrium solver on ``device`` (the card when
+    None); see :class:`tenscalc_tpu_torch.ipm.equilibrium.EquilibriumSolver`."""
+    from .ipm.equilibrium import EquilibriumSolver
 
-    @staticmethod
-    def _internal_env(res: IPMResult):
-        """Solver internals that outputExpressions may read."""
-        return {
-            "lambda_": res.lam[0], "nu_": res.nu[0], "mu_": res.mu[0],
-            "status_": res.status[0], "iter_": res.iters[0],
-        }
+    return EquilibriumSolver(*args, **kwargs)
 
 
 def optimize(objective: Expr, optimizationVariables: Sequence[Variable],

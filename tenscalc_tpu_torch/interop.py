@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(solver, params: Mapping[str, Any], device, dtype):
+def params_from_numpy(solver, params: Mapping[str, Any], device, dtype,
+                      require_batched: bool = True):
     """Batched parameter environment of a fleet.
 
     A parameter given in its declared shape is shared by the fleet (its
     hoisted derivatives are computed once); any other must carry a
-    leading batch dimension B.  Returns ``(penv, shared, B)``."""
+    leading batch dimension B.  Returns ``(penv, shared, B)``; B is None
+    when every parameter is shared and ``require_batched`` is False."""
     penv: Dict[str, torch.Tensor] = {}
     shared = set()
     B = None
@@ -42,7 +44,7 @@ def params_from_numpy(solver, params: Mapping[str, Any], device, dtype):
     extra = set(params) - set(penv)
     if extra:
         raise ValueError(f"unknown parameters {sorted(extra)}")
-    if B is None:
+    if B is None and require_batched:
         raise ValueError("at least one batched parameter required")
     return penv, frozenset(shared), B
 
@@ -64,6 +66,25 @@ def inits_from_numpy(solver, inits: Optional[Mapping[str, Any]], B: int,
             arr = torch.zeros((B,) + v.shape, dtype=dtype, device=device)
         parts.append(arr.reshape(B, -1))
     return torch.cat(parts, dim=1)
+
+
+def fleet_from_numpy(solver, params: Mapping[str, Any],
+                     inits: Optional[Mapping[str, Any]], device, dtype):
+    """Inputs of a game fleet (the JAX package's
+    ``EquilibriumSolver.solve_many``): the shared/batched split of the
+    parameters by shape, and the packed initial points over the P1, P2
+    and latent variables.  B comes from the first batched parameter, or
+    else from the inits.  Returns ``(penv, shared, z0)``, z0 (B, nZ)."""
+    penv, shared, B = params_from_numpy(
+        solver, params, device, dtype, require_batched=False
+    )
+    if B is None:
+        for v in (inits or {}).values():
+            B = np.asarray(v).shape[0]
+            break
+    if B is None:
+        raise ValueError("need at least one batched parameter or init")
+    return penv, shared, inits_from_numpy(solver, inits, B, device, dtype)
 
 
 def result_to_numpy(res) -> Dict[str, np.ndarray]:

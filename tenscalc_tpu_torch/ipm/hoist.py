@@ -68,23 +68,37 @@ def _trace(fn: Callable, flat_args: Sequence[torch.Tensor]) -> torch.fx.Graph:
     return gm.graph
 
 
-def _propagate(graph: torch.fx.Graph, in_taint: Sequence[bool]) -> bool:
-    """Whether any graph output is tainted, given per-placeholder taint."""
+def _tainted_nodes(graph: torch.fx.Graph, in_taint: Sequence[bool]) -> set:
+    """The nodes whose values depend on a tainted placeholder."""
     placeholders = [n for n in graph.nodes if n.op == "placeholder"]
     tainted = {n for n, t in zip(placeholders, in_taint) if t}
-    out = False
     for node in graph.nodes:
-        if node.op == "placeholder":
-            continue
-        inputs = node.all_input_nodes
-        if node.op == "output":
-            out = any(n in tainted for n in inputs)
+        if node.op in ("placeholder", "output"):
             continue
         if node.op == "call_function" and _value_free(node):
             continue
-        if any(n in tainted for n in inputs):
+        if any(n in tainted for n in node.all_input_nodes):
             tainted.add(node)
-    return out
+    return tainted
+
+
+class TaintGraph:
+    """One trace of ``fn(*args)`` (tensor arguments) that answers several
+    taint queries: which outputs depend on a given set of arguments.
+    Tracing is the expensive step, so a build that asks many questions of
+    the same derivative traces it once."""
+
+    def __init__(self, fn: Callable, *args: torch.Tensor):
+        self.graph = _trace(fn, list(args))
+        self.n_args = len(args)
+        out = next(n for n in self.graph.nodes if n.op == "output")
+        self.outputs = pytree.tree_leaves(out.args[0])
+
+    def tainted_outputs(self, arg_indices) -> list:
+        """Per output leaf: does it depend on any of ``arg_indices``?"""
+        idx = set(arg_indices)
+        tainted = _tainted_nodes(self.graph, [i in idx for i in range(self.n_args)])
+        return [isinstance(o, torch.fx.Node) and o in tainted for o in self.outputs]
 
 
 def _flat_fn(fn: Callable, example_args):
@@ -101,8 +115,7 @@ def output_independent_of(fn: Callable, n_tainted: int, *example_args) -> bool:
     the first ``n_tainted`` (pytree) arguments."""
     flat_call, flat = _flat_fn(fn, example_args)
     k = len(pytree.tree_leaves(list(example_args[:n_tainted])))
-    graph = _trace(flat_call, flat)
-    return not _propagate(graph, [i < k for i in range(len(flat))])
+    return not any(TaintGraph(flat_call, *flat).tainted_outputs(range(k)))
 
 
 def param_value_deps(fn: Callable, penv_example, *args) -> set:
@@ -118,11 +131,8 @@ def param_value_deps(fn: Callable, penv_example, *args) -> set:
         return fn(dict(zip(keys, pvals)), *rest)
 
     flat_call, flat = _flat_fn(call, ([penv_example[k] for k in keys],) + args)
-    graph = _trace(flat_call, flat)
-    return {
-        key for i, key in enumerate(keys)
-        if _propagate(graph, [j == i for j in range(len(flat))])
-    }
+    graph = TaintGraph(flat_call, *flat)
+    return {key for i, key in enumerate(keys) if any(graph.tainted_outputs([i]))}
 
 
 def _lagrangian(fns, nF: int, nG: int, penv):

@@ -1,0 +1,362 @@
+"""Fleet banded LU: a batch of unpivoted unsymmetric banded
+factorizations (port of the fleet half of ``tenscalc_tpu/kkt/banded_lu.py``;
+its pure-XLA ``tridiag_lu_factorize`` is ROADMAP item M13).
+
+The two-player equilibrium KKT stacks two Lagrangians' rows, so it is
+unsymmetric; for horizon games it is still banded in the stage index.
+
+Storage: a band (B, n, 2w+1) holds each instance's full band, row c =
+``[A[c,c], A[c+1..c+w, c], A[c, c+1..c+w]]``.  Factoring turns row c into
+``[d_c, l_1..l_w, u_1..u_w]``: the clamped pivot (Cheng-Higham,
+``d <- sign(d) * max(|d|, clamp)`` with sign(0) = +), the multipliers
+``l_i = A[c+i, c] / d_c`` and the raw U entries.  There is no pivoting;
+robustness comes from two-sided equilibration, the clamp, iterative
+refinement against the true matrix and the IPM's regularization retry.
+
+Each public entry point keeps the JAX signature and dispatches on the
+device of its tensors: a CPU tensor goes to the plain PyTorch version
+(``*_plain``, a Python loop over the n rows vectorized over the batch);
+a CUDA tensor goes to the hand-written kernel in ``csrc/banded_lu.cu``
+(K9 factor+solve, K10 solve, K11 factor), or the call raises.  The plain
+versions repeat the kernels' arithmetic step for step, so on the card
+the two agree to the last bit.
+
+Rows past n: the JAX entry points pad with identity rows; the kernels
+and the plain versions mask instead.  Band entries that reach past row n
+are zero in every band the solver builds; the solves treat the unknowns
+past row n as zeros.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as Fn
+
+from .._build import build_shared_library, find_tool
+from .band_assemble import extract_band_lower, extract_band_upper, shifted_cols
+from .dense import hdot
+from .fleet_banded import NVCC_FLAGS, _clamp_pivot, _device_kind, _stream
+from .structure import BandedPlan
+
+MAX_W = 12  # widths the kernels are instantiated for (csrc/banded_lu.cu)
+
+# Kernel launches, one count per kernel; a wrapper adds one where it
+# launches its kernel and nowhere else.
+LAUNCHES = {"lu_factor_solve": 0, "lu_solve": 0, "lu_factor": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+LIB_PATH: Optional[Path] = None  # the built library, once loaded
+
+
+def _load() -> ctypes.CDLL:
+    """Build (at first use) and bind the CUDA library."""
+    global _lib, LIB_PATH
+    if _lib is None:
+        nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
+        path = LIB_PATH = build_shared_library("banded_lu.cu", nvcc, NVCC_FLAGS)
+        lib = ctypes.CDLL(str(path))
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tc_banded_lu_factor_solve.argtypes = [I, P, P, P, P, I, I, Fl, P]
+        lib.tc_banded_lu_solve.argtypes = [I, P, P, P, I, I, P]
+        lib.tc_banded_lu_factor.argtypes = [I, P, P, I, I, Fl, P]
+        for fn in (lib.tc_banded_lu_factor_solve, lib.tc_banded_lu_solve,
+                   lib.tc_banded_lu_factor):
+            fn.restype = ctypes.c_int
+        lib.tc_banded_lu_max_w.restype = ctypes.c_int
+        lib.tc_banded_lu_error_string.argtypes = [ctypes.c_int]
+        lib.tc_banded_lu_error_string.restype = ctypes.c_char_p
+        if lib.tc_banded_lu_max_w() != MAX_W:
+            raise RuntimeError(f"{path}: unexpected kernel width range")
+        _lib = lib
+    return _lib
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.tc_banded_lu_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# launches on kernel layout: band (n, 2w+1, B), vectors (n, B), batch fastest
+# ---------------------------------------------------------------------------
+
+def launch_factor_solve(bt, rt, fbt, xt, w: int, clamp: float) -> None:
+    """K9 on kernel-layout tensors (outputs ``fbt``, ``xt`` preallocated)."""
+    lib = _load()
+    n, _, B = bt.shape
+    with torch.cuda.device(bt.device):
+        rc = lib.tc_banded_lu_factor_solve(
+            w, bt.data_ptr(), rt.data_ptr(), fbt.data_ptr(), xt.data_ptr(),
+            n, B, clamp, _stream(bt),
+        )
+    _check_rc(lib, rc, "banded_lu factor_solve")
+    LAUNCHES["lu_factor_solve"] += 1
+
+
+def launch_solve(fbt, rt, xt, w: int) -> None:
+    """K10 on kernel-layout tensors."""
+    lib = _load()
+    n, _, B = fbt.shape
+    with torch.cuda.device(fbt.device):
+        rc = lib.tc_banded_lu_solve(
+            w, fbt.data_ptr(), rt.data_ptr(), xt.data_ptr(), n, B,
+            _stream(fbt),
+        )
+    _check_rc(lib, rc, "banded_lu solve")
+    LAUNCHES["lu_solve"] += 1
+
+
+def launch_factor(bt, fbt, w: int, clamp: float) -> None:
+    """K11 on kernel-layout tensors."""
+    lib = _load()
+    n, _, B = bt.shape
+    with torch.cuda.device(bt.device):
+        rc = lib.tc_banded_lu_factor(
+            w, bt.data_ptr(), fbt.data_ptr(), n, B, clamp, _stream(bt),
+        )
+    _check_rc(lib, rc, "banded_lu factor")
+    LAUNCHES["lu_factor"] += 1
+
+
+def _check_band(band: torch.Tensor, w: int) -> None:
+    if band.dim() != 3 or band.shape[2] != 2 * w + 1:
+        raise ValueError(
+            f"band must be (B, n, 2w+1) with w={w}, got {tuple(band.shape)}"
+        )
+    if band.dtype != torch.float32:
+        raise TypeError(f"band must be float32, got {band.dtype}")
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"half-bandwidth w={w} outside 1..{MAX_W}")
+
+
+def _check_rhs(band: torch.Tensor, b: torch.Tensor) -> None:
+    if tuple(b.shape) != tuple(band.shape[:2]):
+        raise ValueError(
+            f"rhs must be (B, n)={tuple(band.shape[:2])}, got {tuple(b.shape)}"
+        )
+    if b.dtype != torch.float32:
+        raise TypeError(f"rhs must be float32, got {b.dtype}")
+    if b.device != band.device:
+        raise ValueError("band and rhs must be on the same device")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' arithmetic, one row at a time
+# ---------------------------------------------------------------------------
+
+def fleet_banded_lu_factor_plain(band: torch.Tensor, w: int,
+                                 clamp: float = 0.0) -> torch.Tensor:
+    """Plain version of K11: factored band (B, n, 2w+1)."""
+    B, n, R = band.shape
+    work = torch.cat([band, band.new_zeros(B, w, R)], dim=1)
+    fband = torch.empty_like(band)
+    for c in range(n):
+        d = _clamp_pivot(work[:, c, 0], clamp)
+        l = work[:, c, 1: w + 1] / d[:, None]
+        u = work[:, c, w + 1:]
+        fband[:, c, 0] = d
+        fband[:, c, 1: w + 1] = l
+        fband[:, c, w + 1:] = u
+        for m in range(1, w + 1):
+            # row c+m: sub/diagonal entries p = 0..w-m get l_{m+p} u_m,
+            # super entries q = 1..w-m get u_{m+q} l_m
+            work[:, c + m, : w - m + 1] -= l[:, m - 1:] * u[:, m - 1: m]
+            work[:, c + m, w + 1: 2 * w + 1 - m] -= u[:, m:] * l[:, m - 1: m]
+    return fband
+
+
+def _forward_plain(fband: torch.Tensor, b: torch.Tensor, w: int) -> torch.Tensor:
+    """y = L^{-1} b with unit-lower L (rows past n as zero padding)."""
+    B, n, _ = fband.shape
+    x = torch.cat([b, b.new_zeros(B, w)], dim=1)
+    for c in range(n):
+        x[:, c + 1: c + w + 1] -= fband[:, c, 1: w + 1] * x[:, c: c + 1]
+    x[:, n:] = 0.0
+    return x
+
+
+def _backward_plain(fband: torch.Tensor, x: torch.Tensor, w: int) -> torch.Tensor:
+    """U x = y in place on the padded y; returns the first n rows."""
+    n = fband.shape[1]
+    for c in range(n - 1, -1, -1):
+        acc = torch.zeros_like(x[:, c])
+        for q in range(1, w + 1):
+            acc = acc + fband[:, c, w + q] * x[:, c + q]
+        x[:, c] = (x[:, c] - acc) / fband[:, c, 0]
+    return x[:, :n]
+
+
+def fleet_banded_lu_solve_plain(fband: torch.Tensor, b: torch.Tensor,
+                                w: int) -> torch.Tensor:
+    """Plain version of K10: x with (L U) x = b."""
+    return _backward_plain(fband, _forward_plain(fband, b, w), w)
+
+
+def fleet_banded_lu_factor_solve_plain(band: torch.Tensor, b: torch.Tensor,
+                                       w: int, clamp: float = 0.0):
+    """Plain version of K9: (factored band, x)."""
+    fband = fleet_banded_lu_factor_plain(band, w, clamp)
+    return fband, fleet_banded_lu_solve_plain(fband, b, w)
+
+
+# ---------------------------------------------------------------------------
+# public entry points (JAX signatures): band (B, n, 2w+1), vectors (B, n)
+# ---------------------------------------------------------------------------
+
+def fleet_banded_lu_factor_batched(band: torch.Tensor, w: int,
+                                   clamp: float = 0.0) -> torch.Tensor:
+    """Banded LU of a batch: band (B, n, 2w+1) float32 -> factored band."""
+    _check_band(band, w)
+    if _device_kind(band) == "cpu":
+        return fleet_banded_lu_factor_plain(band, w, clamp)
+    bt = band.permute(1, 2, 0).contiguous()
+    fbt = torch.empty_like(bt)
+    launch_factor(bt, fbt, w, clamp)
+    return fbt.permute(2, 0, 1)
+
+
+def fleet_banded_lu_factor_solve_batched(band: torch.Tensor, b: torch.Tensor,
+                                         w: int, clamp: float = 0.0):
+    """Factor + one solve in one launch: -> (factored band, x)."""
+    _check_band(band, w)
+    _check_rhs(band, b)
+    if _device_kind(band) == "cpu":
+        return fleet_banded_lu_factor_solve_plain(band, b, w, clamp)
+    bt = band.permute(1, 2, 0).contiguous()
+    rt = b.t().contiguous()
+    fbt = torch.empty_like(bt)
+    xt = torch.empty_like(rt)
+    launch_factor_solve(bt, rt, fbt, xt, w, clamp)
+    return fbt.permute(2, 0, 1), xt.t()
+
+
+def fleet_banded_lu_solve_batched(fband: torch.Tensor, b: torch.Tensor,
+                                  w: int) -> torch.Tensor:
+    """Solve (L U) x = b against a factored band (B, n, 2w+1).
+
+    A factored band returned by the kernels is a view of kernel-layout
+    storage, so re-laying it out here copies nothing."""
+    _check_band(fband, w)
+    _check_rhs(fband, b)
+    if _device_kind(fband) == "cpu":
+        return fleet_banded_lu_solve_plain(fband, b, w)
+    fbt = fband.permute(1, 2, 0).contiguous()
+    rt = b.t().contiguous()
+    xt = torch.empty_like(rt)
+    launch_solve(fbt, rt, xt, w)
+    return xt.t()
+
+
+# ---------------------------------------------------------------------------
+# the KKT adapters
+# ---------------------------------------------------------------------------
+
+def _scale_band(lband, uband, r, c, w: int) -> torch.Tensor:
+    """Two-sided scaling R A C of full band storage:
+    lband[c, i] = A[c+i, c] -> r[c+i] A c[c]; uband[c, q-1] = A[c, c+q]
+    -> r[c] A c[c+q].  Returns the (B, n, 2w+1) scaled band."""
+    lb = lband * shifted_cols(r, w, 0) * c[:, :, None]
+    ub = uband * r[:, :, None] * shifted_cols(c, w, 1)
+    return torch.cat([lb, ub], dim=2)
+
+
+class _LUAdapterBase:
+    """Shared solve path: permute and scale the rhs, factor lazily (the
+    first solve runs K9, every later solve K10), unscale, unpermute, and
+    refine ``n_refine`` times against the exact matrix."""
+
+    def _setup(self, lband, uband, rn, cn, perm, plan, n_refine, clamp):
+        self.plan = plan
+        self.n_refine = n_refine
+        self.clamp = clamp
+        self.w = plan.bandwidth
+        self.r = torch.rsqrt(torch.clamp(rn, min=1e-30))
+        self.c = torch.rsqrt(torch.clamp(cn, min=1e-30))
+        self._band_scaled = _scale_band(lband, uband, self.r, self.c, self.w)
+        self.fband = None  # lazy: the first solve fuses factor + solve
+        self.perm = perm
+        self.iperm = torch.argsort(perm)
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _solve32(self, rhs: torch.Tensor) -> torch.Tensor:
+        # M x = b  <=>  (R M C) y = R b with x = C y; indexing by perm
+        # gives the values of the JAX package's one-hot products
+        bp = self.r * rhs.to(torch.float32)[:, self.perm]
+        if self.fband is None:
+            self.fband, xp = fleet_banded_lu_factor_solve_batched(
+                self._band_scaled, bp, self.w, self.clamp
+            )
+        else:
+            xp = fleet_banded_lu_solve_batched(self.fband, bp, self.w)
+        return (self.c * xp)[:, self.iperm]
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        dt = rhs.dtype
+        x = self._solve32(rhs).to(dt)
+        for _ in range(self.n_refine):
+            x = x + self._solve32(rhs - self._matvec(x)).to(dt)
+        return x
+
+    def inertia(self, tol: float = 0.0):
+        """The unsymmetric system has no inertia: (0, 0), as the JAX
+        adapters return; the equilibrium solver adapts on direction
+        error only."""
+        z = torch.zeros(self.r.shape[0], dtype=self.r.dtype, device=self.r.device)
+        return z, z
+
+
+class FleetBandedLUFromBand(_LUAdapterBase):
+    """KKT-backend adapter over a directly assembled permuted band
+    (:class:`tenscalc_tpu_torch.kkt.band_assemble.BandedOperator` with
+    (B, n, 2w+1) storage), for a batch.  The two-sided inf-norm
+    equilibration is read from band storage; refinement residuals use
+    the operator's structured matvec."""
+
+    def __init__(self, op, plan: BandedPlan, n_refine: int = 1,
+                 clamp: float = 1e-4):
+        self.op = op
+        n, w = plan.n, plan.bandwidth
+        band = op.band.to(torch.float32)
+        lband, uband = band[:, :, : w + 1], band[:, :, w + 1:]
+        absl, absu = lband.abs(), uband.abs()
+        # row r holds lband[r-i, i] (i = 0..w) and uband[r, q-1];
+        # column c holds lband[c, 0..w] and uband[c-q, q-1]
+        rn = absl[:, :, 0]
+        for i in range(1, w + 1):
+            rn = torch.maximum(rn, Fn.pad(absl[:, : n - i, i], (i, 0)))
+        rn = torch.maximum(rn, absu.amax(dim=2))
+        cn = absl.amax(dim=2)
+        for q in range(1, w + 1):
+            cn = torch.maximum(cn, Fn.pad(absu[:, : n - q, q - 1], (q, 0)))
+        self._setup(lband, uband, rn, cn, op.perm, plan, n_refine, clamp)
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op.matvec(x)
+
+
+class FleetBandedLUFactorization(_LUAdapterBase):
+    """KKT-backend adapter over dense matrices WW (B, n, n) in original
+    order: permute, extract both triangles' bands, equilibrate with the
+    row and column inf-norms, factor, and refine against WW."""
+
+    def __init__(self, WW: torch.Tensor, plan: BandedPlan, n_refine: int = 2,
+                 clamp: float = 1e-4):
+        self.WW = WW
+        w = plan.bandwidth
+        perm = torch.as_tensor(plan.perm, device=WW.device)
+        Wp = WW.to(torch.float32)[:, perm][:, :, perm]
+        absW = Wp.abs()
+        self._setup(
+            extract_band_lower(Wp, w), extract_band_upper(Wp, w),
+            absW.amax(dim=2), absW.amax(dim=1), perm, plan, n_refine, clamp,
+        )
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return hdot(self.WW, x)

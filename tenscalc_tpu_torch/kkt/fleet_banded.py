@@ -25,6 +25,7 @@ builds; the solves treat them as multiplying zeros.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -39,20 +40,22 @@ MAX_W = 16  # widths the kernels are instantiated for (csrc/fleet_banded.cu)
 # launches its kernel and nowhere else.
 LAUNCHES = {"factor_solve": 0, "solve": 0, "factor": 0}
 
+# -Xptxas -v: each kernel's registers and spills go to the build log
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
+LIB_PATH: Optional[Path] = None  # the built library, once loaded
 
 
 def _load() -> ctypes.CDLL:
     """Build (at first use) and bind the CUDA library."""
-    global _lib
+    global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        path = build_shared_library("fleet_banded.cu", nvcc, NVCC_FLAGS)
+        path = LIB_PATH = build_shared_library("fleet_banded.cu", nvcc, NVCC_FLAGS)
         lib = ctypes.CDLL(str(path))
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tc_fleet_banded_factor_solve.argtypes = [I, P, P, P, P, I, I, Fl, P]

@@ -172,6 +172,9 @@ def test_deferred_backends_raise():
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = (
         "import sys, tenscalc_tpu_torch, tenscalc_tpu_torch.examples.mpc_dcmotor\n"
+        "import tenscalc_tpu_torch.examples.mpcmhe_dcmotor\n"
+        "import tenscalc_tpu_torch.ipm.equilibrium, tenscalc_tpu_torch.kkt.banded_lu\n"
+        "import tenscalc_tpu_torch.kkt.band_assemble, tenscalc_tpu_torch.kkt.select\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tenscalc_tpu' or m.startswith('tenscalc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
