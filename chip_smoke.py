@@ -23,7 +23,18 @@ Phases:
      counts read around it, then one single solve;
   8. its cross-check: 64 instances solved again on the CPU, and the card's
      answers held to the exit tests there;
-  9. a profile of one MPC-MHE fleet solve.
+  9. a profile of one MPC-MHE fleet solve;
+ 10. kernels of slice 3: K4/K5 (fleet dense LDL^T) at (B, n) = (1024, 32),
+     (1000, 13), (1024, 80) and (256, 160), and K6/K7/K8 (single-instance
+     LDL^T) at n = 32, 200, 896 with B = 1 and at (64, 32), against their
+     plain versions, timed with CUDA events; K5 and K7 also beside their
+     library call, torch.linalg.ldl_solve with no interchanges;
+ 11. slice 3, the dense KKT path (examples/sls, constrained least squares,
+     N=400, float32): one solve cold and warm (K8, K7) against the CPU; a
+     fleet of 1024 with per-instance A and b (K4, K5) and its cross-check
+     on eight instances on the CPU; the unbanded width n=80 as a fleet;
+     kkt_backend='pallas' (K6, K7), one solve and a fleet of 64; a profile
+     of the sls fleet solve.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -55,6 +66,8 @@ KERNEL_RTOL = 1e-5
 U_ATOL = 2e-3
 # float32 objective of two solves inside the same convergence ball
 F_RTOL = 1e-3
+# the sls objective on card and CPU (float32, the same stopping point)
+J_RTOL = 1e-4
 SOURCE = "tenscalc_tpu_torch/csrc/fleet_banded.cu"
 REPLACES = {
     "factor_solve": "tenscalc_tpu/kkt/fleet_banded.py:198",
@@ -74,6 +87,24 @@ LU_REPLACES = {
 LU_NAMES = {"lu_factor_solve": "K9 fleet_banded_lu_factor_solve",
             "lu_solve": "K10 fleet_banded_lu_solve",
             "lu_factor": "K11 fleet_banded_lu_factor"}
+DENSE_SOURCE = "tenscalc_tpu_torch/csrc/dense_ldl.cu"
+DENSE_REPLACES = {
+    "fleet_factor": "tenscalc_tpu/kkt/fleet.py:68",
+    "fleet_solve": "tenscalc_tpu/kkt/fleet.py:116",
+    "ldl_factor": "tenscalc_tpu/kkt/pallas_ldl.py:42",
+    "ldl_solve": "tenscalc_tpu/kkt/pallas_ldl.py:108",
+    "ldl_factor_solve": "tenscalc_tpu/kkt/pallas_ldl.py:140",
+}
+DENSE_NAMES = {"fleet_factor": "K4 fleet_ldl_factor_batched",
+               "fleet_solve": "K5 fleet_ldl_solve_batched",
+               "ldl_factor": "K6 pallas_ldl_factor",
+               "ldl_solve": "K7 pallas_ldl_solve",
+               "ldl_factor_solve": "K8 pallas_ldl_factor_solve"}
+# (B, n): the sls fleet, a ragged fleet, the unbanded width, the fleet
+# cap; the single-instance route at sls, mid and cap widths, and batched
+SLS_B, SLS_N, WIDE_N = 1024, 32, 80
+FLEET_SHAPES = [(SLS_B, SLS_N), (1000, 13), (SLS_B, WIDE_N), (256, 160)]
+SINGLE_SHAPES = [(1, SLS_N), (1, 200), (1, 896), (64, SLS_N)]
 
 
 def log(msg: str) -> None:
@@ -170,6 +201,147 @@ def lu_bound(kind: str, B: int, n: int, w: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = B * n * ops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def test_sym(B: int, n: int, seed: int):
+    """Symmetric-indefinite matrices (B, n, n) whose diagonals of either
+    sign dominate their rows; and a right-hand side."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn(B, n, n, generator=g)
+    A = 0.5 * (A + A.transpose(1, 2))
+    sign = torch.where(torch.rand(B, n, generator=g) < 0.5, -1.0, 1.0)
+    idx = torch.arange(n)
+    A[:, idx, idx] = sign * (n + torch.rand(B, n, generator=g))
+    return A.cuda(), torch.randn(B, n, generator=g).cuda()
+
+
+def dense_bound(kind: str, B: int, n: int):
+    """Least time (ms) for the work of K4-K8: bytes each input read once
+    and each output written once (a symmetric matrix or a factor is its
+    triangle), and the float32 operations of the elimination
+    (2m^2 + 2m for a trailing block of order m) and of the two sweeps."""
+    tri = n * (n + 1) // 2
+    factor_ops = sum(2 * m * m + 2 * m for m in range(n))
+    solve_ops = 2 * n * (n - 1) + n
+    if kind in ("fleet_factor", "ldl_factor"):
+        nbytes, ops = 4 * B * 2 * tri, factor_ops
+    elif kind in ("fleet_solve", "ldl_solve"):
+        nbytes, ops = 4 * B * (tri - n + 3 * n), solve_ops
+    else:
+        nbytes, ops = 4 * B * (2 * tri + 2 * n), factor_ops + solve_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * ops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense_ptxas_report(dl) -> str:
+    """Registers a thread of each of K4-K8, from the ptxas report
+    (-Xptxas -v) in the library's build log; fails on a spill."""
+    import re
+
+    from tenscalc_tpu_torch._build import build_log
+
+    regs, spills, name = {}, {}, None
+    for line in build_log(dl.LIB_PATH).read_text().splitlines():
+        m = re.search(r"Compiling entry function '.*?\d+((?:fleet|ldl)_\w*?kernel)E", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    check(len(regs) == 5, f"dense_ldl.cu: ptxas reported {sorted(regs)}")
+    check(not any(spills.values()), f"dense_ldl.cu: register spills: {spills}")
+    return ", ".join(f"{k} {r}" for k, r in sorted(regs.items()))
+
+
+def phase_dense_kernels(dl, fl, pl):
+    """K4-K8 against their plain versions at the fleet and single-route
+    shapes; returns per-kernel records (times at the sls shapes)."""
+    recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
+    clamp = dl.CLAMP
+
+    def record(k, B, n, err, scale, ms, plain_ms, main, lib_ms=None):
+        check(np.isfinite(err) and err <= KERNEL_RTOL * scale,
+              f"{k} at B={B} n={n}: max abs err {err}")
+        recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
+        bms, by = dense_bound(k, B, n)
+        lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+        log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}: max_abs_err {err:.3e}  "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms{lib}  "
+            f"bound {bms:.3e} ms ({by})")
+        if main:
+            recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           library_ms=lib_ms)
+
+    def library_solve(LD, b, x, scale, what):
+        """torch.linalg.ldl_solve against a factor in LAPACK's packed
+        lower form (L below the diagonal, d on it) with no interchanges
+        (pivots 1..n): the same function as K5/K7.  Its x is held to the
+        kernel's at the kernels' tolerance; returns its time (ms)."""
+        B, n = b.shape
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device=b.device).repeat(B, 1)
+        rhs = b[..., None]
+        xl = torch.linalg.ldl_solve(LD, piv, rhs)[..., 0]
+        torch.cuda.synchronize()
+        el = (xl - x).abs().max().item()
+        check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
+              f"ldl_solve against {what} at B={B} n={n}: max abs diff {el}")
+        return cuda_ms(lambda: torch.linalg.ldl_solve(LD, piv, rhs), 10 if n <= 200 else 3)
+
+    for B, n in FLEET_SHAPES:
+        A, b = test_sym(B, n, seed=n)
+        L, d = fl.fleet_ldl_factor_batched(A, clamp)
+        x = fl.fleet_ldl_solve_batched(L, d, b)
+        pL, pd = fl.fleet_ldl_factor_plain(A, clamp)
+        px = fl.fleet_ldl_solve_plain(pL, pd, b)
+        torch.cuda.synchronize()
+        e4 = max((L - pL).abs().max().item(), (d - pd).abs().max().item())
+        e5 = (x - fl.fleet_ldl_solve_plain(L, d, b)).abs().max().item()
+        scale = max(pL.abs().max().item(), px.abs().max().item(), 1.0)
+        # K4's row j holds L[:, j] and the pivot at [j, j]: its transpose
+        # is the packed lower form
+        l5 = library_solve(L.mT, b, x, scale, "K5")
+        reps, preps = (50, 5) if n <= 80 else (20, 2)
+        xo = torch.empty_like(b)
+        t4 = cuda_ms(lambda: dl.launch_fleet_factor(A, L, d, clamp), reps)
+        t5 = cuda_ms(lambda: dl.launch_fleet_solve(L, d, b, xo), reps)
+        p4 = cuda_ms(lambda: fl.fleet_ldl_factor_plain(A, clamp), preps)
+        p5 = cuda_ms(lambda: fl.fleet_ldl_solve_plain(pL, pd, b), preps)
+        main = (B, n) == (SLS_B, SLS_N)
+        record("fleet_factor", B, n, e4, scale, t4, p4, main)
+        record("fleet_solve", B, n, e5, scale, t5, p5, main, l5)
+    for B, n in SINGLE_SHAPES:
+        A, b = test_sym(B, n, seed=n + B)
+        Lt, d = pl.pallas_ldl_factor(A, clamp)
+        x = pl.pallas_ldl_solve(Lt, d, b)
+        Lt8, d8, x8 = pl.pallas_ldl_factor_solve(A, b, clamp)
+        pLt, pd = pl.pallas_ldl_factor_plain(A, clamp)
+        px = pl.pallas_ldl_solve_plain(pLt, pd, b)
+        torch.cuda.synchronize()
+        e6 = max((Lt - pLt).abs().max().item(), (d - pd).abs().max().item())
+        e7 = (x - pl.pallas_ldl_solve_plain(Lt, d, b)).abs().max().item()
+        e8 = max((Lt8 - pLt).abs().max().item(), (d8 - pd).abs().max().item(),
+                 (x8 - px).abs().max().item())
+        scale = max(pLt.abs().max().item(), px.abs().max().item(), 1.0)
+        LD = Lt.mT.clone()  # Lt's unit diagonal replaced by d, outside the time
+        LD.diagonal(dim1=-2, dim2=-1).copy_(d)
+        l7 = library_solve(LD, b, x, scale, "K7")
+        reps, preps = (50, 5) if n <= 200 else (10, 1)
+        xo = torch.empty_like(b)
+        t6 = cuda_ms(lambda: dl.launch_factor(A, Lt, d, clamp), reps)
+        t7 = cuda_ms(lambda: dl.launch_solve(Lt, d, b, xo), reps)
+        t8 = cuda_ms(lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps)
+        p6 = cuda_ms(lambda: pl.pallas_ldl_factor_plain(A, clamp), preps)
+        p7 = cuda_ms(lambda: pl.pallas_ldl_solve_plain(pLt, pd, b), preps)
+        p8 = cuda_ms(lambda: pl.pallas_ldl_factor_solve_plain(A, b, clamp), preps)
+        main = (B, n) == (1, SLS_N)
+        record("ldl_factor", B, n, e6, scale, t6, p6, main)
+        record("ldl_solve", B, n, e7, scale, t7, p7, main, l7)
+        record("ldl_factor_solve", B, n, e8, scale, t8, p8, main)
+    return recs
 
 
 def ptxas_report(mod, w: int) -> str:
@@ -521,6 +693,148 @@ def phase_mpcmhe_cross_check(mm, params, res):
         f"at equal iterations, {du[~same].max(initial=0):.3e} one apart")
 
 
+def sls_params(ns: str, data) -> dict:
+    return {ns + "A": data["A"], ns + "b": data["b"]}
+
+
+def per_iteration(launches: dict, iters: int) -> str:
+    """Launches per lockstep iteration (the last trip only runs the exit
+    tests)."""
+    return " ".join(f"{DENSE_NAMES[k].split()[0]} {v / (iters - 1):.2f}"
+                    for k, v in launches.items() if v)
+
+
+def phase_sls_single(sls, dl, others):
+    """The bench.py protocol through optimize(): a cold solve from
+    default_data()["x0"], then a warm one from its optimum (mu0 = 1,
+    max_iter = 30); the route of one solve is K8 then K7."""
+    ns = "sls1_"
+    solver = sls.build_constrained(ns=ns, dtype="float32")
+    check(solver.device.type == "cuda", "the default device is the card")
+    check((solver.nU, solver.nF, solver.nG) == (32, 64, 0), "sls sizes")
+    check(solver.kkt_backend_resolved == "fleet" and solver._solve_raw.band_mode is None
+          and solver._hoist == (True, True, False),
+          "auto resolves to the fleet dense backend, dense branch, H and Fu hoisted")
+    data = sls.default_data()
+    params = sls_params(ns, data)
+    solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)  # warm-up
+    reset_counts(dl, *others)
+    cold = solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
+    n_cold = dict(dl.LAUNCHES)
+    reset_counts(dl, *others)
+    warm = solver.solve(params, init={ns + "x": cold.variables[ns + "x"]}, mu0=1.0,
+                        max_iter=30)
+    n_warm = dict(dl.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          "no banded kernel on the sls path")
+    for name, sol, n in (("cold", cold, n_cold), ("warm", warm, n_warm)):
+        check(sol.status == 0, f"{name} solve status {sol.describe()}")
+        check(n["ldl_factor_solve"] > 0 and n["ldl_solve"] > 0
+              and n["fleet_factor"] == n["fleet_solve"] == n["ldl_factor"] == 0,
+              f"{name} solve through K8 and K7 alone: {n}")
+        check(np.isfinite(sol.variables[ns + "x"]).all(), f"{name} x finite")
+        log(f"[sls-single] {name}: status 0, {sol.iters} iterations, {sol.time:.4f} s, "
+            f"J {float(sol.outputs['J']):.8f}; launches {n}; per iteration "
+            f"{per_iteration(n, sol.iters)}")
+    cpu = sls.build_constrained(ns=ns, dtype="float32", device="cpu")
+    ref = cpu.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
+    dx = np.abs(ref.variables[ns + "x"] - cold.variables[ns + "x"]).max()
+    dJ = abs(float(ref.outputs["J"]) - float(cold.outputs["J"])) / abs(float(ref.outputs["J"]))
+    check(ref.status == 0 and abs(ref.iters - cold.iters) <= 1, "CPU cold solve agrees")
+    check(dx <= U_ATOL and dJ <= J_RTOL, f"cold x within {U_ATOL} ({dx:.3e}), "
+          f"J within {J_RTOL} ({dJ:.3e}) of the CPU solve")
+    log(f"[sls-single] the CPU's cold solve: {ref.iters} iterations, max |dx| {dx:.3e}, "
+        f"J rel diff {dJ:.3e}")
+    return {k: n_cold[k] + n_warm[k] for k in n_cold}
+
+
+def solve_sls_fleet(solver, ns, data, max_iter=60):
+    res = solver.solve_many(sls_params(ns, data), inits={ns + "x": data["x0"]},
+                            mu0=1.0, max_iter=max_iter)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_sls_fleet(label, sls, dl, others, ns, B, n, seed, **opts):
+    """A fleet of B sls instances with their own A and b; every instance
+    at status 0.  Returns (solver, data, result, launches)."""
+    solver = sls.build_constrained(n=n, ns=ns, dtype="float32", **opts)
+    data = sls.fleet_inputs(B, n=n, seed=seed)
+    solve_sls_fleet(solver, ns, data)  # warm-up (first-call allocations)
+    reset_counts(dl, *others)
+    t0 = time.perf_counter()
+    res = solve_sls_fleet(solver, ns, data)
+    wall = time.perf_counter() - t0
+    launches = dict(dl.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          "no banded kernel on the sls path")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (B, n) and bool(torch.isfinite(res.u).all()), "finite x")
+    check(int((status == 0).sum()) == B,
+          f"all {B} instances at status 0 (got {np.bincount(status)})")
+    log(f"[{label}] B={B} n={n} backend {solver.kkt_backend_resolved}: status 0 for "
+        f"all; iterations max {iters.max()} mean {iters.mean():.2f}; wall {wall:.4f} s; "
+        f"{B / wall:.1f} solves/s; launches {launches}; per lockstep iteration "
+        f"{per_iteration(launches, int(iters.max()))}")
+    return solver, data, res, launches
+
+
+def phase_sls_cross_check(sls, data, res):
+    """Eight of the sls fleet's instances solved again by the port on the
+    CPU (plain versions of K4/K5)."""
+    ns = "slsf_"
+    idx = np.arange(0, SLS_B, SLS_B // 8)
+    cpu = sls.build_constrained(ns=ns, dtype="float32", device="cpu")
+    sub = {k: v[idx] for k, v in data.items()}
+    r = cpu.solve_many(sls_params(ns, sub), inits={ns + "x": sub["x0"]}, mu0=1.0,
+                       max_iter=60)
+    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
+    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
+    dx = np.abs(r.u.numpy() - card.u.cpu().numpy()).max()
+    dJ = (np.abs(r.f.numpy() - card.f.cpu().numpy()) / np.abs(r.f.numpy())).max()
+    check((st_c == 0).all() and (st_g == 0).all(), "status 0 on card and CPU")
+    check((np.abs(it_c - it_g) <= 1).all(), "iterations within one")
+    check(dJ <= J_RTOL, f"J within {J_RTOL} relative (max {dJ:.3e})")
+    check(dx <= U_ATOL, f"x within {U_ATOL} (max {dx:.3e})")
+    log(f"[sls-fleet-cross-check] 8 instances on the CPU: status 0 on both; iterations "
+        f"card {it_g.tolist()} cpu {it_c.tolist()}; max |dx| {dx:.3e}; J max rel diff "
+        f"{dJ:.3e}")
+
+
+def phase_sls_pallas(sls, dl, others):
+    """kkt_backend='pallas': one solve and a fleet of 64, K6 at every
+    factorization and K7 at every solve."""
+    ns = "slsp_"
+    solver = sls.build_constrained(ns=ns, dtype="float32", kkt_backend="pallas")
+    check(solver.kkt_backend_resolved == "pallas", "pallas backend")
+    data = sls.default_data()
+    params = sls_params(ns, data)
+    solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)  # warm-up
+    reset_counts(dl, *others)
+    sol = solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
+    n_one = dict(dl.LAUNCHES)
+    check(sol.status == 0, f"pallas single solve status {sol.describe()}")
+    check(n_one["ldl_factor"] > 0 and n_one["ldl_solve"] > 0
+          and n_one["fleet_factor"] == n_one["fleet_solve"] == n_one["ldl_factor_solve"] == 0,
+          f"the pallas solve through K6 and K7 alone: {n_one}")
+    log(f"[sls-pallas] single: status 0, {sol.iters} iterations, {sol.time:.4f} s; "
+        f"launches {n_one}; per iteration {per_iteration(n_one, sol.iters)}")
+    fleet = sls.fleet_inputs(64, seed=2)
+    reset_counts(dl, *others)
+    res = solve_sls_fleet(solver, ns, fleet)
+    n_fleet = dict(dl.LAUNCHES)
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(int((status == 0).sum()) == 64, f"all 64 at status 0 ({np.bincount(status)})")
+    check(n_fleet["ldl_factor"] > 0 and n_fleet["ldl_solve"] > 0
+          and n_fleet["ldl_factor_solve"] == n_fleet["fleet_factor"] == 0,
+          f"the pallas fleet through K6 and K7 alone: {n_fleet}")
+    log(f"[sls-pallas] fleet B=64: status 0 for all; iterations max {iters.max()} mean "
+        f"{iters.mean():.2f}; launches {n_fleet}; per lockstep iteration "
+        f"{per_iteration(n_fleet, int(iters.max()))}")
+    return {k: n_one[k] + n_fleet[k] for k in n_one}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -529,47 +843,85 @@ def main() -> int:
     from tenscalc_tpu_torch import native
     from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
     from tenscalc_tpu_torch.examples import mpcmhe_dcmotor as mm
+    from tenscalc_tpu_torch.examples import sls
     from tenscalc_tpu_torch.kkt import banded_lu as lu
+    from tenscalc_tpu_torch.kkt import dense_ldl as dl
+    from tenscalc_tpu_torch.kkt import fleet as fl
     from tenscalc_tpu_torch.kkt import fleet_banded as fb
+    from tenscalc_tpu_torch.kkt import pallas_ldl as pl
 
     card = card_line()
     log(f"[setup] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         for f in [pool.submit(fb._load), pool.submit(lu._load),
-                  pool.submit(native._load)]:
+                  pool.submit(dl._load), pool.submit(native._load)]:
             f.result()
     log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
     log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W}; "
         f"registers a thread at w=4: {ptxas_report(fb, 4)}")
     log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W}; "
         f"registers a thread at w=10: {ptxas_report(lu, 10)}")
+    log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: "
+        f"{dense_ptxas_report(dl)}")
 
     recs = phase_kernels(fb)
     solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
+    check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
     phase_cross_check(mpc, params, inits, res)
     phase_profile("profile", lambda: solver.solve_many(
         params, inits=inits, mu0=1e-3, max_iter=100))
 
     lu_recs = phase_lu_kernels(lu)
     msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)
+    check(not any(dl.LAUNCHES.values()), "no dense kernel on the MPC-MHE path")
     phase_mpcmhe_cross_check(mm, mparams, mres)
     phase_profile("profile2", lambda: msolver.solve_many(
         mparams, mu0=1e-3, max_iter=100))
 
-    # launches: the main path's count; entry_point_launches: the count of
-    # the separate drive of a kernel the main path does not run
+    # slice 3: the dense KKT path (sls constrained least squares)
+    dense_recs = phase_dense_kernels(dl, fl, pl)
+    single_launches = phase_sls_single(sls, dl, (fb, lu))
+    ssolver, sdata, sres, fleet_launches = phase_sls_fleet(
+        "sls-fleet", sls, dl, (fb, lu), "slsf_", SLS_B, SLS_N, seed=0)
+    check(fleet_launches["fleet_factor"] > 0 and fleet_launches["fleet_solve"] > 0
+          and fleet_launches["ldl_factor"] == fleet_launches["ldl_solve"]
+          == fleet_launches["ldl_factor_solve"] == 0,
+          f"the sls fleet through K4 and K5 alone: {fleet_launches}")
+    phase_sls_cross_check(sls, sdata, sres)
+    wsolver, _, _, wide_launches = phase_sls_fleet(
+        "sls-wide", sls, dl, (fb, lu), "slsw_", SLS_B, WIDE_N, seed=1)
+    check(wsolver.kkt_backend_resolved == "fleet" and wsolver.kkt_plan is None
+          and wide_launches["fleet_factor"] > 0 and wide_launches["fleet_solve"] > 0,
+          f"n={WIDE_N} unbanded through K4/K5: {wide_launches}")
+    pallas_launches = phase_sls_pallas(sls, dl, (fb, lu))
+    phase_profile("profile3", lambda: solve_sls_fleet(ssolver, "slsf_", sdata))
+
+    # launches: the count on the path that runs the kernel;
+    # entry_point_launches: the count of the separate drive of a kernel
+    # that no main path runs
     def entry(name, source, replaces, n_launch, n_entry, rec):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launch,
                 "entry_point_launches": n_entry,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": None}
+                "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms")}
 
+    dense_launches = {
+        "fleet_factor": fleet_launches["fleet_factor"],
+        "fleet_solve": fleet_launches["fleet_solve"],
+        "ldl_factor": pallas_launches["ldl_factor"],
+        "ldl_solve": single_launches["ldl_solve"],
+        "ldl_factor_solve": single_launches["ldl_factor_solve"],
+    }
     kernels = [
         entry(NAMES[k], SOURCE, REPLACES[k], launches[k], entry_launches.get(k), recs[k])
         for k in ("factor_solve", "solve", "factor")
+    ] + [
+        entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,
+              dense_recs[k])
+        for k in DENSE_REPLACES
     ] + [
         entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
               lu_entry_launches.get(k), lu_recs[k])

@@ -7,8 +7,12 @@ instance and whose ``solve_many`` runs a fleet.  The solver runs on the
 card (``device=None`` means ``"cuda"``) unless the caller asks for the
 CPU; without CUDA it raises rather than quietly running on the CPU.
 
-For minimization, ``kkt_backend='auto'`` resolves to ``'fleet_banded'``
-on every device: it has no other backend.  :func:`equilibrium` builds a
+For minimization, ``kkt_backend='auto'`` resolves the same way on every
+device, as the JAX package does with ``TENSCALC_AUTO_FLEET=1``: the
+fleet banded LDL^T (``'fleet_banded'``) when the condensed KKT has at
+least 64 rows and a worthwhile band, else the fleet dense LDL^T
+(``'fleet'``).  ``'pallas'`` factors with the single-instance dense
+LDL^T.  :func:`equilibrium` builds a
 two-player Nash solver (:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose
 unsymmetric KKT goes to the fleet banded LU (``'fleet_banded_lu'``).
 """
@@ -198,10 +202,10 @@ class OptimizeSolver(SolverBase):
         self.opts = (
             (options or SolverOptions()).replace(**option_kwargs).resolved("optimize")
         )
-        if self.opts.kkt_backend not in ("auto", "fleet_banded"):
+        if self.opts.kkt_backend not in ("auto", "fleet_banded", "fleet", "pallas"):
             raise NotImplementedError(
                 f"kkt_backend={self.opts.kkt_backend!r} is not ported yet "
-                "(ROADMAP items M4, M10, M11 and M16)"
+                "(ROADMAP items M4, M11 and M16)"
             )
         self.device = resolve_device(device)
         full_precision_matmul()
@@ -230,6 +234,7 @@ class OptimizeSolver(SolverBase):
         if self._hoist_scale_free and self._hoist[1]:
             self._hoist_param_deps = self._param_deps(dt)
         self.kkt_backend_resolved = None
+        self.kkt_plan = None
         self._plan_structure()
 
     def _param_deps(self, dt):
@@ -265,18 +270,21 @@ class OptimizeSolver(SolverBase):
         return h_deps, fu_deps, gu_deps
 
     def _plan_structure(self) -> None:
-        """Probe the KKT sparsity pattern on the CPU, plan the RCM band
-        and install the fleet banded backend."""
+        """Pick the KKT backend: probe the KKT sparsity pattern on the CPU
+        and plan the RCM band; the fleet banded LDL^T where the band is
+        worthwhile, else the fleet dense LDL^T (JAX ``api.py:334-409``,
+        its ``auto_fleet`` branch)."""
         from .kkt.fleet_banded import FleetBandedFromBand
         from .kkt.structure import plan_banded, probe_pattern
 
-        dt = self.opts.torch_dtype
+        if self.opts.kkt_backend == "pallas":
+            self._use_pallas()
+            return
         nK = self.nU + self.nG
-        if nK < 64:
-            raise NotImplementedError(
-                f"nK={nK} < 64 needs the dense fleet backend, not ported "
-                "yet (ROADMAP item M10)"
-            )
+        if self.opts.kkt_backend == "fleet" or nK < 64:
+            self._use_fleet_dense()
+            return
+        dt = self.opts.torch_dtype
         assemble_dense = dense_condensed_kkt(
             self._fns, self.nU, self.nF, self.nG, self.opts
         )
@@ -298,19 +306,47 @@ class OptimizeSolver(SolverBase):
 
         plan = plan_banded(probe_pattern(assemble, nK))
         if not plan.worthwhile:
-            raise NotImplementedError(
-                "the KKT has no worthwhile band; the dense fleet backend "
-                "is not ported yet (ROADMAP item M10)"
-            )
+            self._use_fleet_dense()
+            return
         self.kkt_plan = plan
         n_ref = self.opts.refine_for("fleet_banded")
-        self._kkt_solver = lambda WW: FleetBandedFromBand(WW, plan, n_refine=n_ref)
-        self.kkt_backend_resolved = "fleet_banded"
+        self._install_backend(
+            lambda WW: FleetBandedFromBand(WW, plan, n_refine=n_ref),
+            "fleet_banded", band_plan=plan,
+        )
+
+    def _install_backend(self, kkt_solver, name: str, band_plan=None) -> None:
+        """Build the solve function around a KKT backend; the fleet
+        backends take the CG nu-initializer (JAX ``api.py:314-332``)."""
+        self._kkt_solver = kkt_solver
+        self.kkt_backend_resolved = name
         self._solve_raw = build_ipm(
             self._fns, self.nU, self.nF, self.nG, self.opts,
-            kkt_solver=self._kkt_solver, hoist=self._hoist, band_plan=plan,
+            kkt_solver=kkt_solver, hoist=self._hoist, band_plan=band_plan,
             hoist_scale_free=self._hoist_scale_free,
             hoist_param_deps=self._hoist_param_deps,
+            fleet_init=name in ("fleet", "fleet_banded"),
+        )
+
+    def _use_fleet_dense(self) -> None:
+        """The fleet dense LDL^T (``kkt/fleet.py``): K4/K5 for a fleet,
+        the single-instance K6-K8 for one solve."""
+        from .kkt.fleet import fleet_kkt_factorize
+
+        n_ref = self.opts.refine_for("fleet")
+        self._install_backend(
+            lambda WW: fleet_kkt_factorize(WW, n_refine=n_ref), "fleet"
+        )
+
+    def _use_pallas(self) -> None:
+        """The single-instance dense LDL^T (``kkt/pallas_ldl.py``) with the
+        pivot clamp of JAX ``api.py:257-269``: K6 per factorization, K7
+        per solve, one instance per CTA in a fleet."""
+        from .kkt.dense_ldl import CLAMP
+        from .kkt.pallas_ldl import pallas_kkt_factorize
+
+        self._install_backend(
+            lambda WW: pallas_kkt_factorize(WW, clamp=CLAMP), "pallas"
         )
 
     # -- solving -------------------------------------------------------

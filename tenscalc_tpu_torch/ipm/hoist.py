@@ -10,13 +10,18 @@ through every node.  A numeric probe would not be a certificate.
 
 The trace runs under ``torch.func.functionalize`` with views and
 mutations removed, so every node is a pure function of its arguments.
-Three facts keep the analysis from rejecting every quadratic:
+Four facts keep the analysis from rejecting every quadratic:
 
 * factory ops whose output depends only on the shape of their tensor
   argument (``ones_like``, ``new_zeros``, ``fill.Scalar``, ...) carry
   no value dependency;
 * ``x ** 0`` (``aten.pow.Tensor_Scalar`` with exponent 0) is 1
   whatever ``x`` is, and appears in the second derivative of ``x ** 2``;
+* zeros stay zeros: forward-mode AD materializes the tangent of a
+  constant (a parameter matrix in ``A @ x``) as a zero tensor, which JAX
+  keeps symbolic; a view or copy of a known zero, and a product with
+  one (``mul``, ``mv``, ``mm``, ... or a division of one), is zero
+  whatever the other operand holds;
 * every other node's outputs are tainted when any input is (sound
   over-approximation), so a false "depends" only costs speed.
 """
@@ -41,6 +46,22 @@ _SHAPE_ONLY = frozenset(
 )
 
 
+# ATen overload packets whose output is all zeros.
+_ZERO_FACTORIES = frozenset({"zeros", "zeros_like", "new_zeros", "_efficientzerotensor"})
+# ... is zero when their first tensor argument is (views, copies, sums).
+_ZERO_KEEPING = frozenset(
+    {
+        "expand", "expand_copy", "view", "view_copy", "_to_copy", "alias",
+        "alias_copy", "permute", "permute_copy", "t", "t_copy", "transpose",
+        "transpose_copy", "slice", "slice_copy", "select", "select_copy",
+        "reshape", "clone", "squeeze", "squeeze_copy", "unsqueeze",
+        "unsqueeze_copy", "contiguous", "neg", "sum", "div",
+    }
+)
+# ... is zero when any tensor argument is (products).
+_ZERO_ABSORBING = frozenset({"mul", "mv", "mm", "bmm", "matmul", "dot", "outer"})
+
+
 def _packet_name(target) -> str:
     packet = getattr(target, "overloadpacket", None)
     if packet is None:
@@ -61,6 +82,18 @@ def _value_free(node: torch.fx.Node) -> bool:
     return False
 
 
+def _is_zero(node: torch.fx.Node, zeros: set) -> bool:
+    """True when the node's output is all zeros, given the known zeros."""
+    name = _packet_name(node.target)
+    if name in _ZERO_FACTORIES:
+        return True
+    if name in _ZERO_KEEPING:
+        return bool(node.args) and node.args[0] in zeros
+    if name in _ZERO_ABSORBING:
+        return any(n in zeros for n in node.all_input_nodes)
+    return False
+
+
 def _trace(fn: Callable, flat_args: Sequence[torch.Tensor]) -> torch.fx.Graph:
     gm = make_fx(torch.func.functionalize(fn, remove="mutations_and_views"))(
         *flat_args
@@ -72,8 +105,12 @@ def _tainted_nodes(graph: torch.fx.Graph, in_taint: Sequence[bool]) -> set:
     """The nodes whose values depend on a tainted placeholder."""
     placeholders = [n for n in graph.nodes if n.op == "placeholder"]
     tainted = {n for n, t in zip(placeholders, in_taint) if t}
+    zeros: set = set()
     for node in graph.nodes:
         if node.op in ("placeholder", "output"):
+            continue
+        if node.op == "call_function" and _is_zero(node, zeros):
+            zeros.add(node)
             continue
         if node.op == "call_function" and _value_free(node):
             continue

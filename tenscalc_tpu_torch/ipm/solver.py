@@ -10,14 +10,24 @@ each instance keeps (``torch.where``), and a single solve is B = 1
 through the same code.  Instances that are done, or stop at this
 iteration, are computed with the rest and discarded, as under ``vmap``.
 
-This slice ports the path the flagship MPC fleet takes: the condensed
-standard Newton matrix with hoisted (iteration-invariant) derivatives,
-assembled directly into band storage (``BandKKT``, band mode 'hoisted')
-and factored by the fleet banded LDL^T; the Mehrotra predictor/
-corrector; the ``addEye2Hessian`` adaptation with the relative float32
-direction-error gate and the progress guard; both line searches; the mu
-schedule; the CG nu-initializer; and the exit tests and final status
-flags.  The dense condensed assembly is ported for the structure probe.
+The condensed standard Newton matrix is ported in two forms, which
+share the driver (the Mehrotra predictor/corrector, the
+``addEye2Hessian`` adaptation with the relative float32 direction-error
+gate and the progress guard, both line searches, the mu schedule, the
+exit tests and the final status flags) and differ only in the KKT they
+linearize at each iterate (:class:`Linearization`):
+
+* band mode ('hoisted'): iteration-invariant derivatives at a dummy
+  iterate, the KKT assembled directly into band storage (``BandKKT``)
+  for the fleet banded LDL^T;
+* the dense branch (JAX ``band_plan is None``): the dense condensed
+  matrix ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``,
+  its derivatives hoisted at the initial point where certified
+  iteration-invariant (the scaled Fu among them) and evaluated at every
+  iterate where not, for the dense LDL^T backends.
+
+The nu initializer is the CG on the normal equations for the fleet
+backends and a pivoted-LU solve for the others.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch
 import torch.nn.functional as Fn
 from torch.func import grad, jacfwd, vmap
 
-from ..kkt.dense import hdot, hdotT
+from ..kkt.dense import hdot, hdotT, lu_solve_mixed
 from .options import SolverOptions
 
 STEPBACK = 0.99  # reference: stepback=.99, lib/ipmPD_CSsolver.c:174
@@ -251,6 +261,35 @@ def _band_of(W: torch.Tensor, perm: torch.Tensor, w: int) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def _mvWW(WW, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(WW, BandKKT):
+        return WW.matvec(x)
+    return hdot(WW, x)
+
+
+def _abs_rowsum_max(WW) -> torch.Tensor:
+    """max_i sum_j |WW[i, j]| per instance (a bound through the
+    constituents in band mode)."""
+    if isinstance(WW, BandKKT):
+        return WW.abs_rowsum_max()
+    return WW.abs().sum(dim=-1).amax(dim=-1)
+
+
+class Linearization(NamedTuple):
+    """The Newton system at one iterate, for any regularization.
+
+    ``fu_mv``/``fuT_mv`` apply the scaled inequality Jacobian and its
+    transpose, ``lpg_mv`` applies diag(lam/F) Fu, and ``assemble(addU,
+    addEq)`` returns the KKT matrix (a ``BandKKT`` or a dense (B, nK, nK)
+    tensor) with the matvec of its regularized Hessian block
+    WW11 = H + addU I."""
+
+    fu_mv: Callable
+    fuT_mv: Callable
+    lpg_mv: Callable
+    assemble: Callable
+
+
 def _deferred(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP item {item})"
@@ -301,16 +340,21 @@ def dense_condensed_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int,
 
 
 def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
-              opts: SolverOptions, kkt_solver, hoist, band_plan,
-              hoist_scale_free: bool = False, hoist_param_deps=None):
+              opts: SolverOptions, kkt_solver, hoist, band_plan=None,
+              hoist_scale_free: bool = False, hoist_param_deps=None,
+              fleet_init: bool = True):
     """Build the batched ``solve`` function for a problem.
 
     ``solve(u0, penv, shared, mu0, max_iter, addU0, addEq0)``: ``u0`` is
     (B, nU); each ``penv`` entry has a leading batch dimension except the
     parameters named in ``shared``, which every instance shares.
 
-    ``hoist`` = (H, Fu, Gu) iteration-invariance flags from
-    :func:`tenscalc_tpu_torch.ipm.hoist.analyze_hoistable`."""
+    ``kkt_solver`` factors the KKT each direction assembles: a
+    ``BandKKT`` in band mode (``band_plan`` given), else the dense
+    (B, nK, nK) matrix.  ``hoist`` = (H, Fu, Gu) iteration-invariance
+    flags from :func:`tenscalc_tpu_torch.ipm.hoist.analyze_hoistable`.
+    ``fleet_init`` picks the CG nu-initializer (the fleet backends) over
+    the pivoted-LU solve."""
     hoist_H, hoist_Fu, hoist_Gu = hoist
     dt = opts.torch_dtype
     f64 = dt == torch.float64
@@ -319,27 +363,25 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         raise _deferred("the large/timesLambda Newton-matrix variants", "M7")
     if opts.profiling or opts.allowSave:
         raise _deferred("profiling and allowSave", "M17/M7")
+    if nF == 0:
+        raise _deferred("a problem without inequality constraints", "M7")
     nK = nU + nG
     band_mode = (
         band_plan is not None
         and hoist_H
         and hoist_Fu
         and (nG == 0 or hoist_Gu)
-        and nF > 0
-        and kkt_solver is not None
         and (hoist_scale_free or not (opts.scaleInequalities or opts.scaleCost > 0))
     )
-    if not band_mode:
+    if band_plan is not None and not band_mode:
         raise _deferred(
-            "a problem outside hoisted band mode (per-iteration band "
-            "assembly or a dense factorization)", "M7/M8",
+            "per-iteration band assembly (a banded problem whose derivatives "
+            "are not all hoisted)", "M8",
         )
     mp_desired = float(nU)
     mn_desired = float(nG)
     adapt = opts.addEye2Hessian and opts.adjustAddEye2Hessian
-    F_affine = opts.linesearch_affine_F  # hoist_Fu holds in band mode
-    w_band = int(band_plan.bandwidth)
-    perm_np = np.asarray(band_plan.perm)
+    F_affine = hoist_Fu and opts.linesearch_affine_F
 
     def _lagr(u, nu, lam, penv, si, sc):
         Fv = si * fns.F(u, penv)
@@ -359,7 +401,6 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         u0 = u0.to(dt)
         B = u0.shape[0]
         pdims = {k: (None if k in shared else 0) for k in penv}
-        shapes = {k: tuple(v.shape[0 if k in shared else 1:]) for k, v in penv.items()}
         addU0 = addU0 if opts.addEye2Hessian else 0.0
         addEq0 = addEq0 if opts.addEye2Hessian else 0.0
 
@@ -391,106 +432,196 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         def Fs(u):
             return si * F_b(u, penv)
 
-        # dual initialization: lam = mu0 / F; nu by CG on the normal
-        # equations (Gu Gu' + eps I) nu = Gu (Fu' lam - f_u)
+        # the scaled derivatives at batched iterates
+        def H_at(u, nu, lam):
+            def one(uu, nn, ll, pe, s_i, s_c):
+                H0 = jacfwd(grad(lambda v: _lagr(v, nn, ll, pe, s_i, s_c)[0]))(uu)
+                return 0.5 * (H0 + H0.transpose(-1, -2))
+
+            return vmap(one, in_dims=(0, 0, 0, pdims, 0, 0))(u, nu, lam, penv, si, sc)
+
+        def Fu_at(u):
+            return vmap(lambda uu, pe, s_i: jacfwd(lambda v: s_i * fns.F(v, pe))(uu),
+                        in_dims=(0, pdims, 0))(u, penv, si)
+
+        def Gu_at(u):
+            return vmap(lambda uu, pe: jacfwd(lambda v: fns.G(v, pe))(uu),
+                        in_dims=(0, pdims))(u, penv)
+
+        # dual initialization: lam = mu0 / F; nu from
+        # [I, Gu'; Gu, -eps I][x; nu] = [Fu' lam - f_u; 0], by CG on the
+        # normal equations (Gu Gu' + eps I) nu = Gu (Fu' lam - f_u) for
+        # the fleet backends, by a pivoted-LU solve for the others
         lam0 = mu0 / (si * F0)
         if nG > 0:
-            Gu0 = vmap(jacfwd(fns.G), in_dims=(0, pdims))(u0, penv)
-            Fu0 = si[:, :, None] * vmap(jacfwd(fns.F), in_dims=(0, pdims))(u0, penv)
+            Gu0 = Gu_at(u0)
+            Fu0 = Fu_at(u0)
             f_u0 = vmap(grad(lambda uu, pe, c: c * fns.f(uu, pe)),
                         in_dims=(0, pdims, 0))(u0, penv, sc)
             btop = hdotT(Fu0, lam0) - f_u0
-            rhs0 = hdot(Gu0, btop)
-            eps0 = max(addEq0, 1e-8)
-            Mdiag = (Gu0 * Gu0).sum(dim=2) + eps0
-            x, r = torch.zeros_like(rhs0), rhs0
-            p = rhs0 / Mdiag
-            rz = _dot(rhs0, p)
-            for _ in range(min(2 * nG, 100)):
-                Ap = hdot(Gu0, hdotT(Gu0, p)) + eps0 * p
-                alpha = rz / torch.clamp(_dot(p, Ap), min=1e-30)
-                x = x + alpha[:, None] * p
-                r = r - alpha[:, None] * Ap
-                z = r / Mdiag
-                rz_new = _dot(r, z)
-                beta = rz_new / torch.clamp(rz, min=1e-30)
-                p = z + beta[:, None] * p
-                rz = rz_new
-            nu0 = x
+            if fleet_init:
+                rhs0 = hdot(Gu0, btop)
+                eps0 = max(addEq0, 1e-8)
+                Mdiag = (Gu0 * Gu0).sum(dim=2) + eps0
+                x, r = torch.zeros_like(rhs0), rhs0
+                p = rhs0 / Mdiag
+                rz = _dot(rhs0, p)
+                for _ in range(min(2 * nG, 100)):
+                    Ap = hdot(Gu0, hdotT(Gu0, p)) + eps0 * p
+                    alpha = rz / torch.clamp(_dot(p, Ap), min=1e-30)
+                    x = x + alpha[:, None] * p
+                    r = r - alpha[:, None] * Ap
+                    z = r / Mdiag
+                    rz_new = _dot(r, z)
+                    beta = rz_new / torch.clamp(rz, min=1e-30)
+                    p = z + beta[:, None] * p
+                    rz = rz_new
+                nu0 = x
+            else:
+                eye_u = torch.eye(nU, dtype=dt, device=dev).expand(B, nU, nU)
+                eye_g = torch.eye(nG, dtype=dt, device=dev).expand(B, nG, nG)
+                WW0 = torch.cat(
+                    [torch.cat([eye_u, Gu0.transpose(1, 2)], dim=2),
+                     torch.cat([Gu0, -addEq0 * eye_g], dim=2)],
+                    dim=1,
+                )
+                b0 = torch.cat([btop, btop.new_zeros(B, nG)], dim=1)
+                nu0 = lu_solve_mixed(WW0, b0)[:, nU:]
         else:
             nu0 = u0.new_zeros(B, 0)
 
-        # hoisted derivatives at a dummy iterate with unit scales and the
-        # value-irrelevant parameters masked to zeros: with every
-        # remaining dependency shared they are computed once, unbatched
-        h_deps, fu_deps, gu_deps = (
-            hoist_param_deps if hoist_param_deps is not None else (None,) * 3
-        )
+        def band_linearization():
+            """Band mode: the hoisted derivatives at a dummy iterate with
+            unit scales and the value-irrelevant parameters masked to
+            zeros (with every remaining dependency shared they are
+            computed once, unbatched), the constant band of
+            P [[H, Gu'], [Gu, 0]] P' and the per-diagonal pair products of
+            the permuted UNSCALED Jacobian:
+            band_F[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]."""
+            h_deps, fu_deps, gu_deps = (
+                hoist_param_deps if hoist_param_deps is not None else (None,) * 3
+            )
+            shapes = {k: tuple(v.shape[0 if k in shared else 1:])
+                      for k, v in penv.items()}
 
-        def hoisted(fn, deps):
-            keep = [k for k in penv if deps is None or k in deps]
-            env = {
-                k: (penv[k] if k in keep
-                    else torch.zeros(shapes[k], dtype=dt, device=dev))
-                for k in penv
-            }
-            if all(k in shared for k in keep):
-                return fn(env)
-            dims = {k: (0 if (k in keep and k not in shared) else None) for k in env}
-            return vmap(fn, in_dims=(dims,))(env)
+            def hoisted(fn, deps):
+                keep = [k for k in penv if deps is None or k in deps]
+                env = {
+                    k: (penv[k] if k in keep
+                        else torch.zeros(shapes[k], dtype=dt, device=dev))
+                    for k in penv
+                }
+                if all(k in shared for k in keep):
+                    return fn(env)
+                dims = {k: (0 if (k in keep and k not in shared) else None)
+                        for k in env}
+                return vmap(fn, in_dims=(dims,))(env)
 
-        u_d = torch.zeros(nU, dtype=dt, device=dev)
-        nu_d = torch.zeros(nG, dtype=dt, device=dev)
-        lam_d = torch.ones(nF, dtype=dt, device=dev)
-        ones_f = torch.ones(nF, dtype=dt, device=dev)
-        one_c = torch.ones((), dtype=dt, device=dev)
+            u_d = torch.zeros(nU, dtype=dt, device=dev)
+            nu_d = torch.zeros(nG, dtype=dt, device=dev)
+            lam_d = torch.ones(nF, dtype=dt, device=dev)
+            ones_f = torch.ones(nF, dtype=dt, device=dev)
+            one_c = torch.ones((), dtype=dt, device=dev)
 
-        def H_of(env):
-            H0 = jacfwd(grad(lambda uu: _lagr(uu, nu_d, lam_d, env, ones_f, one_c)[0]))(u_d)
-            return 0.5 * (H0 + H0.transpose(-1, -2))
+            def H_of(env):
+                H0 = jacfwd(grad(
+                    lambda uu: _lagr(uu, nu_d, lam_d, env, ones_f, one_c)[0]
+                ))(u_d)
+                return 0.5 * (H0 + H0.transpose(-1, -2))
 
-        H = hoisted(H_of, h_deps)
-        Fu = hoisted(lambda env: jacfwd(lambda uu: fns.F(uu, env))(u_d), fu_deps)
-        if nG > 0:
-            Gu = hoisted(lambda env: jacfwd(lambda uu: fns.G(uu, env))(u_d), gu_deps)
-        else:
-            Gu = torch.zeros(0, nU, dtype=dt, device=dev)
-
-        # constant band of P [[H, Gu'], [Gu, 0]] P', and the per-diagonal
-        # pair products of the permuted UNSCALED Jacobian:
-        # band_F[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]
-        perm = torch.as_tensor(perm_np, device=dev)
-        lead = torch.broadcast_shapes(H.shape[:-2], Gu.shape[:-2])
-        Hb = H.expand(lead + H.shape[-2:])
-        Gb = Gu.expand(lead + Gu.shape[-2:])
-        Wconst = torch.cat(
-            [torch.cat([Hb, Gb.transpose(-1, -2)], dim=-1),
-             torch.cat([Gb, Gb.new_zeros(lead + (nG, nG))], dim=-1)],
-            dim=-2,
-        )
-        band_const = _band_of(Wconst, perm, w_band)
-        FuP = torch.cat([Fu, Fu.new_zeros(Fu.shape[:-1] + (nG,))], dim=-1)[..., perm]
-        FuPP = torch.stack(
-            [Fn.pad(FuP[..., i:] * FuP[..., : nK - i], (0, i))
-             for i in range(w_band + 1)],
-            dim=-2,
-        )  # (..., nF, w+1, nK)
-        FuPP_flat = FuPP.reshape(FuPP.shape[:-2] + ((w_band + 1) * nK,))
-        bmask_u = (perm < nU).to(dt)
-        bmask_g = (perm >= nU).to(dt)
-
-        def barrier_band(ds):
-            if FuPP_flat.dim() == 2:
-                flat = ds @ FuPP_flat
+            H = hoisted(H_of, h_deps)
+            Fu = hoisted(lambda env: jacfwd(lambda uu: fns.F(uu, env))(u_d), fu_deps)
+            if nG > 0:
+                Gu = hoisted(lambda env: jacfwd(lambda uu: fns.G(uu, env))(u_d), gu_deps)
             else:
-                flat = torch.bmm(ds.unsqueeze(1), FuPP_flat).squeeze(1)
-            return flat.view(B, w_band + 1, nK).transpose(1, 2)
+                Gu = torch.zeros(0, nU, dtype=dt, device=dev)
 
-        def fu_mv(x):
-            return si * hdot(Fu, x)
+            w_band = int(band_plan.bandwidth)
+            perm = torch.as_tensor(np.asarray(band_plan.perm), device=dev)
+            lead = torch.broadcast_shapes(H.shape[:-2], Gu.shape[:-2])
+            Hb = H.expand(lead + H.shape[-2:])
+            Gb = Gu.expand(lead + Gu.shape[-2:])
+            Wconst = torch.cat(
+                [torch.cat([Hb, Gb.transpose(-1, -2)], dim=-1),
+                 torch.cat([Gb, Gb.new_zeros(lead + (nG, nG))], dim=-1)],
+                dim=-2,
+            )
+            band_const = _band_of(Wconst, perm, w_band)
+            FuP = torch.cat([Fu, Fu.new_zeros(Fu.shape[:-1] + (nG,))], dim=-1)[..., perm]
+            FuPP = torch.stack(
+                [Fn.pad(FuP[..., i:] * FuP[..., : nK - i], (0, i))
+                 for i in range(w_band + 1)],
+                dim=-2,
+            )  # (..., nF, w+1, nK)
+            FuPP_flat = FuPP.reshape(FuPP.shape[:-2] + ((w_band + 1) * nK,))
+            bmask_u = (perm < nU).to(dt)
+            bmask_g = (perm >= nU).to(dt)
 
-        def fuT_mv(y):
-            return hdotT(Fu, si * y)
+            def barrier_band(ds):
+                if FuPP_flat.dim() == 2:
+                    flat = ds @ FuPP_flat
+                else:
+                    flat = torch.bmm(ds.unsqueeze(1), FuPP_flat).squeeze(1)
+                return flat.view(B, w_band + 1, nK).transpose(1, 2)
+
+            def fu_mv(x):
+                return si * hdot(Fu, x)
+
+            def fuT_mv(y):
+                return hdotT(Fu, si * y)
+
+            def linearize(u, nu, lam, Fval):
+                dF = lam / (Fval if f64 else torch.clamp(Fval, min=1e-8))
+                ds = dF * si * si
+
+                def assemble(addU, addEq):
+                    bandv = band_const + barrier_band(ds)
+                    bandv[:, :, 0] += addU[:, None] * bmask_u - addEq[:, None] * bmask_g
+                    WW = BandKKT(bandv, perm, H, Fu, Gu, ds, addU, addEq, nU, nG)
+                    return WW, lambda x: hdot(H, x) + addU[:, None] * x
+
+                return Linearization(fu_mv, fuT_mv, lambda x: dF * fu_mv(x), assemble)
+
+            return linearize
+
+        def dense_linearization():
+            """The dense condensed KKT: H, the scaled Fu and Gu hoisted at
+            (u0, nu0, lam0) where certified iteration-invariant, else
+            evaluated at each iterate."""
+            H0 = H_at(u0, nu0, lam0) if hoist_H else None
+            Fu0_ = Fu_at(u0) if hoist_Fu else None
+            Gu0_ = Gu_at(u0) if (hoist_Gu and nG > 0) else None
+            eye_u = torch.eye(nU, dtype=dt, device=dev)
+            eye_g = torch.eye(nG, dtype=dt, device=dev)
+
+            def linearize(u, nu, lam, Fval):
+                H = H0 if H0 is not None else H_at(u, nu, lam)
+                Fu = Fu0_ if Fu0_ is not None else Fu_at(u)
+                if nG > 0:
+                    Gu = Gu0_ if Gu0_ is not None else Gu_at(u)
+                Fdiv = Fval if f64 else torch.clamp(Fval, min=1e-8)
+                LPG = (lam / Fdiv)[:, :, None] * Fu
+                FtLPG = torch.bmm(Fu.transpose(1, 2), LPG)
+
+                def assemble(addU, addEq):
+                    WW11 = H + addU[:, None, None] * eye_u
+                    WW = WW11 + FtLPG
+                    if nG > 0:
+                        WW = torch.cat(
+                            [torch.cat([WW, Gu.transpose(1, 2)], dim=2),
+                             torch.cat([Gu, -addEq[:, None, None] * eye_g], dim=2)],
+                            dim=1,
+                        )
+                    return WW, lambda x: hdot(WW11, x)
+
+                return Linearization(
+                    lambda x: hdot(Fu, x), lambda y: hdotT(Fu, y),
+                    lambda x: hdot(LPG, x), assemble,
+                )
+
+            return linearize
+
+        linearize = band_linearization() if band_mode else dense_linearization()
 
         def exit_metrics(st: IPMState):
             grad_u, (Fval, Gval) = lagr_grad(st.u, st.nu, st.lam, penv, si, sc)
@@ -499,24 +630,18 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 Fval.amin(dim=1), st.lam.amin(dim=1), (grad_u, Fval, Gval),
             )
 
-        def compute_direction(u, nu, lam, mu, addU, addEq, cached,
-                              mehrotra_mu) -> Direction:
+        def compute_direction(lin: Linearization, lam, mu, addU, addEq,
+                              cached, mehrotra_mu) -> Direction:
             grad_u, Fval, Gval = cached
             Fdiv = Fval if f64 else torch.clamp(Fval, min=1e-8)
             muF = mu[:, None] / Fdiv
-            dF = lam / Fdiv
-            ds = dF * si * si
-            bandv = band_const + barrier_band(ds)
-            bandv[:, :, 0] += addU[:, None] * bmask_u - addEq[:, None] * bmask_g
-            WW = BandKKT(bandv, perm, H, Fu, Gu, ds, addU, addEq, nU, nG)
-
-            def lpg_mv(x):
-                return dF * fu_mv(x)
-
+            fu_mv, fuT_mv, lpg_mv = lin.fu_mv, lin.fuT_mv, lin.lpg_mv
+            WW, ww11_mv = lin.assemble(addU, addEq)
             fac = kkt_solver(WW)
             mu_new = mu
             sigma_fired = torch.zeros(B, dtype=torch.bool, device=dev)
             if not opts.skipAffine:
+                # the predictor takes the unrefined float32 solve
                 b_a = torch.cat([-grad_u - fuT_mv(lam), -Gval], dim=1)
                 dx_a = fac._solve32(b_a).to(dt)
                 dU_a = dx_a[:, :nU]
@@ -537,10 +662,11 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             dLambda = muF_c - lpg_mv(dU) - lam
             if not opts.skipAffine:
                 dLambda = dLambda - Meh
-            derr = _norminf(WW.matvec(dx) - b)
-            curvature = _dot(dU, hdot(H, dU) + addU[:, None] * dU)
+            derr = _norminf(_mvWW(WW, dx) - b)
+            curvature = _dot(dU, ww11_mv(dU))
             if opts.useInertia:
-                # after the solves: reuses their factor, never launches K3
+                # after the solves: reuses their factor, never launches a
+                # factor-only kernel
                 mp, mn = fac.inertia()
             else:
                 mp = mn = torch.zeros_like(mu)
@@ -548,7 +674,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 bscale = _norminf(b)
             else:
                 # backward-error scale bound ||WW||_inf ||dx||_inf + ||b||
-                bscale = WW.abs_rowsum_max() * _norminf(dx) + _norminf(b)
+                bscale = _abs_rowsum_max(WW) * _norminf(dx) + _norminf(b)
             return Direction(dU, dNu, dLambda, derr, curvature, mp, mn,
                              mu_new, sigma_fired, bscale)
 
@@ -574,6 +700,11 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         def iterate(st: IPMState, ng, ne, gap, cached, run) -> IPMState:
             u, nu, lam, mu = st.u, st.nu, st.lam, st.mu
             addU, addEq = st.addU, st.addEq
+            _, Fval, _ = cached
+            # the KKT's derivatives do not depend on the regularization,
+            # so the adaptation trips share one linearization
+            lin = linearize(u, nu, lam, Fval)
+            fu_mv = lin.fu_mv
 
             def mehrotra_mu(dU_a, dLambda_a, Fval_):
                 # affine line search + sigma = rho^delta mu update,
@@ -610,7 +741,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             meh = mehrotra_mu if not opts.skipAffine else None
 
             def direction(aU, aE):
-                return compute_direction(u, nu, lam, mu, aU, aE, cached, meh)
+                return compute_direction(lin, lam, mu, aU, aE, cached, meh)
 
             addU_next, addEq_next = addU, addEq
             inc_state = torch.zeros_like(run)
@@ -690,7 +821,6 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 addEq_next = torch.where(was_retry, addEq, addEq_next)
                 inc_state = inc
 
-            _, Fval, _ = cached
             dU, dNu, dLambda = dirn.dU, dirn.dNu, dirn.dLambda
             FdU = fu_mv(dU)
             maxAlphaDualIneq = _clp(lam, dLambda)
@@ -840,5 +970,5 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             scale_ineq=scale_ineq, scale_cost=scale_cost,
         )
 
-    solve.band_mode = "hoisted"
+    solve.band_mode = "hoisted" if band_mode else None
     return solve

@@ -1,5 +1,5 @@
-"""Dense KKT helpers (port of ``tenscalc_tpu/kkt/dense.py``: ``hdot``
-only; the dense LDL/LU backends are ROADMAP item M4).
+"""Dense KKT helpers (port of ``tenscalc_tpu/kkt/dense.py``: ``hdot`` and
+``lu_solve_mixed``; the dense LDL/LU backends are ROADMAP item M4).
 
 Every product here runs in full precision: the solver turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, float32 matmul
@@ -28,3 +28,11 @@ def hdotT(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if A.dim() == 2:
         return y @ A
     return torch.bmm(y.unsqueeze(1), A).squeeze(1)
+
+
+def lu_solve_mixed(WW: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """One-shot pivoted-LU solve of a batch, WW (B, n, n), rhs (B, n), in
+    WW's dtype: the CPU/GPU branch of the JAX ``kkt_factorize``
+    (``dense.py:350-354``), which neither casts to float32 nor refines."""
+    LU, piv = torch.linalg.lu_factor(WW)
+    return torch.linalg.lu_solve(LU, piv, rhs.unsqueeze(-1)).squeeze(-1)

@@ -1,0 +1,217 @@
+"""Binding of the dense LDL^T kernels K4-K8 (``csrc/dense_ldl.cu``) and
+the arithmetic their plain versions share.
+
+The wrappers with the JAX signatures live in :mod:`.fleet` (K4/K5, the
+fleet layout: row j of the factor holds L[:, j] with the pivot at
+[j, j]) and :mod:`.pallas_ldl` (K6-K8, Lt = L^T with a unit diagonal).
+Both layouts keep column c of L in row c, so one substitution serves
+both: a forward scatter with row c of the factor, a division by d, and
+a backward gather whose sums follow the kernels' reduction tree
+(:func:`solve_rows_plain`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as Fn
+
+from .._build import build_shared_library, find_tool
+from .fleet_banded import NVCC_FLAGS, _stream
+
+FLEET_MAX_N = 160    # the JAX fleet kernel's VMEM cap (fleet.py:54-61)
+SINGLE_MAX_N = 896   # the JAX single-instance cap (fleet.py:263)
+MAX_THREADS = 512    # K6-K8 block size cap
+CLAMP = 1e-7         # the pivot clamp of the IPM's dense backends
+
+# Kernel launches, one count per kernel; a launcher adds one where it
+# launches its kernel and nowhere else.
+LAUNCHES = {"fleet_factor": 0, "fleet_solve": 0, "ldl_factor": 0,
+            "ldl_solve": 0, "ldl_factor_solve": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+LIB_PATH: Optional[Path] = None  # the built library, once loaded
+_READY: set = set()  # devices where the kernels' shared-memory opt-in is set
+
+
+def _load() -> ctypes.CDLL:
+    """Build (at first use) and bind the CUDA library; the caps above are
+    its compile-time limits."""
+    global _lib, LIB_PATH
+    if _lib is None:
+        nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
+        flags = [*NVCC_FLAGS, f"-DTC_FLEET_MAX_N={FLEET_MAX_N}",
+                 f"-DTC_MAX_THREADS={MAX_THREADS}"]
+        path = LIB_PATH = build_shared_library("dense_ldl.cu", nvcc, flags)
+        lib = ctypes.CDLL(str(path))
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tc_dense_ldl_fleet_factor.argtypes = [P, P, P, I, I, Fl, P]
+        lib.tc_dense_ldl_fleet_solve.argtypes = [P, P, P, P, I, I, P]
+        lib.tc_dense_ldl_factor.argtypes = [P, P, P, I, I, I, Fl, P]
+        lib.tc_dense_ldl_solve.argtypes = [P, P, P, P, I, I, I, P]
+        lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, I, I, I, Fl, P]
+        lib.tc_dense_ldl_init.argtypes = []
+        for fn in (lib.tc_dense_ldl_fleet_factor, lib.tc_dense_ldl_fleet_solve,
+                   lib.tc_dense_ldl_factor, lib.tc_dense_ldl_solve,
+                   lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_init):
+            fn.restype = ctypes.c_int
+        lib.tc_dense_ldl_error_string.argtypes = [I]
+        lib.tc_dense_ldl_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _lib_on(device: torch.device) -> ctypes.CDLL:
+    """The library, with its kernels' shared-memory opt-in set on
+    ``device`` (once a device)."""
+    lib = _load()
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _READY:
+        with torch.cuda.device(idx):
+            _check_rc(lib, lib.tc_dense_ldl_init(), "dense_ldl init")
+        _READY.add(idx)
+    return lib
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.tc_dense_ldl_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def block_threads(n: int) -> int:
+    """Threads of a K6-K8 block for order n: the reduction tree of their
+    backward sums, which the plain versions repeat."""
+    return min(MAX_THREADS, 32 * -(-n // 32))
+
+
+# ---------------------------------------------------------------------------
+# launches: contiguous float32 (B, n, n) matrices and (B, n) vectors
+# ---------------------------------------------------------------------------
+
+def launch_fleet_factor(A, L, d, clamp: float) -> None:
+    """K4: L, d preallocated."""
+    lib = _lib_on(A.device)
+    B, n = A.shape[0], A.shape[-1]
+    with torch.cuda.device(A.device):
+        rc = lib.tc_dense_ldl_fleet_factor(
+            A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B, clamp, _stream(A)
+        )
+    _check_rc(lib, rc, "dense_ldl fleet_factor")
+    LAUNCHES["fleet_factor"] += 1
+
+
+def launch_fleet_solve(L, d, b, x) -> None:
+    """K5: x preallocated."""
+    lib = _lib_on(b.device)
+    B, n = b.shape
+    with torch.cuda.device(b.device):
+        rc = lib.tc_dense_ldl_fleet_solve(
+            L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B,
+            _stream(b),
+        )
+    _check_rc(lib, rc, "dense_ldl fleet_solve")
+    LAUNCHES["fleet_solve"] += 1
+
+
+def launch_factor(A, Lt, d, clamp: float) -> None:
+    """K6: Lt, d preallocated."""
+    lib = _lib_on(A.device)
+    B, n = A.shape[0], A.shape[-1]
+    with torch.cuda.device(A.device):
+        rc = lib.tc_dense_ldl_factor(
+            A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B, block_threads(n),
+            clamp, _stream(A),
+        )
+    _check_rc(lib, rc, "dense_ldl factor")
+    LAUNCHES["ldl_factor"] += 1
+
+
+def launch_solve(Lt, d, b, x) -> None:
+    """K7: x preallocated."""
+    lib = _lib_on(b.device)
+    B, n = b.shape
+    with torch.cuda.device(b.device):
+        rc = lib.tc_dense_ldl_solve(
+            Lt.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B,
+            block_threads(n), _stream(b),
+        )
+    _check_rc(lib, rc, "dense_ldl solve")
+    LAUNCHES["ldl_solve"] += 1
+
+
+def launch_factor_solve(A, b, Lt, d, x, clamp: float) -> None:
+    """K8: Lt, d, x preallocated."""
+    lib = _lib_on(A.device)
+    B, n = b.shape
+    with torch.cuda.device(A.device):
+        rc = lib.tc_dense_ldl_factor_solve(
+            A.data_ptr(), b.data_ptr(), Lt.data_ptr(), d.data_ptr(),
+            x.data_ptr(), n, B, block_threads(n), clamp, _stream(A),
+        )
+    _check_rc(lib, rc, "dense_ldl factor_solve")
+    LAUNCHES["ldl_factor_solve"] += 1
+
+
+# ---------------------------------------------------------------------------
+# checks and the shared plain arithmetic
+# ---------------------------------------------------------------------------
+
+def check_matrix(A: torch.Tensor, max_n: int, item: str) -> None:
+    """A (B, n, n) float32 on the CPU or a CUDA device, n within the
+    kernels' range (above it the ROADMAP ``item`` owes a path)."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or min(A.shape) < 1:
+        raise ValueError(f"matrix must be (B, n, n), got {tuple(A.shape)}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"matrix must be float32, got {A.dtype}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {A.device}")
+    if A.shape[-1] > max_n:
+        raise NotImplementedError(
+            f"n={A.shape[-1]} above {max_n} is not ported yet (ROADMAP item {item})"
+        )
+
+
+def check_vector(A: torch.Tensor, b: torch.Tensor, name: str = "rhs") -> None:
+    if tuple(b.shape) != (A.shape[0], A.shape[-1]):
+        raise ValueError(
+            f"{name} must be (B, n)={(A.shape[0], A.shape[-1])}, got {tuple(b.shape)}"
+        )
+    if b.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {b.dtype}")
+    if b.device != A.device:
+        raise ValueError(f"matrix and {name} must be on the same device")
+
+
+def solve_rows_plain(F: torch.Tensor, d: torch.Tensor, b: torch.Tensor,
+                     threads: int) -> torch.Tensor:
+    """Plain version of the kernels' substitutions: ``F`` (B, n, n) holds
+    column c of the unit-lower L in row c, after the diagonal (which is
+    not read).  The backward sums follow the reduction tree of a group of
+    ``threads``: sequential per thread over its indices, a butterfly in
+    each warp, then the warps' sums in order."""
+    B, n = b.shape
+    x = b.clone()
+    for c in range(n):
+        x[:, c + 1:] -= x[:, c: c + 1] * F[:, c, c + 1:]
+    x = x / d
+    chunks = -(-n // threads)
+    idx = torch.arange(n, device=b.device)
+    zero = x.new_zeros(())
+    for c in range(n - 1, -1, -1):
+        p = torch.where(idx > c, F[:, c, :] * x, zero)
+        p = Fn.pad(p, (0, chunks * threads - n)).view(B, chunks, threads)
+        acc = x.new_zeros(B, threads)
+        for m in range(chunks):
+            acc = acc + p[:, m]
+        v = acc.view(B, threads // 32, 32)
+        for h in (16, 8, 4, 2, 1):
+            v = v[..., :h] + v[..., h: 2 * h]
+        tot = x.new_zeros(B)
+        for w in range(threads // 32):
+            tot = tot + v[:, w, 0]
+        x[:, c] = x[:, c] - tot
+    return x

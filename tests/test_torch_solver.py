@@ -175,6 +175,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import tenscalc_tpu_torch.examples.mpcmhe_dcmotor\n"
         "import tenscalc_tpu_torch.ipm.equilibrium, tenscalc_tpu_torch.kkt.banded_lu\n"
         "import tenscalc_tpu_torch.kkt.band_assemble, tenscalc_tpu_torch.kkt.select\n"
+        "import tenscalc_tpu_torch.kkt.fleet, tenscalc_tpu_torch.kkt.pallas_ldl\n"
+        "import tenscalc_tpu_torch.kkt.dense_ldl, tenscalc_tpu_torch.examples.sls\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tenscalc_tpu' or m.startswith('tenscalc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
