@@ -7,7 +7,8 @@ Phases:
   2. kernels: K1 (factor+solve), K2 (solve) and K3 (factor) against their
      plain PyTorch versions on the card, at the flagship shapes
      (B=1024, n=149, w=4) and a ragged one (B=1000, n=69, w=9), timed with
-     CUDA events;
+     CUDA events; K2 also beside its library call, torch.linalg.ldl_solve
+     with no interchanges on K1's factor expanded to dense;
   3. the slice: the flagship fleet (examples/mpc_dcmotor, T=30, B=1024,
      float32) through solve_many, with the kernel launch counts read
      around it, then one single solve;
@@ -16,8 +17,11 @@ Phases:
   5. a profile of one fleet solve (device busy share, top kernels);
   6. kernels of slice 2: K9 (LU factor+solve), K10 (LU solve) and K11 (LU
      factor) against their plain versions, at the MPC-MHE fleet's shapes
-     (B=1024, n=290, w=10) and ragged ones (B=1000, n=146, w=10 and
-     B=1000, n=69, w=3);
+     (B=1024, n=290, w=10; warm, with L2 cold, and through the entry
+     point; K10 beside torch.linalg.lu_solve with no interchanges), ragged
+     ones (B=1000: n=146, w=10; n=69, w=3 and w=1), w=12, and bands
+     above the shared-memory cap (B=64: n=3000, w=12; n=16000, w=1: the
+     ring route);
   7. slice 2: the MPC-MHE equilibrium fleet (examples/mpcmhe_dcmotor,
      T=12, L=16, B=1024, float32) through solve_many, with the launch
      counts read around it, then one single solve;
@@ -62,6 +66,10 @@ FLEET_B, FLEET_T = 1024, 30
 # multiply-adds: the kernels are expected to match the plain versions
 # to the last bit; the check allows a few roundings of the result scale
 KERNEL_RTOL = 1e-5
+# the card's spin before a call timed for its device time alone: ~0.3 ms
+# at the H100's clocks, more than the host needs to enqueue any kernel
+# call timed so
+SPIN_CYCLES = 500_000
 # the reference's batched-vs-single float32 tolerance on u
 U_ATOL = 2e-3
 # float32 objective of two solves inside the same convergence ball
@@ -123,19 +131,30 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def timed_call(fn, before=None, spin: bool = False) -> float:
+    """One call of ``fn`` timed with CUDA events (ms), after ``before``
+    when given.  By default the events bracket the host's enqueue of the
+    call too, so its launch overhead is inside (the ``ms`` of every
+    kernel since the first).  ``spin=True`` first spins the card for
+    ~0.3 ms, so the start event fires after the host has enqueued the
+    call: the time is the device's alone (``device_ms``)."""
+    if before is not None:
+        before()
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def cuda_ms(fn, reps: int, spin: bool = False) -> float:
     """Median of ``reps`` single-call times, CUDA events, after a warm-up."""
     fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(timed_call(fn, spin=spin) for _ in range(reps))
 
 
 def test_band(B: int, n: int, w: int, seed: int):
@@ -263,18 +282,23 @@ def phase_dense_kernels(dl, fl, pl):
     recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
     clamp = dl.CLAMP
 
-    def record(k, B, n, err, scale, ms, plain_ms, main, lib_ms=None):
+    def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None):
+        """Holds the error, and times the launch ``kern`` (at the main
+        shape also its device time alone)."""
         check(np.isfinite(err) and err <= KERNEL_RTOL * scale,
               f"{k} at B={B} n={n}: max abs err {err}")
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
         bms, by = dense_bound(k, B, n)
+        ms = cuda_ms(kern, reps)
+        dev_ms = cuda_ms(kern, reps, spin=True) if main else None
+        dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
         log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}: max_abs_err {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms{lib}  "
+            f"kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
             f"bound {bms:.3e} ms ({by})")
         if main:
-            recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                           library_ms=lib_ms)
+            recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, library_ms=lib_ms)
 
     def library_solve(LD, b, x, scale, what):
         """torch.linalg.ldl_solve against a factor in LAPACK's packed
@@ -306,13 +330,13 @@ def phase_dense_kernels(dl, fl, pl):
         l5 = library_solve(L.mT, b, x, scale, "K5")
         reps, preps = (50, 5) if n <= 80 else (20, 2)
         xo = torch.empty_like(b)
-        t4 = cuda_ms(lambda: dl.launch_fleet_factor(A, L, d, clamp), reps)
-        t5 = cuda_ms(lambda: dl.launch_fleet_solve(L, d, b, xo), reps)
         p4 = cuda_ms(lambda: fl.fleet_ldl_factor_plain(A, clamp), preps)
         p5 = cuda_ms(lambda: fl.fleet_ldl_solve_plain(pL, pd, b), preps)
         main = (B, n) == (SLS_B, SLS_N)
-        record("fleet_factor", B, n, e4, scale, t4, p4, main)
-        record("fleet_solve", B, n, e5, scale, t5, p5, main, l5)
+        record("fleet_factor", B, n, e4, scale,
+               lambda: dl.launch_fleet_factor(A, L, d, clamp), reps, p4, main)
+        record("fleet_solve", B, n, e5, scale,
+               lambda: dl.launch_fleet_solve(L, d, b, xo), reps, p5, main, l5)
     for B, n in SINGLE_SHAPES:
         A, b = test_sym(B, n, seed=n + B)
         Lt, d = pl.pallas_ldl_factor(A, clamp)
@@ -331,23 +355,24 @@ def phase_dense_kernels(dl, fl, pl):
         l7 = library_solve(LD, b, x, scale, "K7")
         reps, preps = (50, 5) if n <= 200 else (10, 1)
         xo = torch.empty_like(b)
-        t6 = cuda_ms(lambda: dl.launch_factor(A, Lt, d, clamp), reps)
-        t7 = cuda_ms(lambda: dl.launch_solve(Lt, d, b, xo), reps)
-        t8 = cuda_ms(lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps)
         p6 = cuda_ms(lambda: pl.pallas_ldl_factor_plain(A, clamp), preps)
         p7 = cuda_ms(lambda: pl.pallas_ldl_solve_plain(pLt, pd, b), preps)
         p8 = cuda_ms(lambda: pl.pallas_ldl_factor_solve_plain(A, b, clamp), preps)
         main = (B, n) == (1, SLS_N)
-        record("ldl_factor", B, n, e6, scale, t6, p6, main)
-        record("ldl_solve", B, n, e7, scale, t7, p7, main, l7)
-        record("ldl_factor_solve", B, n, e8, scale, t8, p8, main)
+        record("ldl_factor", B, n, e6, scale,
+               lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main)
+        record("ldl_solve", B, n, e7, scale,
+               lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7)
+        record("ldl_factor_solve", B, n, e8, scale,
+               lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main)
     return recs
 
 
-def ptxas_report(mod, w: int) -> str:
+def ptxas_report(mod, w: int, routes=("",)) -> str:
     """Registers a thread of a kernel library's three kernels at width
-    ``w``, from the ptxas report (-Xptxas -v) in its build log; fails on a
-    spill at any width."""
+    ``w`` on each route (csrc/banded_lu.cu's second template argument:
+    ``routes`` = ("staged", "ring")), from the ptxas report (-Xptxas -v)
+    in its build log; fails on a spill at any width and route."""
     import re
 
     from tenscalc_tpu_torch._build import build_log
@@ -355,9 +380,9 @@ def ptxas_report(mod, w: int) -> str:
     regs, spills, name = {}, {}, None
     for line in build_log(mod.LIB_PATH).read_text().splitlines():
         m = re.search(r"Compiling entry function '.*\d((?:lu_)?(?:factor_solve|solve|factor)"
-                      r"_kernel)ILi(\d+)E", line)
+                      r"_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
         if m:
-            name = (m.group(1), int(m.group(2)))
+            name = (m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills[name] = int(m.group(1)) + int(m.group(2))
@@ -365,16 +390,76 @@ def ptxas_report(mod, w: int) -> str:
         if m and name:
             regs[name] = int(m.group(1))
     src = Path(mod.LIB_PATH).name
-    check(len(regs) == 3 * mod.MAX_W, f"{src}: ptxas reported {len(regs)} kernels")
+    check(len(regs) == 3 * mod.MAX_W * len(routes),
+          f"{src}: ptxas reported {len(regs)} kernels")
     check(not any(spills.values()), f"{src}: register spills: {spills}")
-    return ", ".join(f"{k} {r}" for (k, kw), r in sorted(regs.items()) if kw == w)
+    return ", ".join(f"{k}{' ' + rt if rt else ''} {r}"
+                     for (k, kw, rt), r in sorted(regs.items()) if kw == w)
+
+
+def cuda_ms_cold(fn, reps: int = 20) -> float:
+    """Median of ``reps`` single-call device times, CUDA events, each
+    after a 256 MB write that evicts the 50 MB L2 (not timed)."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    t = statistics.median(timed_call(fn, flush.zero_, spin=True) for _ in range(reps))
+    del flush
+    return t
+
+
+def lu_dense(f):
+    """K9's factored band (B, n, 2w+1) expanded to LAPACK's packed LU: the
+    multipliers below the diagonal, d and U on and above it."""
+    B, n, R = f.shape
+    w = (R - 1) // 2
+    LU = f.new_zeros(B, n, n)
+    c = torch.arange(n, device=f.device)
+    LU[:, c, c] = f[:, :, 0]
+    for i in range(1, w + 1):
+        LU[:, c[i:], c[:-i]] = f[:, : n - i, i]
+        LU[:, c[:-i], c[i:]] = f[:, : n - i, w + i]
+    return LU
+
+
+def ldl_dense(f):
+    """K1's factored band (B, n, w+1) expanded to LAPACK's packed lower
+    LDL^T form: L below the diagonal, d on it."""
+    B, n, R = f.shape
+    LD = f.new_zeros(B, n, n)
+    c = torch.arange(n, device=f.device)
+    LD[:, c, c] = f[:, :, 0]
+    for i in range(1, R):
+        LD[:, c[i:], c[:-i]] = f[:, : n - i, i]
+    return LD
+
+
+def library_check(fn, x, scale, what, reps):
+    """Holds one PyTorch call's x to a kernel's at the kernels' tolerance
+    and returns its time (ms, CUDA events, ``reps`` single calls)."""
+    xl = fn()
+    torch.cuda.synchronize()
+    el = (xl - x).abs().max().item()
+    check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
+          f"{what}: max abs diff from the kernel {el}")
+    return cuda_ms(fn, reps), el
+
+
+# (B, n, w): the MPC-MHE fleet; ragged batches (B not a multiple of the
+# group) at the T = 6 game's width and a narrow band; the width range's
+# ends; and bands above the shared-memory cap (the ring route), one with
+# n a whole number of chunks
+LU_SHAPES = [LU_SHAPE, (1000, 146, 10), (1000, 69, 3), (1000, 69, 1), (1024, 290, 12),
+             (64, 3000, 12), (64, 16000, 1)]
 
 
 def phase_lu_kernels(lu):
     """K9-K11 against their plain versions; returns per-kernel records."""
     recs = {k: {"max_abs_err": 0.0} for k in LU_REPLACES}
     clamp = 1e-4
-    for B, n, w in (LU_SHAPE, (1000, 146, 10), (1000, 69, 3)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, n, w in LU_SHAPES:
+        main = (B, n, w) == LU_SHAPE
+        plan = lu.launch_plan(n, w, B, sms)
         band, rhs = test_lu_band(B, n, w, seed=n + w)
         f9, x9 = lu.fleet_banded_lu_factor_solve_batched(band, rhs, w, clamp)
         x10 = lu.fleet_banded_lu_solve_batched(f9, rhs, w)
@@ -393,28 +478,60 @@ def phase_lu_kernels(lu):
             check(np.isfinite(e) and e <= KERNEL_RTOL * scale,
                   f"{k} at B={B} n={n} w={w}: max abs err {e}")
             recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
-        bt = band.permute(1, 2, 0).contiguous()
-        rt = rhs.t().contiguous()
-        fbt, xt = torch.empty_like(bt), torch.empty_like(rt)
-        lu.launch_factor_solve(bt, rt, fbt, xt, w, clamp)
-        times = {
+        log(f"[lu-kernels] B={B} n={n} w={w}: route "
+            f"{'ring' if plan.ring else 'staged'}, {plan.group} instances "
+            f"(a warp each) a CTA, {-(-B // plan.group)} CTAs, "
+            f"{plan.smem} bytes of shared memory a CTA")
+        fb, xo = torch.empty_like(band), torch.empty_like(rhs)
+        reps = 50 if n <= 290 else 5
+        preps = 20 if main else (3 if n <= 290 else 0)
+        runs = {
             "lu_factor_solve": (
-                cuda_ms(lambda: lu.launch_factor_solve(bt, rt, fbt, xt, w, clamp), 50),
-                cuda_ms(lambda: lu.fleet_banded_lu_factor_solve_plain(band, rhs, w, clamp), 20)),
+                lambda: lu.launch_factor_solve(band, rhs, fb, xo, w, clamp),
+                lambda: lu.fleet_banded_lu_factor_solve_plain(band, rhs, w, clamp),
+                lambda: lu.fleet_banded_lu_factor_solve_batched(band, rhs, w, clamp)),
             "lu_solve": (
-                cuda_ms(lambda: lu.launch_solve(fbt, rt, xt, w), 50),
-                cuda_ms(lambda: lu.fleet_banded_lu_solve_plain(pf, rhs, w), 20)),
+                lambda: lu.launch_solve(f9, rhs, xo, w),
+                lambda: lu.fleet_banded_lu_solve_plain(pf, rhs, w),
+                lambda: lu.fleet_banded_lu_solve_batched(f9, rhs, w)),
             "lu_factor": (
-                cuda_ms(lambda: lu.launch_factor(bt, fbt, w, clamp), 50),
-                cuda_ms(lambda: lu.fleet_banded_lu_factor_plain(band, w, clamp), 20)),
+                lambda: lu.launch_factor(band, fb, w, clamp),
+                lambda: lu.fleet_banded_lu_factor_plain(band, w, clamp),
+                lambda: lu.fleet_banded_lu_factor_batched(band, w, clamp)),
         }
-        for k, (ms, plain_ms) in times.items():
+        lib_ms = None
+        if main:
+            # K10's library call: lu_solve with no interchanges (pivots
+            # 1..n) on K9's factor expanded to dense (not timed)
+            LU = lu_dense(f9)
+            piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+            lib_ms, el = library_check(
+                lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0],
+                x10, scale, f"lu_solve against K10 at B={B} n={n} w={w}", 5)
+            log(f"[lu-kernels] library torch.linalg.lu_solve (pivots 1..n) on K9's "
+                f"factor as dense LU: {lib_ms:.4f} ms, max abs diff from K10 {el:.3e}")
+            del LU
+        for k, (kern, plain, entry) in runs.items():
+            ms = cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, preps) if preps else None
             bms, by = lu_bound(k, B, n, w)
+            extra, dev_ms = "", None
+            if main:
+                dev_ms = cuda_ms(kern, reps, spin=True)
+                cold = cuda_ms_cold(kern)
+                entry_ms = cuda_ms(entry, reps)
+                extra = (f" (device {dev_ms:.4f} ms; with L2 cold {cold:.4f} ms)  "
+                         f"entry point {entry_ms:.4f} ms")
+            lib = f"  library {lib_ms:.4f} ms" if (main and k == "lu_solve") else ""
+            plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
             log(f"[lu-kernels] {LU_NAMES[k]} B={B} n={n} w={w}: max_abs_err "
-                f"{errs[k]:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
-            if (B, n, w) == LU_SHAPE:
-                recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            if main:
+                recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                               bound_by=by,
+                               library_ms=lib_ms if k == "lu_solve" else None)
+        del band, rhs, f9, x9, x10, f11, pf, px, px10, fb, xo
     return recs
 
 
@@ -447,24 +564,41 @@ def phase_kernels(fb):
         rt = rhs.t().contiguous()
         fbt, xt = torch.empty_like(bt), torch.empty_like(rt)
         fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp)
-        times = {
-            "factor_solve": (
-                cuda_ms(lambda: fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp), 50),
-                cuda_ms(lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp), 20)),
-            "solve": (
-                cuda_ms(lambda: fb.launch_solve(fbt, rt, xt, w), 50),
-                cuda_ms(lambda: fb.fleet_banded_solve_plain(pf, rhs, w), 20)),
-            "factor": (
-                cuda_ms(lambda: fb.launch_factor(bt, fbt, w, clamp), 50),
-                cuda_ms(lambda: fb.fleet_banded_factor_plain(band, w, clamp), 20)),
+        main = (B, n, w) == (FLEET_B, 149, 4)
+        kerns = {
+            "factor_solve": (lambda: fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp),
+                             lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)),
+            "solve": (lambda: fb.launch_solve(fbt, rt, xt, w),
+                      lambda: fb.fleet_banded_solve_plain(pf, rhs, w)),
+            "factor": (lambda: fb.launch_factor(bt, fbt, w, clamp),
+                       lambda: fb.fleet_banded_factor_plain(band, w, clamp)),
         }
-        for k, (ms, plain_ms) in times.items():
+        # (kernel ms, device ms at the main shape, plain ms)
+        times = {k: (cuda_ms(kern, 50), cuda_ms(kern, 50, spin=True) if main else None,
+                     cuda_ms(plain, 20))
+                 for k, (kern, plain) in kerns.items()}
+        lib_ms = None
+        if main:
+            # K2's library call: ldl_solve with no interchanges (pivots
+            # 1..n) on K1's factor expanded to dense (not timed)
+            LD = ldl_dense(f1)
+            piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+            lib_ms, el = library_check(
+                lambda: torch.linalg.ldl_solve(LD, piv, rhs[..., None])[..., 0],
+                x2, scale, f"ldl_solve against K2 at B={B} n={n} w={w}", 3)
+            log(f"[kernels] library torch.linalg.ldl_solve (pivots 1..n) on K1's "
+                f"factor as dense LDL^T: {lib_ms:.4f} ms, max abs diff from K2 {el:.3e}")
+            del LD
+        for k, (ms, dev_ms, plain_ms) in times.items():
             bms, by = bound(k, B, n, w)
+            dev = f" (device {dev_ms:.4f} ms)" if main else ""
+            lib = f"  library {lib_ms:.4f} ms" if (main and k == "solve") else ""
             log(f"[kernels] {NAMES[k]} B={B} n={n} w={w}: max_abs_err "
-                f"{errs[k]:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                f"{errs[k]:.3e}  kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
                 f"bound {bms:.5f} ms ({by})")
-            if (B, n, w) == (FLEET_B, 149, 4):
-                recs[k].update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            if main:
+                recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                               bound_by=by, library_ms=lib_ms if k == "solve" else None)
     return recs
 
 
@@ -860,8 +994,9 @@ def main() -> int:
     log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
     log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W}; "
         f"registers a thread at w=4: {ptxas_report(fb, 4)}")
-    log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W}; "
-        f"registers a thread at w=10: {ptxas_report(lu, 10)}")
+    log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W} on either "
+        f"route; registers a thread at w=10: "
+        f"{ptxas_report(lu, 10, ('staged', 'ring'))}")
     log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: "
         f"{dense_ptxas_report(dl)}")
 
@@ -899,12 +1034,14 @@ def main() -> int:
 
     # launches: the count on the path that runs the kernel;
     # entry_point_launches: the count of the separate drive of a kernel
-    # that no main path runs
+    # that no main path runs; ms: host launch overhead included, as the
+    # first kernels were timed; device_ms: the device's time alone
     def entry(name, source, replaces, n_launch, n_entry, rec):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launch,
                 "entry_point_launches": n_entry,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "device_ms": rec["device_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms")}
 

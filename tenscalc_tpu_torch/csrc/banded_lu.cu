@@ -18,44 +18,97 @@
 // The solve is a unit-lower forward sweep y_c -> y_{c+i} -= l_i y_c and a
 // backward sweep x_c = (y_c - sum_q u_q x_{c+q}) / d_c.
 //
-// Layout.  The wrapper hands the kernels band (n, 2W+1, B) and vectors
-// (n, B), batch fastest, the layout of the TPU kernels' lanes: thread b
-// owns instance b, and the 32 threads of a warp read 32 neighbouring
-// floats with each load.
-//
-// Arithmetic.  The order is the TPU kernel's: the clamp, then
-// l = row / d, then each trailing entry minus its product (the product
-// rounded first), and in the backward sweep a sequential sum over q, a
-// subtraction and a division.  The _rn intrinsics keep nvcc from
-// contracting products and sums into fused multiply-adds, so the kernel
-// rounds exactly as the plain PyTorch version beside its wrapper does.
-// The 8-row blocks of the TPU kernel exist for Mosaic's sublane tiling
-// and are not copied: rows past n are masked instead of padded.
+// Layout.  The kernels take the band (B, n, 2W+1) and vectors (B, n) as
+// the adapter builds them, instance-contiguous, and write the factored
+// band in the same layout: no copy re-lays anything out around a launch.
 //
 // What bounds it.  At the MPC-MHE fleet's shapes (B = 1024, n = 290,
 // W = 10) K9 moves about 52.3 MB (band and rhs in, factor and x out),
 // about 15.6 us at the card's 3.35 TB/s; K10 about 27.3 MB (8.2 us);
-// K11 about 49.9 MB (14.9 us).  The real limit is latency: each thread
-// runs a chain of n = 290 dependent elimination steps, each waiting on
-// loads from memory, and one thread per instance fills only
-// B / 128 = 8 of the 132 SMs at B = 1024.  Making them fast (several
-// threads an instance, more instances an SM) is later work.
+// K11 about 49.9 MB (14.9 us).  Each instance is a chain of n dependent
+// steps, and the backward sweep's sequential sum is a chain of about
+// n (W + 3) dependent float32 operations (~20k cycles, ~12 us at
+// n = 290, W = 10).
 //
-// Register window.  Step c touches rows c..c+W.  Of row c+i it needs the
-// lower entries p = 0..W-i (A[c+i+p, c+i]) and the upper entries
-// q = 1..W-i (A[c+i, c+i+q]): the others have not been touched by any
-// earlier step and are loaded only when the window reaches them.  The
-// window is (W+1)^2 floats (121 at W = 10), held in registers by full
-// unrolling over the template width (W = 1..12; larger widths would
-// spill and are refused).
+// The first design (one thread an instance, a (W+1)^2 register window,
+// batch-fastest layout) was predicted "far above the byte bound, 8 of 132
+// SMs busy"; measured on an H100 (PERF.md, the host's launch overhead
+// inside): K9 0.4933 ms, K10 0.4695 ms, K11 0.3415 ms, 30-60x their
+// bounds, each step waiting on a load from device memory.  This design
+// was predicted to be bounded by the dependent chain (K9 ~0.04-0.07 ms,
+// K10 ~0.02-0.04 ms); measured on the same card, K9 ~0.12 ms, K10 ~0.07
+// ms, K11 ~0.10 ms the same way, and ~0.089, ~0.039 and ~0.062 ms of
+// device time alone (PERF.md): a factor step takes ~380 cycles, and
+// moving the chain's values from
+// shared memory to shuffles did not shorten it.  The eight instances an
+// SM run ~23 shared-memory and shuffle instructions each a step, often
+// two-way bank conflicted: the factor is bound by the SM's shared-memory
+// instruction throughput.  The sweeps are bound by their chains.
+//
+// This design.
+// - A warp serves one instance, and a CTA serves G <= 4 instances (the
+//   wrapper picks G so that B = 1024 fills all 132 SMs in one wave, two
+//   CTAs an SM).  A warp synchronises with __syncwarp and never with a
+//   block barrier.
+// - The instance is staged in shared memory: 4-byte cp.async copies of
+//   row chunks (32 rows), kept 3 chunks ahead, so elimination starts when
+//   the first two chunks have landed.  The instance stride n (2W+1) * 4
+//   bytes is in general not 16-byte aligned, which rules out TMA and
+//   16-byte copies.  K9/K11 write each chunk of the factor back with
+//   coalesced stores as soon as the elimination has passed it; K9's
+//   backward sweep then reads the factor from shared memory, and K10
+//   stages the factor once for both sweeps: each entry of the band is
+//   read from device memory once.  x stays in shared memory between the
+//   sweeps.
+// - A factor step (factor_rows): lanes i and 16 + i own row i of the
+//   trailing square and update it with their own l_i; the next pivot and
+//   numerators pass by shuffles; one __syncwarp a step.
+// - The forward sweep (forward_rows) keeps y of rows c..c+W in lanes
+//   0..W: a shuffle, a product and a subtraction a row.  The backward
+//   sweep runs on one lane, its row loads one row ahead of the chain.
+// - Above the shared-memory cap (an instance of (n + W)(2W + 2) floats
+//   over the block's opt-in) the same kernels keep a ring of 128 rows of
+//   the band and of x instead of the whole of each: 128 (2W + 2) floats
+//   an instance whatever n.  K9 and K10 store the factor and y a chunk at
+//   a time as they go, the backward sweep streams both back from device
+//   memory through the ring, and x leaves a chunk at a time.  The binding
+//   picks the route and the rows an instance by size.
+//
+// Arithmetic.  The order is the TPU kernel's: the clamp, then
+// l = row / d, then each trailing entry minus its product (the product
+// rounded first), and in the backward sweep a sequential sum over q,
+// q = 1..W, a subtraction and a division.  Each entry is still updated
+// once a step, in step order, whichever lane updates it, so the kernels
+// round exactly as the plain PyTorch versions beside their wrapper.  The
+// _rn intrinsics keep nvcc from contracting products and sums into fused
+// multiply-adds.  Staged, shared memory holds W rows (and W entries of x)
+// past n as padding that the last steps may write and nothing reads
+// back; on the ring they land in rows of a chunk past n or of one
+// already stored, which nothing reads back either.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The chunk, ring and group sizes and the shared-memory cap are the
+// binding's (kkt/banded_lu.py), given on the compiler's command line; so
+// are the shared-memory rows an instance takes, given at each launch.
+#if !defined(TC_LU_CHUNK_ROWS) || !defined(TC_LU_RING_ROWS) || \
+    !defined(TC_LU_MAX_GROUP) || !defined(TC_LU_SMEM_MAX)
+#error "build with -DTC_LU_CHUNK_ROWS=... -DTC_LU_RING_ROWS=... -DTC_LU_MAX_GROUP=... -DTC_LU_SMEM_MAX=... (kkt/banded_lu.py)"
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kMaxW = 12;
+constexpr int kTeam = 32;                       // lanes an instance: a warp
+constexpr int kMaxGroup = TC_LU_MAX_GROUP;      // instances a CTA
+constexpr int kChunk = TC_LU_CHUNK_ROWS;        // rows a copy group
+constexpr int kRing = TC_LU_RING_ROWS;          // rows of the ring route
+constexpr int kDepth = kRing / kChunk - 1;      // chunks in flight
+constexpr int kSmemMax = TC_LU_SMEM_MAX;        // a block's opt-in cap
+static_assert(kChunk > kMaxW, "a chunk must hold the window's rows");
+static_assert((kRing & (kRing - 1)) == 0 && kRing % kChunk == 0 && kDepth >= 2,
+              "the ring is a power of two of at least three chunks");
 
 __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
   if (clamp > 0.0f) {
@@ -67,173 +120,405 @@ __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
   return d;
 }
 
-__device__ __forceinline__ float load_or_zero(const float* p, size_t i,
-                                              bool ok) {
-  return ok ? p[i] : 0.0f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-// Factor rows 0..n-1 of instance b in registers and write the factored
-// band.  With SOLVE the forward sweep rides along: y = L^{-1} rhs is
-// formed right-looking as each row is factored, and y_c is stored into x
-// for the backward sweep.
-template <int W, bool SOLVE>
-__device__ __forceinline__ void lu_factor_rows(const float* __restrict__ band,
-                                              float* fband,
-                                              const float* __restrict__ rhs,
-                                              float* x, int n, int B, int b,
-                                              float clamp) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory row of band row r (and entry of x): all n rows, or a
+// ring of kRing.
+template <bool RING>
+__device__ __forceinline__ int srow(int r) {
+  return RING ? (r & (kRing - 1)) : r;
+}
+
+// Start copying chunk k of the band rows (and of the vector gr, when
+// given) into shared memory; a chunk outside 0..K-1 copies nothing.
+template <int W, bool RING>
+__device__ __forceinline__ void start_chunk(float* sb, float* sx,
+                                            const float* gb, const float* gr,
+                                            int k, int n, int lane) {
   constexpr int R = 2 * W + 1;
-  // lo[i][p] = current A[c+i+p, c+i], p <= W-i;
-  // up[i][q-1] = current A[c+i, c+i+q], q <= W-i
-  float lo[W + 1][W + 1];
-  float up[W + 1][W];
-  float xw[W + 1];  // forward-sweep values of rows c..c+W
-#pragma unroll
-  for (int i = 0; i <= W; ++i) {
-    const bool ok = i < n;
-#pragma unroll
-    for (int p = 0; p + i <= W; ++p) {
-      lo[i][p] = load_or_zero(band, (size_t)(i * R + p) * B + b, ok);
-    }
-#pragma unroll
-    for (int q = 1; q + i <= W; ++q) {
-      up[i][q - 1] = load_or_zero(band, (size_t)(i * R + W + q) * B + b, ok);
-    }
-    if (SOLVE) xw[i] = load_or_zero(rhs, (size_t)i * B + b, ok);
+  const int r0 = k * kChunk;
+  if (k < 0 || r0 >= n) return;
+  const int r1 = min(n, r0 + kChunk);
+  float* dst = sb + srow<RING>(r0) * R;
+  const float* src = gb + (size_t)r0 * R;
+  const int cnt = (r1 - r0) * R;
+  for (int i = lane; i < cnt; i += kTeam) cp_async4(dst + i, src + i);
+  if (gr != nullptr) {
+    float* xd = sx + srow<RING>(r0);
+    for (int i = lane; i < r1 - r0; i += kTeam) cp_async4(xd + i, gr + r0 + i);
   }
-  for (int c = 0; c < n; ++c) {
-    const float d = clamp_pivot(lo[0][0], clamp);
-    float l[W + 1];
-    l[0] = 0.0f;
+}
+
+// Store rows r0..r1-1 of x from shared memory to gx (the ring route's
+// chunks of x, which shared memory does not keep whole).
+template <bool RING>
+__device__ __forceinline__ void store_rows(const float* sx, float* gx, int r0,
+                                           int r1, int lane) {
+  const float* src = sx + srow<RING>(r0);
+  for (int i = lane; i < r1 - r0; i += kTeam) gx[r0 + i] = src[i];
+}
+
+// Factor rows 0..n-1 in shared memory and write the factored band to gf
+// chunk by chunk.  Lanes i and 16 + i (i = 1..W) own row i of the
+// trailing square: both form l_i and together update A[c+i, c+j] -=
+// l_i u_j for j = 1..W, an entry of band row c+j (j <= i, below the
+// diagonal) or c+i (j > i, above).  Lane i's entry j = 1 is the next
+// step's A[c+i, c+1]: lane 1's is the next pivot and lane i's the next
+// numerator of lane i-1, so they pass by shuffles, and the chain of
+// dependent steps (clamp, division, product, subtraction, shuffle) never
+// waits on shared memory; the other entries are stored, and one
+// __syncwarp a step orders them before the next step's loads.  Rows past
+// n are padding that the updates may write and nothing reads back.  With
+// SOLVE the forward sweep rides along: lane i also updates y_{c+i}, and
+// y ends in sx for the backward sweep (the ring route stores each chunk
+// of y to gy as it stores the factor's).
+template <int W, bool SOLVE, bool RING>
+__device__ __forceinline__ void factor_rows(float* sb, float* sx,
+                                            const float* gb, const float* gr,
+                                            float* gf, float* gy, int n,
+                                            float clamp, int lane) {
+  constexpr int R = 2 * W + 1;
+  constexpr int H = (W + 1) / 2;  // entries a lane: half of a row
+  // lanes i and 16 + i own row i; the first takes j = 1..H, the second
+  // j = H+1..W, and both form l_i
+  const int i = lane & 15, half = lane >> 4;
+  const bool owner = i >= 1 && i <= W;
+  // this lane's entries: band row offset from c, column, and (staged)
+  // the offset of the entry from row c's first; jn of them
+  const int jn = owner ? (half == 0 ? H : W - H) : 0;
+  int trow[H], tcol[H], toff[H];
 #pragma unroll
-    for (int k = 1; k <= W; ++k) l[k] = __fdiv_rn(lo[0][k], d);
-    float* out = fband + (size_t)(c * R) * B + b;
-    out[0] = d;
+  for (int e = 0; e < H; ++e) {
+    const int j = half * H + e + 1;
+    trow[e] = j <= i ? j : i;
+    tcol[e] = j <= i ? i - j : W + j - i;
+    toff[e] = trow[e] * R + tcol[e];
+  }
+  const int K = (n + kChunk - 1) / kChunk;
+  for (int k = 0; k < kDepth; ++k) {
+    start_chunk<W, RING>(sb, sx, gb, SOLVE ? gr : nullptr, k, n, lane);
+    cp_async_commit();
+  }
+  float piv = 0.0f, num = 0.0f;  // raw A[c, c] and A[c+i, c]
+  for (int k = 0; k < K; ++k) {
+    __syncwarp();  // chunk k-1's write-back has read its ring rows
+    start_chunk<W, RING>(sb, sx, gb, SOLVE ? gr : nullptr, k + kDepth, n, lane);
+    cp_async_commit();
+    cp_async_wait<kDepth - 1>();  // chunks k and k+1 have landed
+    __syncwarp();
+    if (k == 0) {
+      piv = sb[0];
+      num = owner ? sb[i] : 0.0f;
+    }
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    for (int c = c0; c < c1; ++c) {
+      float* row = sb + srow<RING>(c) * R;
+      // every load before any store: the compiler may not reorder them
+      float* tgt[H];
+      float u[H], a[H];
 #pragma unroll
-    for (int k = 1; k <= W; ++k) out[(size_t)k * B] = l[k];
-#pragma unroll
-    for (int k = 1; k <= W; ++k) out[(size_t)(W + k) * B] = up[0][k - 1];
-    // trailing update of rows c+m: the sub/diagonal entries p get
-    // l_{m+p} * u_m, the super entries q get u_{m+q} * l_m
-#pragma unroll
-    for (int m = 1; m <= W; ++m) {
-      const float um = up[0][m - 1];
-#pragma unroll
-      for (int p = 0; p + m <= W; ++p) {
-        lo[m][p] = __fsub_rn(lo[m][p], __fmul_rn(l[m + p], um));
+      for (int e = 0; e < H; ++e) {
+        tgt[e] = RING ? sb + srow<RING>(c + trow[e]) * R + tcol[e] : row + toff[e];
+        u[e] = a[e] = 0.0f;
+        if (e < jn) {
+          u[e] = row[W + 1 + half * H + e];
+          a[e] = *tgt[e];
+        }
       }
-#pragma unroll
-      for (int q = 1; q + m <= W; ++q) {
-        up[m][q - 1] = __fsub_rn(up[m][q - 1], __fmul_rn(up[0][m + q - 1], l[m]));
+      // A[c+1+W, c+1] is untouched by this step: lane W's next numerator
+      const float tail = i == W ? sb[srow<RING>(c + 1) * R + W] : 0.0f;
+      float yi = 0.0f, yc = 0.0f;
+      if (SOLVE && owner && half == 0) {
+        yi = sx[srow<RING>(c + i)];
+        yc = sx[srow<RING>(c)];
       }
+      const float d = clamp_pivot(piv, clamp);
+      const float l = owner ? __fdiv_rn(num, d) : 0.0f;
+      float v[H];
+#pragma unroll
+      for (int e = 0; e < H; ++e) v[e] = __fsub_rn(a[e], __fmul_rn(l, u[e]));
+      piv = __shfl_sync(0xffffffffu, v[0], 1);
+      const float next = __shfl_sync(0xffffffffu, v[0], (i + 1) & 15);
+      num = i == W ? tail : next;
+#pragma unroll
+      for (int e = 0; e < H; ++e) {
+        if (e < jn) *tgt[e] = v[e];
+      }
+      if (SOLVE && owner && half == 0) {
+        sx[srow<RING>(c + i)] = __fsub_rn(yi, __fmul_rn(l, yc));
+      }
+      __syncwarp();
+      // row c is final: its pivot and multipliers replace A[c, c] and
+      // A[c+i, c], which no later step reads
+      if (lane == 0) row[0] = d;
+      if (owner && half == 0) row[i] = l;
     }
-    if (SOLVE) {
-      const float y = xw[0];
-#pragma unroll
-      for (int i = 1; i <= W; ++i) xw[i] = __fsub_rn(xw[i], __fmul_rn(l[i], y));
-      x[(size_t)c * B + b] = y;
-    }
-    // slide the window down one row; each row gains its outermost lower
-    // and upper entries fresh from memory
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-#pragma unroll
-      for (int p = 0; p + i < W; ++p) lo[i][p] = lo[i + 1][p];
-#pragma unroll
-      for (int q = 1; q + i < W; ++q) up[i][q - 1] = up[i + 1][q - 1];
-      const int row = c + 1 + i;
-      const bool ok = row < n;
-      lo[i][W - i] = load_or_zero(band, (size_t)(row * R + W - i) * B + b, ok);
-      up[i][W - i - 1] =
-          load_or_zero(band, (size_t)(row * R + 2 * W - i) * B + b, ok);
-      if (SOLVE) xw[i] = xw[i + 1];
-    }
-    const int last = c + 1 + W;
-    lo[W][0] = load_or_zero(band, (size_t)(last * R) * B + b, last < n);
-    if (SOLVE) xw[W] = load_or_zero(rhs, (size_t)last * B + b, last < n);
+    __syncwarp();
+    // rows c0..c1-1 (and their y) are final: store them while the next
+    // chunk runs
+    const float* src = sb + srow<RING>(c0) * R;
+    float* dst = gf + (size_t)c0 * R;
+    const int cnt = (c1 - c0) * R;
+    for (int e = lane; e < cnt; e += kTeam) dst[e] = src[e];
+    if (SOLVE && RING) store_rows<RING>(sx, gy, c0, c1, lane);
   }
 }
 
-// Forward sweep against a factored band: y = L^{-1} rhs into x.
-template <int W>
-__device__ __forceinline__ void lu_forward_rows(const float* __restrict__ fband,
-                                               const float* __restrict__ rhs,
-                                               float* x, int n, int B, int b) {
+// Forward sweep y = L^{-1} rhs against the factored band gf, staged chunk
+// by chunk into shared memory; y ends in sx (the ring route stores each
+// chunk of y to gy).  Lane i (0..W) holds y of row c+i: at row c lane 0's
+// y_c is final, lanes 1..W subtract l_i y_c, lane 1's value is the next
+// y_c (a shuffle) and the window shifts down one lane; the chain is a
+// shuffle, a product and a subtraction a row.
+template <int W, bool RING>
+__device__ __forceinline__ void forward_rows(float* sb, float* sx,
+                                             const float* gf, const float* gr,
+                                             float* gy, int n, int lane) {
   constexpr int R = 2 * W + 1;
-  float xw[W + 1];
-#pragma unroll
-  for (int i = 0; i <= W; ++i) xw[i] = load_or_zero(rhs, (size_t)i * B + b, i < n);
-  for (int c = 0; c < n; ++c) {
-    const float y = xw[0];
-#pragma unroll
-    for (int i = 1; i <= W; ++i) {
-      xw[i] = __fsub_rn(xw[i], __fmul_rn(fband[(size_t)(c * R + i) * B + b], y));
-    }
-    x[(size_t)c * B + b] = y;
-#pragma unroll
-    for (int i = 0; i < W; ++i) xw[i] = xw[i + 1];
-    const int last = c + 1 + W;
-    xw[W] = load_or_zero(rhs, (size_t)last * B + b, last < n);
+  const int K = (n + kChunk - 1) / kChunk;
+  const int i = lane;
+  const bool owner = i >= 1 && i <= W;
+  for (int k = 0; k < kDepth; ++k) {
+    start_chunk<W, RING>(sb, sx, gf, gr, k, n, lane);
+    cp_async_commit();
   }
+  float xw = 0.0f, y = 0.0f, l = 0.0f;  // y of row c+i, y_c, l_i of row c
+  for (int k = 0; k < K; ++k) {
+    __syncwarp();
+    start_chunk<W, RING>(sb, sx, gf, gr, k + kDepth, n, lane);
+    cp_async_commit();
+    cp_async_wait<kDepth - 1>();  // chunks k and k+1 have landed
+    __syncwarp();
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    if (k == 0) {
+      xw = i <= W && i < n ? sx[i] : 0.0f;
+      y = __shfl_sync(0xffffffffu, xw, 0);
+      l = owner ? sb[i] : 0.0f;
+    }
+    for (int c = c0; c < c1; ++c) {
+      // row c+1 lies in chunk k or k+1, both landed
+      const float ln = owner ? sb[srow<RING>(c + 1) * R + i] : 0.0f;
+      const int last = c + 1 + W;
+      const float xlast = i == W && last < n ? sx[srow<RING>(last)] : 0.0f;
+      if (owner) xw = __fsub_rn(xw, __fmul_rn(l, y));
+      if (i == 0) sx[srow<RING>(c)] = y;
+      const float ynext = __shfl_sync(0xffffffffu, xw, 1);
+      const float down = __shfl_down_sync(0xffffffffu, xw, 1);
+      xw = i == W ? xlast : down;
+      y = ynext;
+      l = ln;
+    }
+    if (RING) {
+      __syncwarp();  // lane 0's y of rows c0..c1-1
+      store_rows<RING>(sx, gy, c0, c1, lane);
+    }
+  }
+  __syncwarp();
 }
 
-// Backward sweep U x = y in place, left-looking: x_{c+1..c+W} are final
-// when row c is reached and stay in registers (0 past the last row).
-// K9 reads here what the same thread wrote in its factor sweep, so these
-// pointers are not __restrict__.
-template <int W>
-__device__ __forceinline__ void lu_backward_rows(const float* fband, float* x,
-                                                int n, int B, int b) {
+// Backward sweep over rows c1-1 down to c0 of one chunk, on one lane:
+// x_c = (y_c - sum_q u_q x_{c+q}) / d_c in place in sx, with
+// x_{c+1..c+W} kept in xn (xn[q] = x[c+q], 0 past the last row) and row
+// c-1 loaded while row c is worked on.
+template <int W, bool RING>
+__device__ __forceinline__ void backward_chunk(const float* sb, float* sx,
+                                               float (&xn)[W + 1], int c0,
+                                               int c1) {
   constexpr int R = 2 * W + 1;
-  float xn[W + 1];  // xn[q] = final x[c+q], q = 1..W
+  // u[q-1] = u_q and dy = (d, y) of the current row
+  float u[W], dy[2];
+  const float* row = sb + srow<RING>(c1 - 1) * R;
 #pragma unroll
-  for (int q = 0; q <= W; ++q) xn[q] = 0.0f;
-  for (int c = n - 1; c >= 0; --c) {
-    const float* row = fband + (size_t)(c * R) * B + b;
+  for (int q = 0; q < W; ++q) u[q] = row[W + 1 + q];
+  dy[0] = row[0];
+  dy[1] = sx[srow<RING>(c1 - 1)];
+  // row c, with row cn (c - 1 of this chunk, else c again) loaded
+  // ahead; row c0 - 1 is loaded with the next chunk
+  auto step = [&](int c, int cn) {
+    const float* nrow = sb + srow<RING>(cn) * R;
+    float un[W], dyn[2];
+#pragma unroll
+    for (int q = 0; q < W; ++q) un[q] = nrow[W + 1 + q];
+    dyn[0] = nrow[0];
+    dyn[1] = sx[srow<RING>(cn)];
     float acc = 0.0f;
 #pragma unroll
-    for (int q = 1; q <= W; ++q) {
-      acc = __fadd_rn(acc, __fmul_rn(row[(size_t)(W + q) * B], xn[q]));
-    }
-    const float xc = __fdiv_rn(__fsub_rn(x[(size_t)c * B + b], acc), row[0]);
-    x[(size_t)c * B + b] = xc;
+    for (int q = 1; q <= W; ++q) acc = __fadd_rn(acc, __fmul_rn(u[q - 1], xn[q]));
+    const float xc = __fdiv_rn(__fsub_rn(dy[1], acc), dy[0]);
+    sx[srow<RING>(c)] = xc;
 #pragma unroll
     for (int q = W; q > 1; --q) xn[q] = xn[q - 1];
     xn[1] = xc;
+#pragma unroll
+    for (int q = 0; q < W; ++q) u[q] = un[q];
+    dy[0] = dyn[0];
+    dy[1] = dyn[1];
+  };
+  if (c1 - c0 == kChunk) {
+    // a whole chunk, unrolled: the window's shifts become renaming
+#pragma unroll
+    for (int r = kChunk - 1; r >= 0; --r) step(c0 + r, c0 + (r > 0 ? r - 1 : 0));
+  } else {
+    for (int c = c1 - 1; c >= c0; --c) step(c, c > c0 ? c - 1 : c);
   }
 }
 
+// Backward sweep U x = y in place in sx, left-looking, last chunk first.
+// The staged route finds the factor and y in shared memory and leaves x
+// there; the ring route streams the factor back from gf and y from gx
+// and stores each chunk of x to gx.  One lane runs the chain.
+template <int W, bool RING>
+__device__ __forceinline__ void backward_rows(float* sb, float* sx,
+                                              const float* gf, float* gx,
+                                              int n, int lane) {
+  const int K = (n + kChunk - 1) / kChunk;
+  __syncwarp();  // the team's stores of the factor and y are visible
+  if (RING) {
+    for (int j = 0; j < kDepth; ++j) {
+      start_chunk<W, RING>(sb, sx, gf, gx, K - 1 - j, n, lane);
+      cp_async_commit();
+    }
+  }
+  float xn[W + 1];
+#pragma unroll
+  for (int q = 0; q <= W; ++q) xn[q] = 0.0f;
+  for (int j = 0; j < K; ++j) {
+    const int k = K - 1 - j;
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    if (RING) {
+      __syncwarp();  // the chunk before has been read and stored
+      start_chunk<W, RING>(sb, sx, gf, gx, k - kDepth, n, lane);
+      cp_async_commit();
+      cp_async_wait<kDepth>();  // chunk k has landed
+      __syncwarp();
+    }
+    if (lane == 0) backward_chunk<W, RING>(sb, sx, xn, c0, c1);
+    if (RING) {
+      __syncwarp();  // lane 0's x of rows c0..c1-1
+      store_rows<RING>(sx, gx, c0, c1, lane);
+    }
+  }
+}
+
+// This thread's lane in its instance's warp, and the instance b; false
+// for a warp past B.
+__device__ __forceinline__ bool team_of(int G, int B, int& lane, int& b) {
+  lane = threadIdx.x & (kTeam - 1);
+  b = blockIdx.x * G + threadIdx.x / kTeam;
+  return b < B;
+}
+
+// The warp's slice of the block's shared memory: rows band rows, then
+// rows entries of x.  The binding gives rows: all n and W of padding
+// (staged), or kRing (the ring route).
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float* team_smem(int rows) {
+  extern __shared__ float smem[];
+  return smem + (threadIdx.x / kTeam) * rows * (2 * W + 2);
+}
+
+__device__ __forceinline__ void store_x(const float* sx, float* gx, int n,
+                                        int lane) {
+  __syncwarp();
+  for (int i = lane; i < n; i += kTeam) gx[i] = sx[i];
+}
+
+template <int W, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
 lu_factor_solve_kernel(const float* __restrict__ band,
                        const float* __restrict__ rhs, float* fband, float* x,
-                       int n, int B, float clamp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  lu_factor_rows<W, true>(band, fband, rhs, x, n, B, b, clamp);
-  lu_backward_rows<W>(fband, x, n, B, b);
+                       int n, int B, int G, int rows, float clamp) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  constexpr int R = 2 * W + 1;
+  float* sb = team_smem<W>(rows);
+  float* sx = sb + rows * R;
+  const size_t off = (size_t)b * n * R;
+  float* gx = x + (size_t)b * n;
+  factor_rows<W, true, RING>(sb, sx, band + off, rhs + (size_t)b * n,
+                             fband + off, gx, n, clamp, lane);
+  backward_rows<W, RING>(sb, sx, fband + off, gx, n, lane);
+  if (!RING) store_x(sx, gx, n, lane);
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+template <int W, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
 lu_solve_kernel(const float* __restrict__ fband, const float* __restrict__ rhs,
-                float* x, int n, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  lu_forward_rows<W>(fband, rhs, x, n, B, b);
-  lu_backward_rows<W>(fband, x, n, B, b);
+                float* x, int n, int B, int G, int rows) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  constexpr int R = 2 * W + 1;
+  float* sb = team_smem<W>(rows);
+  float* sx = sb + rows * R;
+  const float* gf = fband + (size_t)b * n * R;
+  float* gx = x + (size_t)b * n;
+  forward_rows<W, RING>(sb, sx, gf, rhs + (size_t)b * n, gx, n, lane);
+  backward_rows<W, RING>(sb, sx, gf, gx, n, lane);
+  if (!RING) store_x(sx, gx, n, lane);
+}
+
+template <int W, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
+lu_factor_kernel(const float* __restrict__ band, float* __restrict__ fband,
+                 int n, int B, int G, int rows, float clamp) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  constexpr int R = 2 * W + 1;
+  float* sb = team_smem<W>(rows);
+  const size_t off = (size_t)b * n * R;
+  factor_rows<W, false, RING>(sb, nullptr, band + off, nullptr, fband + off,
+                              nullptr, n, clamp, lane);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  return e;
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-lu_factor_kernel(const float* __restrict__ band, float* __restrict__ fband,
-                 int n, int B, float clamp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  lu_factor_rows<W, false>(band, fband, nullptr, nullptr, n, B, b, clamp);
+cudaError_t allow_smem_w() {
+  const cudaError_t es[] = {
+      allow_smem(lu_factor_solve_kernel<W, false>), allow_smem(lu_factor_solve_kernel<W, true>),
+      allow_smem(lu_solve_kernel<W, false>), allow_smem(lu_solve_kernel<W, true>),
+      allow_smem(lu_factor_kernel<W, false>), allow_smem(lu_factor_kernel<W, true>)};
+  for (cudaError_t e : es) {
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
-inline dim3 grid_for(int B) { return dim3((B + kThreads - 1) / kThreads); }
+// Grid, block and shared memory of a launch (G warps of rows band rows
+// and rows entries of x; the runtime refuses more than the opt-in);
+// false for a shape the kernels do not take.
+bool launch_config(int n, int w, int B, int G, int rows, dim3& grid, dim3& block,
+                   size_t& smem) {
+  if (n < 1 || B < 1 || G < 1 || G > kMaxGroup || w < 1 || w > kMaxW || rows < 1) {
+    return false;
+  }
+  smem = (size_t)G * rows * (2 * w + 2) * sizeof(float);
+  grid = dim3((B + G - 1) / G);
+  block = dim3(kTeam * G);
+  return true;
+}
 
 }  // namespace
 
@@ -244,17 +529,38 @@ extern "C" {
 
 int tc_banded_lu_max_w() { return kMaxW; }
 
+// Once per device, before the first launch: the opt-in to dynamic shared
+// memory up to the block cap, and the carveout that lets two 100 KB
+// blocks share an SM.
+int tc_banded_lu_init() {
+  cudaError_t e = cudaSuccess;
+#define X(WW) \
+  if (e == cudaSuccess) e = allow_smem_w<WW>();
+  TC_FOR_EACH_W(X)
+#undef X
+  return e;
+}
+
 // Each entry point launches on the given stream and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported w).
-int tc_banded_lu_factor_solve(int w, const float* band, const float* rhs,
-                              float* fband, float* x, int n, int B,
-                              float clamp, void* stream) {
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported shape,
+// group or width).  ring selects the ring route, G the instances a CTA,
+// rows the shared-memory rows an instance (the binding's launch plan).
+int tc_banded_lu_factor_solve(int w, int ring, int G, int rows, const float* band,
+                              const float* rhs, float* fband, float* x, int n,
+                              int B, float clamp, void* stream) {
+  dim3 grid, block;
+  size_t smem;
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
-#define X(WW)                                                          \
-  case WW:                                                             \
-    lu_factor_solve_kernel<WW><<<grid_for(B), kThreads, 0, s>>>(       \
-        band, rhs, fband, x, n, B, clamp);                             \
+#define X(WW)                                                                   \
+  case WW:                                                                      \
+    if (ring)                                                                   \
+      lu_factor_solve_kernel<WW, true><<<grid, block, smem, s>>>(               \
+          band, rhs, fband, x, n, B, G, rows, clamp);                           \
+    else                                                                        \
+      lu_factor_solve_kernel<WW, false><<<grid, block, smem, s>>>(              \
+          band, rhs, fband, x, n, B, G, rows, clamp);                           \
     break;
     TC_FOR_EACH_W(X)
 #undef X
@@ -264,13 +570,21 @@ int tc_banded_lu_factor_solve(int w, const float* band, const float* rhs,
   return cudaGetLastError();
 }
 
-int tc_banded_lu_solve(int w, const float* fband, const float* rhs, float* x,
-                       int n, int B, void* stream) {
+int tc_banded_lu_solve(int w, int ring, int G, int rows, const float* fband,
+                       const float* rhs, float* x, int n, int B, void* stream) {
+  dim3 grid, block;
+  size_t smem;
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
-#define X(WW)                                                          \
-  case WW:                                                             \
-    lu_solve_kernel<WW><<<grid_for(B), kThreads, 0, s>>>(fband, rhs, x, n, B); \
+#define X(WW)                                                                   \
+  case WW:                                                                      \
+    if (ring)                                                                   \
+      lu_solve_kernel<WW, true><<<grid, block, smem, s>>>(                      \
+          fband, rhs, x, n, B, G, rows);                                        \
+    else                                                                        \
+      lu_solve_kernel<WW, false><<<grid, block, smem, s>>>(                     \
+          fband, rhs, x, n, B, G, rows);                                        \
     break;
     TC_FOR_EACH_W(X)
 #undef X
@@ -280,13 +594,21 @@ int tc_banded_lu_solve(int w, const float* fband, const float* rhs, float* x,
   return cudaGetLastError();
 }
 
-int tc_banded_lu_factor(int w, const float* band, float* fband, int n, int B,
-                        float clamp, void* stream) {
+int tc_banded_lu_factor(int w, int ring, int G, int rows, const float* band,
+                        float* fband, int n, int B, float clamp, void* stream) {
+  dim3 grid, block;
+  size_t smem;
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
-#define X(WW)                                                          \
-  case WW:                                                             \
-    lu_factor_kernel<WW><<<grid_for(B), kThreads, 0, s>>>(band, fband, n, B, clamp); \
+#define X(WW)                                                                   \
+  case WW:                                                                      \
+    if (ring)                                                                   \
+      lu_factor_kernel<WW, true><<<grid, block, smem, s>>>(                     \
+          band, fband, n, B, G, rows, clamp);                                   \
+    else                                                                        \
+      lu_factor_kernel<WW, false><<<grid, block, smem, s>>>(                    \
+          band, fband, n, B, G, rows, clamp);                                   \
     break;
     TC_FOR_EACH_W(X)
 #undef X

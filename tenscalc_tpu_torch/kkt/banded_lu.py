@@ -21,6 +21,13 @@ a CUDA tensor goes to the hand-written kernel in ``csrc/banded_lu.cu``
 versions repeat the kernels' arithmetic step for step, so on the card
 the two agree to the last bit.
 
+The kernels read and write the JAX layout itself, instance-contiguous:
+a warp factors one instance staged in shared memory, and a CTA holds
+``group`` instances.  :func:`launch_plan` picks the group and the route
+by size: the whole band and x in shared memory, or, above the block's
+shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
+n.
+
 Rows past n: the JAX entry points pad with identity rows; the kernels
 and the plain versions mask instead.  Band entries that reach past row n
 are zero in every band the solver builds; the solves treat the unknowns
@@ -31,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -43,6 +50,13 @@ from .fleet_banded import NVCC_FLAGS, _clamp_pivot, _device_kind, _stream
 from .structure import BandedPlan
 
 MAX_W = 12  # widths the kernels are instantiated for (csrc/banded_lu.cu)
+# compile-time parameters of csrc/banded_lu.cu (nvcc defines)
+MAX_GROUP = 4  # instances a CTA, a warp each
+CHUNK_ROWS = 32  # rows a copy into shared memory moves
+RING_ROWS = 128  # rows of the band and of x the ring route keeps
+SMEM_MAX = 232_448  # shared memory a block can opt into on Hopper
+# a block's share when two share an SM (each also reserves 1 KB)
+SMEM_TWO_BLOCKS = SMEM_MAX // 2 - 1024
 
 # Kernel launches, one count per kernel; a wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -50,23 +64,60 @@ LAUNCHES = {"lu_factor_solve": 0, "lu_solve": 0, "lu_factor": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 LIB_PATH: Optional[Path] = None  # the built library, once loaded
+_READY: set = set()  # devices where the kernels' shared-memory opt-in is set
+
+
+class LaunchPlan(NamedTuple):
+    ring: bool  # rows through a ring (True) or all staged (False)
+    group: int  # instances a CTA, a warp each
+    rows: int  # rows of the band and entries of x an instance keeps
+    smem: int  # shared memory of a CTA, bytes
+
+
+def instance_rows(n: int, w: int, ring: bool) -> int:
+    """Rows of the band (and entries of x) one instance keeps in shared
+    memory: all n and w of padding, or the ring."""
+    return RING_ROWS if ring else n + w
+
+
+def instance_bytes(n: int, w: int, ring: bool) -> int:
+    """Shared memory of one instance: its band rows of 2w+1 floats and as
+    many entries of x."""
+    return 4 * instance_rows(n, w, ring) * (2 * w + 2)
+
+
+def launch_plan(n: int, w: int, B: int, sms: int = 132) -> LaunchPlan:
+    """Route and group of a launch.  The band is staged whole while an
+    instance fits the block cap, else through the ring, whose size does
+    not depend on n.  The group is the fewest instances a CTA that lets B
+    instances run in one wave at two CTAs an SM (``sms`` SMs), at most
+    MAX_GROUP and no more than two CTAs an SM can hold."""
+    ring = instance_bytes(n, w, False) > SMEM_MAX
+    per = instance_bytes(n, w, ring)
+    group = max(1, min(MAX_GROUP, -(-B // (2 * sms)), SMEM_TWO_BLOCKS // per))
+    return LaunchPlan(ring, group, instance_rows(n, w, ring), group * per)
 
 
 def _load() -> ctypes.CDLL:
-    """Build (at first use) and bind the CUDA library."""
+    """Build (at first use) and bind the CUDA library; the constants above
+    are its compile-time parameters."""
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        path = LIB_PATH = build_shared_library("banded_lu.cu", nvcc, NVCC_FLAGS)
+        flags = [*NVCC_FLAGS, f"-DTC_LU_CHUNK_ROWS={CHUNK_ROWS}",
+                 f"-DTC_LU_RING_ROWS={RING_ROWS}", f"-DTC_LU_MAX_GROUP={MAX_GROUP}",
+                 f"-DTC_LU_SMEM_MAX={SMEM_MAX}"]
+        path = LIB_PATH = build_shared_library("banded_lu.cu", nvcc, flags)
         lib = ctypes.CDLL(str(path))
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_banded_lu_factor_solve.argtypes = [I, P, P, P, P, I, I, Fl, P]
-        lib.tc_banded_lu_solve.argtypes = [I, P, P, P, I, I, P]
-        lib.tc_banded_lu_factor.argtypes = [I, P, P, I, I, Fl, P]
+        lib.tc_banded_lu_factor_solve.argtypes = [I, I, I, I, P, P, P, P, I, I, Fl, P]
+        lib.tc_banded_lu_solve.argtypes = [I, I, I, I, P, P, P, I, I, P]
+        lib.tc_banded_lu_factor.argtypes = [I, I, I, I, P, P, I, I, Fl, P]
+        lib.tc_banded_lu_init.argtypes = []
         for fn in (lib.tc_banded_lu_factor_solve, lib.tc_banded_lu_solve,
-                   lib.tc_banded_lu_factor):
+                   lib.tc_banded_lu_factor, lib.tc_banded_lu_init,
+                   lib.tc_banded_lu_max_w):
             fn.restype = ctypes.c_int
-        lib.tc_banded_lu_max_w.restype = ctypes.c_int
         lib.tc_banded_lu_error_string.argtypes = [ctypes.c_int]
         lib.tc_banded_lu_error_string.restype = ctypes.c_char_p
         if lib.tc_banded_lu_max_w() != MAX_W:
@@ -75,49 +126,71 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def _lib_on(device: torch.device) -> ctypes.CDLL:
+    """The library, with its kernels' shared-memory opt-in set on
+    ``device`` (once a device)."""
+    lib = _load()
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _READY:
+        with torch.cuda.device(idx):
+            _check_rc(lib, lib.tc_banded_lu_init(), "banded_lu init")
+        _READY.add(idx)
+    return lib
+
+
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tc_banded_lu_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
+def _plan_on(t: torch.Tensor, n: int, w: int, B: int) -> LaunchPlan:
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return launch_plan(n, w, B, sms)
+
+
 # ---------------------------------------------------------------------------
-# launches on kernel layout: band (n, 2w+1, B), vectors (n, B), batch fastest
+# launches: contiguous float32 band (B, n, 2w+1) and vectors (B, n), outputs
+# preallocated
 # ---------------------------------------------------------------------------
 
-def launch_factor_solve(bt, rt, fbt, xt, w: int, clamp: float) -> None:
-    """K9 on kernel-layout tensors (outputs ``fbt``, ``xt`` preallocated)."""
-    lib = _load()
-    n, _, B = bt.shape
-    with torch.cuda.device(bt.device):
+def launch_factor_solve(band, rhs, fband, x, w: int, clamp: float) -> None:
+    """K9: factor ``band`` into ``fband`` and solve for ``rhs`` into ``x``."""
+    lib = _lib_on(band.device)
+    B, n, _ = band.shape
+    p = _plan_on(band, n, w, B)
+    with torch.cuda.device(band.device):
         rc = lib.tc_banded_lu_factor_solve(
-            w, bt.data_ptr(), rt.data_ptr(), fbt.data_ptr(), xt.data_ptr(),
-            n, B, clamp, _stream(bt),
+            w, int(p.ring), p.group, p.rows, band.data_ptr(), rhs.data_ptr(),
+            fband.data_ptr(), x.data_ptr(), n, B, clamp, _stream(band),
         )
     _check_rc(lib, rc, "banded_lu factor_solve")
     LAUNCHES["lu_factor_solve"] += 1
 
 
-def launch_solve(fbt, rt, xt, w: int) -> None:
-    """K10 on kernel-layout tensors."""
-    lib = _load()
-    n, _, B = fbt.shape
-    with torch.cuda.device(fbt.device):
+def launch_solve(fband, rhs, x, w: int) -> None:
+    """K10: solve against ``fband`` for ``rhs`` into ``x``."""
+    lib = _lib_on(fband.device)
+    B, n, _ = fband.shape
+    p = _plan_on(fband, n, w, B)
+    with torch.cuda.device(fband.device):
         rc = lib.tc_banded_lu_solve(
-            w, fbt.data_ptr(), rt.data_ptr(), xt.data_ptr(), n, B,
-            _stream(fbt),
+            w, int(p.ring), p.group, p.rows, fband.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), n, B, _stream(fband),
         )
     _check_rc(lib, rc, "banded_lu solve")
     LAUNCHES["lu_solve"] += 1
 
 
-def launch_factor(bt, fbt, w: int, clamp: float) -> None:
-    """K11 on kernel-layout tensors."""
-    lib = _load()
-    n, _, B = bt.shape
-    with torch.cuda.device(bt.device):
+def launch_factor(band, fband, w: int, clamp: float) -> None:
+    """K11: factor ``band`` into ``fband``."""
+    lib = _lib_on(band.device)
+    B, n, _ = band.shape
+    p = _plan_on(band, n, w, B)
+    with torch.cuda.device(band.device):
         rc = lib.tc_banded_lu_factor(
-            w, bt.data_ptr(), fbt.data_ptr(), n, B, clamp, _stream(bt),
+            w, int(p.ring), p.group, p.rows, band.data_ptr(), fband.data_ptr(), n, B,
+            clamp, _stream(band),
         )
     _check_rc(lib, rc, "banded_lu factor")
     LAUNCHES["lu_factor"] += 1
@@ -214,10 +287,10 @@ def fleet_banded_lu_factor_batched(band: torch.Tensor, w: int,
     _check_band(band, w)
     if _device_kind(band) == "cpu":
         return fleet_banded_lu_factor_plain(band, w, clamp)
-    bt = band.permute(1, 2, 0).contiguous()
-    fbt = torch.empty_like(bt)
-    launch_factor(bt, fbt, w, clamp)
-    return fbt.permute(2, 0, 1)
+    band = band.contiguous()  # the adapter's band already is: no copy
+    fband = torch.empty_like(band)
+    launch_factor(band, fband, w, clamp)
+    return fband
 
 
 def fleet_banded_lu_factor_solve_batched(band: torch.Tensor, b: torch.Tensor,
@@ -227,29 +300,23 @@ def fleet_banded_lu_factor_solve_batched(band: torch.Tensor, b: torch.Tensor,
     _check_rhs(band, b)
     if _device_kind(band) == "cpu":
         return fleet_banded_lu_factor_solve_plain(band, b, w, clamp)
-    bt = band.permute(1, 2, 0).contiguous()
-    rt = b.t().contiguous()
-    fbt = torch.empty_like(bt)
-    xt = torch.empty_like(rt)
-    launch_factor_solve(bt, rt, fbt, xt, w, clamp)
-    return fbt.permute(2, 0, 1), xt.t()
+    band, b = band.contiguous(), b.contiguous()
+    fband, x = torch.empty_like(band), torch.empty_like(b)
+    launch_factor_solve(band, b, fband, x, w, clamp)
+    return fband, x
 
 
 def fleet_banded_lu_solve_batched(fband: torch.Tensor, b: torch.Tensor,
                                   w: int) -> torch.Tensor:
-    """Solve (L U) x = b against a factored band (B, n, 2w+1).
-
-    A factored band returned by the kernels is a view of kernel-layout
-    storage, so re-laying it out here copies nothing."""
+    """Solve (L U) x = b against a factored band (B, n, 2w+1)."""
     _check_band(fband, w)
     _check_rhs(fband, b)
     if _device_kind(fband) == "cpu":
         return fleet_banded_lu_solve_plain(fband, b, w)
-    fbt = fband.permute(1, 2, 0).contiguous()
-    rt = b.t().contiguous()
-    xt = torch.empty_like(rt)
-    launch_solve(fbt, rt, xt, w)
-    return xt.t()
+    fband, b = fband.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    launch_solve(fband, b, x, w)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -144,6 +144,73 @@ def test_wrappers_reject_bad_inputs():
         tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 27), 13)
 
 
+# (n, w, B) -> (ring route, instances a CTA): the MPC-MHE fleet fills the
+# H100's 132 SMs at 4 a CTA; ragged and small fleets; w = 12 fits three
+# an SM half; a band above the shared-memory cap takes the ring
+PLANS = [
+    ((290, 10, 1024), (False, 4)),
+    ((146, 10, 1000), (False, 4)),
+    ((69, 3, 1000), (False, 4)),
+    ((69, 1, 64), (False, 1)),
+    ((290, 12, 1024), (False, 3)),
+    ((4000, 1, 2048), (False, 1)),
+    ((3000, 12, 64), (True, 1)),
+    ((3000, 12, 4096), (True, 4)),
+]
+
+
+@pytest.mark.parametrize("shape,expected", PLANS)
+def test_launch_plan_route_and_group(shape, expected):
+    n, w, B = shape
+    plan = tlu.launch_plan(n, w, B, sms=132)
+    assert (plan.ring, plan.group) == expected
+    assert plan.rows == (tlu.RING_ROWS if plan.ring else n + w)
+    assert plan.smem == plan.group * tlu.instance_bytes(n, w, plan.ring)
+    assert plan.smem == plan.group * plan.rows * (2 * w + 2) * 4
+    assert plan.smem <= tlu.SMEM_MAX
+    if plan.group > 1:
+        assert plan.smem <= tlu.SMEM_TWO_BLOCKS  # two CTAs share an SM
+
+
+def test_launch_plan_staged_bytes_and_cap():
+    """An instance staged whole takes its n + w rows of 2w + 1 floats and
+    n + w entries of x, on the ring as many rows and entries as the ring
+    holds; the route changes exactly where the first passes the block
+    cap, and no plan asks for more than the cap."""
+    assert tlu.instance_bytes(290, 10, False) == 4 * (300 * 21 + 300)
+    assert tlu.instance_bytes(290, 10, True) == 4 * (tlu.RING_ROWS * 21 + tlu.RING_ROWS)
+    assert tlu.SMEM_MAX == 232_448
+    for w in range(1, tlu.MAX_W + 1):
+        # the largest n staged whole at this width
+        n_max = tlu.SMEM_MAX // (4 * (2 * w + 2)) - w
+        assert not tlu.launch_plan(n_max, w, 8).ring
+        assert tlu.launch_plan(n_max + 1, w, 8).ring
+        for n in (1, 2, w, 290, n_max, n_max + 1, 20_000):
+            for B in (1, 7, 264, 1024, 5000):
+                plan = tlu.launch_plan(n, w, B)
+                assert 1 <= plan.group <= tlu.MAX_GROUP
+                assert plan.smem <= tlu.SMEM_MAX
+
+
+def test_launch_plan_fills_the_card_in_one_wave():
+    """The group is the fewest instances a CTA that puts B instances on
+    the card in one wave at two CTAs an SM, so small fleets spread over
+    more SMs."""
+    for B in (1, 100, 264, 265, 528, 1024):
+        plan = tlu.launch_plan(146, 10, B, sms=132)
+        assert plan.group == min(4, -(-B // 264))
+        assert -(-B // plan.group) <= 2 * 132 or plan.group == tlu.MAX_GROUP
+
+
+def test_launch_plan_ring_takes_any_n():
+    """The ring keeps RING_ROWS rows of the band and of x whatever n, so a
+    band of any length has a plan, of the same shared memory."""
+    for w in (1, 10, tlu.MAX_W):
+        plans = [tlu.launch_plan(n, w, 4) for n in (60_000, 10**6, 10**8)]
+        assert all(p.ring and p.rows == tlu.RING_ROWS for p in plans)
+        assert {p.smem for p in plans} == {4 * tlu.RING_ROWS * (2 * w + 2) * plans[0].group}
+
+
 def test_dense_adapter_matches_numpy_and_jax():
     """FleetBandedLUFactorization on tests/test_banded_lu.py's scrambled
     system in float64: the plan recovers the band, and two refinement
