@@ -5,10 +5,16 @@
 Phases:
   1. setup: the card, a parallel build of the port's native sources;
   2. kernels: K1 (factor+solve), K2 (solve) and K3 (factor) against their
-     plain PyTorch versions on the card, at the flagship shapes
-     (B=1024, n=149, w=4) and a ragged one (B=1000, n=69, w=9), timed with
-     CUDA events; K2 also beside its library call, torch.linalg.ldl_solve
-     with no interchanges on K1's factor expanded to dense;
+     plain PyTorch versions on the card, bitwise, with each shape's launch
+     plan, at the flagship shape (B=1024, n=149, w=4; warm, with L2 cold,
+     and through the entry point; K2 beside its library call,
+     torch.linalg.ldl_solve with no interchanges on K1's factor expanded
+     to dense), ragged fleets (B=1000: n=69, w=9; B=1001: n=37, w=1; both
+     with instances of magnitudes far outside the usual), w=16, and bands
+     above the shared-memory cap (B=64: n=12000, w=4; n=3520, w=16: the
+     ring route), timed with CUDA events; at the flagship shape and
+     (1000, 69, 9) at 1 to 32 instances a CTA; and the factor's reciprocal
+     against __frcp_rn at every float of magnitude 2^-60..2^60;
   3. the slice: the flagship fleet (examples/mpc_dcmotor, T=30, B=1024,
      float32) through solve_many, with the kernel launch counts read
      around it, then one single solve;
@@ -535,12 +541,43 @@ def phase_lu_kernels(lu):
     return recs
 
 
+# (B, n, w): the flagship fleet's band; a fleet at w = 9 and one whose
+# last CTA holds one instance (B = 1001 at w = 1); the widest band; and
+# bands above the shared-memory cap (the ring route), one with n a whole
+# number of chunks
+FB_SHAPE = (FLEET_B, 149, 4)
+FB_SHAPES = [FB_SHAPE, (1000, 69, 9), (1001, 37, 1), (FLEET_B, 149, 16),
+             (64, 12000, 4), (64, 3520, 16)]
+# fleets whose instances reach far outside the usual magnitudes, at a
+# width that divides through the pivot's reciprocal and one that does not
+FB_RANGE_SHAPES = [(1001, 37, 1), (1000, 69, 9)]
+# instances a CTA (a lane each, one warp a CTA) timed at these shapes:
+# 1 is a warp an instance, one lane's chain and 31 lanes of copies
+FB_SWEEP_SHAPES = [FB_SHAPE, (1000, 69, 9)]
+FB_GROUPS = (1, 2, 4, 8, 16, 32)
+
+
 def phase_kernels(fb):
-    """K1-K3 against their plain versions; returns per-kernel records."""
+    """K1-K3 against their plain versions (bitwise); returns per-kernel
+    records (times at the flagship shape)."""
     recs = {k: {"max_abs_err": 0.0} for k in REPLACES}
     clamp = 1e-7
-    for B, n, w in ((FLEET_B, 149, 4), (1000, 69, 9)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bad = fb.check_reciprocal(torch.device("cuda"))
+    check(bad == 0, f"the factor's reciprocal differs from __frcp_rn at {bad} floats")
+    log("[kernels] the factor's reciprocal equals __frcp_rn at all 2,013,265,922 "
+        "floats of magnitude 2^-60..2^60")
+    for B, n, w in FB_SHAPES:
+        main = (B, n, w) == FB_SHAPE
+        plan = fb.launch_plan(n, w, B, sms)
         band, rhs = test_band(B, n, w, seed=n + w)
+        if (B, n, w) in FB_RANGE_SHAPES:
+            # magnitudes outside 2^-60..2^60, where a step divides by
+            # __fdiv_rn instead of through the pivot's reciprocal
+            band[1::4] *= 1e21
+            band[2::4] *= 1e-25
+            band[3::4, ::5, 1] = 1e-30
+            rhs[::5] *= 1e-30
         f1, x1 = fb.fleet_banded_factor_solve_batched(band, rhs, w, clamp)
         x2 = fb.fleet_banded_solve_batched(f1, rhs, w)
         f3 = fb.fleet_banded_factor_batched(band, w, clamp)
@@ -555,28 +592,31 @@ def phase_kernels(fb):
         }
         scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
         for k, e in errs.items():
-            check(np.isfinite(e) and e <= KERNEL_RTOL * scale,
-                  f"{k} at B={B} n={n} w={w}: max abs err {e}")
+            # the kernels repeat the plain versions' roundings: bitwise
+            check(e == 0.0, f"{k} at B={B} n={n} w={w}: max abs err {e}")
             recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
-        # kernel time on kernel-layout buffers; plain time on the same
-        # inputs; the band (3 MB) stays in L2 as it does after assembly
-        bt = band.permute(1, 2, 0).contiguous()
-        rt = rhs.t().contiguous()
-        fbt, xt = torch.empty_like(bt), torch.empty_like(rt)
-        fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp)
-        main = (B, n, w) == (FLEET_B, 149, 4)
-        kerns = {
-            "factor_solve": (lambda: fb.launch_factor_solve(bt, rt, fbt, xt, w, clamp),
-                             lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)),
-            "solve": (lambda: fb.launch_solve(fbt, rt, xt, w),
-                      lambda: fb.fleet_banded_solve_plain(pf, rhs, w)),
-            "factor": (lambda: fb.launch_factor(bt, fbt, w, clamp),
-                       lambda: fb.fleet_banded_factor_plain(band, w, clamp)),
+        log(f"[kernels] B={B} n={n} w={w}: route {'ring' if plan.ring else 'staged'}, "
+            f"{plan.group} instances (a lane each) a CTA of one warp, "
+            f"{-(-B // plan.group)} CTAs, {plan.smem} bytes of shared memory a CTA")
+        fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
+        reps = 50 if n <= 149 else 5
+        preps = 20 if main else (3 if n <= 149 else 0)
+        # kernel launch, plain version, entry point; the band (3 MB at the
+        # flagship shape) stays in L2 as it does after assembly
+        runs = {
+            "factor_solve": (
+                lambda: fb.launch_factor_solve(band, rhs, fbo, xo, w, clamp),
+                lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp),
+                lambda: fb.fleet_banded_factor_solve_batched(band, rhs, w, clamp)),
+            "solve": (
+                lambda: fb.launch_solve(f1, rhs, xo, w),
+                lambda: fb.fleet_banded_solve_plain(pf, rhs, w),
+                lambda: fb.fleet_banded_solve_batched(f1, rhs, w)),
+            "factor": (
+                lambda: fb.launch_factor(band, fbo, w, clamp),
+                lambda: fb.fleet_banded_factor_plain(band, w, clamp),
+                lambda: fb.fleet_banded_factor_batched(band, w, clamp)),
         }
-        # (kernel ms, device ms at the main shape, plain ms)
-        times = {k: (cuda_ms(kern, 50), cuda_ms(kern, 50, spin=True) if main else None,
-                     cuda_ms(plain, 20))
-                 for k, (kern, plain) in kerns.items()}
         lib_ms = None
         if main:
             # K2's library call: ldl_solve with no interchanges (pivots
@@ -589,17 +629,55 @@ def phase_kernels(fb):
             log(f"[kernels] library torch.linalg.ldl_solve (pivots 1..n) on K1's "
                 f"factor as dense LDL^T: {lib_ms:.4f} ms, max abs diff from K2 {el:.3e}")
             del LD
-        for k, (ms, dev_ms, plain_ms) in times.items():
+        for k, (kern, plain, entry) in runs.items():
+            ms = cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, preps) if preps else None
             bms, by = bound(k, B, n, w)
-            dev = f" (device {dev_ms:.4f} ms)" if main else ""
+            extra, dev_ms = "", None
+            if main:
+                dev_ms = cuda_ms(kern, reps, spin=True)
+                cold = cuda_ms_cold(kern)
+                entry_ms = cuda_ms(entry, reps)
+                extra = (f" (device {dev_ms:.4f} ms; with L2 cold {cold:.4f} ms)  "
+                         f"entry point {entry_ms:.4f} ms")
             lib = f"  library {lib_ms:.4f} ms" if (main and k == "solve") else ""
+            plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
             log(f"[kernels] {NAMES[k]} B={B} n={n} w={w}: max_abs_err "
-                f"{errs[k]:.3e}  kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
+                f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
             if main:
                 recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                                bound_by=by, library_ms=lib_ms if k == "solve" else None)
+        if (B, n, w) in FB_SWEEP_SHAPES:
+            phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp)
+        del band, rhs, f1, x1, x2, f3, pf, px, px2, fbo, xo
     return recs
+
+
+def phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp):
+    """K1-K3 at each group of FB_GROUPS: bitwise against the plain
+    versions, and their device times alone."""
+    fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
+    parts = []
+    for G in FB_GROUPS:
+        kerns = (lambda: fb.launch_factor_solve(band, rhs, fbo, xo, w, clamp, group=G),
+                 lambda: fb.launch_solve(f1, rhs, xo, w, group=G),
+                 lambda: fb.launch_factor(band, fbo, w, clamp, group=G))
+        kerns[0]()
+        torch.cuda.synchronize()
+        e1 = max((fbo - pf).abs().max().item(), (xo - px).abs().max().item())
+        kerns[1]()
+        torch.cuda.synchronize()
+        e2 = (xo - px2).abs().max().item()
+        kerns[2]()
+        torch.cuda.synchronize()
+        e3 = (fbo - pf).abs().max().item()
+        check(e1 == e2 == e3 == 0.0, f"K1-K3 at group {G}, B={B} n={n} w={w}: "
+              f"max abs err {e1}, {e2}, {e3}")
+        t = [cuda_ms(kern, 20, spin=True) for kern in kerns]
+        parts.append(f"G={G} ({-(-B // G)} CTAs) {t[0]:.4f}/{t[1]:.4f}/{t[2]:.4f}")
+    log(f"[kernels] device ms K1/K2/K3 by instances a CTA at B={B} n={n} w={w} "
+        f"(exact at each): " + "; ".join(parts))
 
 
 class _BandOnly:
@@ -644,6 +722,11 @@ def phase_slice(mpc, fb, lu):
     check(launches["factor_solve"] > 0 and launches["solve"] > 0,
           f"K1 and K2 ran on the main path: {launches}")
     lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    # the same answers as every earlier slice's kernels gave
+    check(int(iters.max()) == 11 and round(float(iters.mean()), 2) == 7.66,
+          f"iterations max 11, mean 7.66 (got {iters.max()}, {iters.mean():.4f})")
+    check(launches["factor_solve"] == lockstep and launches["solve"] == 2 * lockstep,
+          f"K1 1.00 and K2 2.00 a lockstep iteration: {launches}")
     log(f"[slice] fleet B={FLEET_B} T={FLEET_T} f32: status 0 for all; iters "
         f"max {iters.max()} mean {iters.mean():.2f}; wall {wall:.4f} s; "
         f"{FLEET_B / wall:.1f} solves/s; launches {launches}; per lockstep "
@@ -692,7 +775,12 @@ def phase_cross_check(mpc, params, inits, res):
         f"cpu {r.iters.numpy().tolist()}")
 
 
-def phase_profile(label: str, run_fleet):
+def phase_profile(label: str, run_fleet, watch=()):
+    """One fleet solve under the profiler: the device's busy and idle
+    shares, the top ten kernels, and the kernels whose names ``watch``'s
+    patterns find, with their share of the device time."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -712,6 +800,11 @@ def phase_profile(label: str, run_fleet):
         f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[{label}]   {v / 1e3:9.3f} ms  {k[:90]}")
+    for name, pattern in watch:
+        us = sum(v for k, v in dev_us.items() if re.search(pattern, k))
+        check(us > 0, f"the profiler saw {name}")
+        log(f"[{label}] {name}: {us / 1e3:.3f} ms, {us / 1e6 / busy:.4f} of the "
+            f"device kernel time")
 
 
 def phase_mpcmhe(mm, fb, lu):
@@ -992,8 +1085,9 @@ def main() -> int:
                   pool.submit(dl._load), pool.submit(native._load)]:
             f.result()
     log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
-    log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W}; "
-        f"registers a thread at w=4: {ptxas_report(fb, 4)}")
+    log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W} on either "
+        f"route; registers a thread at w=4: {ptxas_report(fb, 4, ('staged', 'ring'))}; "
+        f"at w=16: {ptxas_report(fb, 16, ('staged', 'ring'))}")
     log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W} on either "
         f"route; registers a thread at w=10: "
         f"{ptxas_report(lu, 10, ('staged', 'ring'))}")
@@ -1005,7 +1099,8 @@ def main() -> int:
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
     phase_cross_check(mpc, params, inits, res)
     phase_profile("profile", lambda: solver.solve_many(
-        params, inits=inits, mu0=1e-3, max_iter=100))
+        params, inits=inits, mu0=1e-3, max_iter=100),
+        watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")))
 
     lu_recs = phase_lu_kernels(lu)
     msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)

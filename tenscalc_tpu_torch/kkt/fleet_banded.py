@@ -16,6 +16,14 @@ arithmetic step for step (the same clamp, ``r = row / d``, the same
 trailing update order, sequential sums), so on the card the two agree to
 the last bit; they are the kernels' oracle, not a yardstick of speed.
 
+The kernels read and write the JAX layout itself, instance-contiguous:
+a lane runs one instance's elimination, a CTA is one warp serving
+``group`` instances staged in shared memory.  :func:`launch_plan` picks
+the group (the fewest that fill the card in one wave) and the route by
+size: the whole band and x in shared memory, or, above the block's
+shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
+n.
+
 Rows past n: the JAX entry points pad with identity rows; the kernels
 and the plain versions mask instead.  Band entries that reach past row n
 (``band[c, i]`` with c + i >= n) are zero in every band the solver
@@ -26,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -35,6 +43,17 @@ from .._build import build_shared_library, find_tool
 from .structure import BandedPlan
 
 MAX_W = 16  # widths the kernels are instantiated for (csrc/fleet_banded.cu)
+# compile-time parameters of csrc/fleet_banded.cu (nvcc defines)
+MAX_GROUP = 32  # instances a CTA, a lane of its one warp each
+CHUNK_ROWS = 64  # rows a copy into shared memory moves
+RING_ROWS = 256  # rows of the band and of x the ring route keeps
+SMEM_MAX = 232_448  # shared memory a block can opt into on Hopper
+
+# CTAs (of one warp) a launch plan puts on an SM side by side, one on each
+# of its four schedulers: the lanes of a warp run their chains in
+# lockstep, so a step costs one warp's instruction stream and a fifth CTA
+# would share a scheduler's issue slots
+SM_SLOTS = 4
 
 # Kernel launches, one count per kernel; a wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -48,23 +67,77 @@ NVCC_FLAGS = [
 
 _lib: Optional[ctypes.CDLL] = None
 LIB_PATH: Optional[Path] = None  # the built library, once loaded
+_READY: set = set()  # devices where the kernels' shared-memory opt-in is set
+
+
+class LaunchPlan(NamedTuple):
+    ring: bool  # rows through a ring (True) or all staged (False)
+    group: int  # instances a CTA, a lane each
+    rows: int  # rows of the band and entries of x an instance keeps
+    stride: int  # floats of an instance's slice of shared memory
+    smem: int  # shared memory of a CTA, bytes
+
+
+def instance_rows(n: int, w: int, ring: bool) -> int:
+    """Rows of the band (and entries of x) one instance keeps in shared
+    memory: all n and w + 1 of padding (the window reads up to row
+    c + 1 + w), or the ring."""
+    return RING_ROWS if ring else n + w + 1
+
+
+def instance_floats(n: int, w: int, ring: bool) -> int:
+    """Floats of one instance's slice of shared memory: its band rows of
+    w + 1 floats and as many entries of x, made odd so that the lanes'
+    accesses at one offset of their instances fall in different banks."""
+    return instance_rows(n, w, ring) * (w + 2) | 1
+
+
+def instance_bytes(n: int, w: int, ring: bool) -> int:
+    return 4 * instance_floats(n, w, ring)
+
+
+def launch_plan(n: int, w: int, B: int, sms: int = 132,
+                group: Optional[int] = None) -> LaunchPlan:
+    """Route and group of a launch.  The group is the fewest instances a
+    CTA that lets B instances run in one wave at SM_SLOTS CTAs an SM
+    (``sms`` SMs), at most MAX_GROUP; ``group`` overrides it (a
+    measurement's choice).  The group's bands are staged whole while they
+    fit the block cap together, else they go through the ring, whose size
+    does not depend on n."""
+    want = (max(1, min(MAX_GROUP, -(-B // (sms * SM_SLOTS)))) if group is None
+            else group)
+    ring = want * instance_bytes(n, w, False) > SMEM_MAX
+    per = instance_bytes(n, w, ring)
+    most = min(MAX_GROUP, SMEM_MAX // per)
+    if group is None:
+        group = min(want, most)
+    elif not 1 <= group <= most:
+        raise ValueError(f"group {group} outside 1..{most} at n={n}, w={w}")
+    return LaunchPlan(ring, group, instance_rows(n, w, ring),
+                      instance_floats(n, w, ring), group * per)
 
 
 def _load() -> ctypes.CDLL:
-    """Build (at first use) and bind the CUDA library."""
+    """Build (at first use) and bind the CUDA library; the constants above
+    are its compile-time parameters."""
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        path = LIB_PATH = build_shared_library("fleet_banded.cu", nvcc, NVCC_FLAGS)
+        flags = [*NVCC_FLAGS, f"-DTC_FB_CHUNK_ROWS={CHUNK_ROWS}",
+                 f"-DTC_FB_RING_ROWS={RING_ROWS}", f"-DTC_FB_MAX_GROUP={MAX_GROUP}",
+                 f"-DTC_FB_SMEM_MAX={SMEM_MAX}"]
+        path = LIB_PATH = build_shared_library("fleet_banded.cu", nvcc, flags)
         lib = ctypes.CDLL(str(path))
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_fleet_banded_factor_solve.argtypes = [I, P, P, P, P, I, I, Fl, P]
-        lib.tc_fleet_banded_solve.argtypes = [I, P, P, P, I, I, P]
-        lib.tc_fleet_banded_factor.argtypes = [I, P, P, I, I, Fl, P]
+        lib.tc_fleet_banded_factor_solve.argtypes = [I, I, I, I, I, P, P, P, P, I, I, Fl, P]
+        lib.tc_fleet_banded_solve.argtypes = [I, I, I, I, I, P, P, P, I, I, P]
+        lib.tc_fleet_banded_factor.argtypes = [I, I, I, I, I, P, P, I, I, Fl, P]
+        lib.tc_fleet_banded_init.argtypes = []
+        lib.tc_fleet_banded_check_reciprocal.argtypes = [P, P]
         for fn in (lib.tc_fleet_banded_factor_solve, lib.tc_fleet_banded_solve,
-                   lib.tc_fleet_banded_factor):
+                   lib.tc_fleet_banded_factor, lib.tc_fleet_banded_init,
+                   lib.tc_fleet_banded_max_w, lib.tc_fleet_banded_check_reciprocal):
             fn.restype = ctypes.c_int
-        lib.tc_fleet_banded_max_w.restype = ctypes.c_int
         lib.tc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tc_cuda_error_string.restype = ctypes.c_char_p
         if lib.tc_fleet_banded_max_w() != MAX_W:
@@ -73,53 +146,117 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def _lib_on(device: torch.device) -> ctypes.CDLL:
+    """The library, with its kernels' shared-memory opt-in set on
+    ``device`` (once a device)."""
+    lib = _load()
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _READY:
+        with torch.cuda.device(idx):
+            _check_rc(lib, lib.tc_fleet_banded_init(), "fleet_banded init")
+        _READY.add(idx)
+    return lib
+
+
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-# ---------------------------------------------------------------------------
-# launches on kernel layout: band (n, w+1, B), vectors (n, B), batch fastest
-# ---------------------------------------------------------------------------
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_factor_solve(bt, rt, fbt, xt, w: int, clamp: float) -> None:
-    """K1 on kernel-layout tensors (outputs ``fbt``, ``xt`` preallocated)."""
+def check_reciprocal(device: torch.device) -> int:
+    """Mismatches between the factor's reciprocal (the hardware's estimate
+    and one Newton step) and __frcp_rn at every float of magnitude
+    2^-60..2^60 on ``device``: 0 is the premise of its divisions'
+    bitwise agreement with the plain versions."""
     lib = _load()
-    n, _, B = bt.shape
-    with torch.cuda.device(bt.device):
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        _check_rc(lib, lib.tc_fleet_banded_check_reciprocal(bad.data_ptr(), _stream(bad)),
+                  "fleet_banded reciprocal check")
+    return int(bad.item())
+
+
+# ---------------------------------------------------------------------------
+# launches: contiguous float32 band (B, n, w+1) and vectors (B, n) on one
+# CUDA device, outputs preallocated
+# ---------------------------------------------------------------------------
+
+def _kernel_operands(w: int, bands, vectors):
+    """(B, n) of a launch, after checking its operands: the bands (B, n,
+    w+1) and the vectors (B, n), contiguous float32 tensors on one CUDA
+    device.  Raises on anything else, before any CUDA call."""
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"half-bandwidth w={w} outside 1..{MAX_W}")
+    if bands[0].dim() != 3:
+        raise ValueError(f"band must be (B, n, w+1), got {tuple(bands[0].shape)}")
+    B, n = bands[0].shape[:2]
+    ops = [*bands, *vectors]
+    for t, shape in zip(ops, [(B, n, w + 1)] * len(bands) + [(B, n)] * len(vectors)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"kernel operand must be {shape}, got {tuple(t.shape)}")
+    for t in ops:
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel operands must be float32, got {t.dtype}")
+    for t in ops:
+        if not t.is_contiguous():
+            raise ValueError(f"kernel operands must be contiguous, got strides {t.stride()}")
+    for t in ops:
+        if t.device.type != "cuda" or t.device != ops[0].device:
+            raise ValueError(f"kernel operands must be on one CUDA device, got {t.device}")
+    return B, n
+
+
+def _plan_on(t: torch.Tensor, n: int, w: int, B: int,
+             group: Optional[int]) -> LaunchPlan:
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return launch_plan(n, w, B, sms, group)
+
+
+def launch_factor_solve(band, rhs, fband, x, w: int, clamp: float,
+                        group: Optional[int] = None) -> None:
+    """K1: factor ``band`` into ``fband`` and solve for ``rhs`` into ``x``."""
+    B, n = _kernel_operands(w, (band, fband), (rhs, x))
+    lib = _lib_on(band.device)
+    p = _plan_on(band, n, w, B, group)
+    with torch.cuda.device(band.device):
         rc = lib.tc_fleet_banded_factor_solve(
-            w, bt.data_ptr(), rt.data_ptr(), fbt.data_ptr(), xt.data_ptr(),
-            n, B, clamp, _stream(bt),
+            w, int(p.ring), p.group, p.rows, p.stride, band.data_ptr(),
+            rhs.data_ptr(), fband.data_ptr(), x.data_ptr(), n, B, clamp,
+            _stream(band),
         )
     _check_rc(lib, rc, "fleet_banded factor_solve")
     LAUNCHES["factor_solve"] += 1
 
 
-def launch_solve(fbt, rt, xt, w: int) -> None:
-    """K2 on kernel-layout tensors."""
-    lib = _load()
-    n, _, B = fbt.shape
-    with torch.cuda.device(fbt.device):
+def launch_solve(fband, rhs, x, w: int, group: Optional[int] = None) -> None:
+    """K2: solve against ``fband`` for ``rhs`` into ``x``."""
+    B, n = _kernel_operands(w, (fband,), (rhs, x))
+    lib = _lib_on(fband.device)
+    p = _plan_on(fband, n, w, B, group)
+    with torch.cuda.device(fband.device):
         rc = lib.tc_fleet_banded_solve(
-            w, fbt.data_ptr(), rt.data_ptr(), xt.data_ptr(), n, B,
-            _stream(fbt),
+            w, int(p.ring), p.group, p.rows, p.stride, fband.data_ptr(),
+            rhs.data_ptr(), x.data_ptr(), n, B, _stream(fband),
         )
     _check_rc(lib, rc, "fleet_banded solve")
     LAUNCHES["solve"] += 1
 
 
-def launch_factor(bt, fbt, w: int, clamp: float) -> None:
-    """K3 on kernel-layout tensors."""
-    lib = _load()
-    n, _, B = bt.shape
-    with torch.cuda.device(bt.device):
+def launch_factor(band, fband, w: int, clamp: float,
+                  group: Optional[int] = None) -> None:
+    """K3: factor ``band`` into ``fband``."""
+    B, n = _kernel_operands(w, (band, fband), ())
+    lib = _lib_on(band.device)
+    p = _plan_on(band, n, w, B, group)
+    with torch.cuda.device(band.device):
         rc = lib.tc_fleet_banded_factor(
-            w, bt.data_ptr(), fbt.data_ptr(), n, B, clamp, _stream(bt),
+            w, int(p.ring), p.group, p.rows, p.stride, band.data_ptr(),
+            fband.data_ptr(), n, B, clamp, _stream(band),
         )
     _check_rc(lib, rc, "fleet_banded factor")
     LAUNCHES["factor"] += 1
@@ -196,7 +333,7 @@ def fleet_banded_solve_plain(fband: torch.Tensor, b: torch.Tensor,
         for i in range(1, R):
             acc = acc + fband[:, c, i] * x[:, c + i]
         x[:, c] = x[:, c] - acc
-    return x[:, :n]
+    return x[:, :n].contiguous()
 
 
 def fleet_banded_factor_solve_plain(band: torch.Tensor, b: torch.Tensor,
@@ -216,10 +353,10 @@ def fleet_banded_factor_batched(band: torch.Tensor, w: int,
     _check_band(band, w)
     if _device_kind(band) == "cpu":
         return fleet_banded_factor_plain(band, w, clamp)
-    bt = band.permute(1, 2, 0).contiguous()
-    fbt = torch.empty_like(bt)
-    launch_factor(bt, fbt, w, clamp)
-    return fbt.permute(2, 0, 1)
+    band = band.contiguous()  # the adapter's band already is: no copy
+    fband = torch.empty_like(band)
+    launch_factor(band, fband, w, clamp)
+    return fband
 
 
 def fleet_banded_factor_solve_batched(band: torch.Tensor, b: torch.Tensor,
@@ -229,29 +366,23 @@ def fleet_banded_factor_solve_batched(band: torch.Tensor, b: torch.Tensor,
     _check_rhs(band, b)
     if _device_kind(band) == "cpu":
         return fleet_banded_factor_solve_plain(band, b, w, clamp)
-    bt = band.permute(1, 2, 0).contiguous()
-    rt = b.t().contiguous()
-    fbt = torch.empty_like(bt)
-    xt = torch.empty_like(rt)
-    launch_factor_solve(bt, rt, fbt, xt, w, clamp)
-    return fbt.permute(2, 0, 1), xt.t()
+    band, b = band.contiguous(), b.contiguous()
+    fband, x = torch.empty_like(band), torch.empty_like(b)
+    launch_factor_solve(band, b, fband, x, w, clamp)
+    return fband, x
 
 
 def fleet_banded_solve_batched(fband: torch.Tensor, b: torch.Tensor,
                                w: int) -> torch.Tensor:
-    """Solve (L diag(d) L^T) x = b against a factored band (B, n, w+1).
-
-    A factored band returned by the kernels is a view of kernel-layout
-    storage, so re-laying it out here copies nothing."""
+    """Solve (L diag(d) L^T) x = b against a factored band (B, n, w+1)."""
     _check_band(fband, w)
     _check_rhs(fband, b)
     if _device_kind(fband) == "cpu":
         return fleet_banded_solve_plain(fband, b, w)
-    fbt = fband.permute(1, 2, 0).contiguous()
-    rt = b.t().contiguous()
-    xt = torch.empty_like(rt)
-    launch_solve(fbt, rt, xt, w)
-    return xt.t()
+    fband, b = fband.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    launch_solve(fband, b, x, w)
+    return x
 
 
 # ---------------------------------------------------------------------------

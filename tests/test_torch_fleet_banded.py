@@ -106,6 +106,143 @@ def test_wrappers_reject_bad_inputs():
         tfb.fleet_banded_factor_batched(torch.zeros(2, 20, 18), 17)
 
 
+def test_cpu_entry_points_take_the_adapters_layout():
+    """The entry points take the adapter's contiguous (B, n, w+1) band and
+    (B, n) vectors, the layout the kernels read, and return contiguous
+    results in it, equal to the plain versions."""
+    n, w, B = 69, 4, 5
+    band, rhs, perm, W, (_, tplan) = _kkt_fleet(n, w, B, seed=6)
+    fac = tfb.FleetBandedFromBand(_TorchOp(band, perm, W), tplan)
+    b = fac.s * torch.from_numpy(rhs)[:, fac.perm]  # the adapter's bp
+    assert fac._band_scaled.is_contiguous() and b.is_contiguous()
+    f, x = tfb.fleet_banded_factor_solve_batched(fac._band_scaled, b, w, CLAMP)
+    f3 = tfb.fleet_banded_factor_batched(fac._band_scaled, w, CLAMP)
+    x2 = tfb.fleet_banded_solve_batched(f, b, w)
+    for t in (f, x, f3, x2):
+        assert t.is_contiguous()
+    assert f.shape == (B, n, w + 1) and x.shape == x2.shape == (B, n)
+    pf, px = tfb.fleet_banded_factor_solve_plain(fac._band_scaled, b, w, CLAMP)
+    assert torch.equal(f, pf) and torch.equal(x, px) and torch.equal(f3, pf)
+    assert torch.equal(x2, tfb.fleet_banded_solve_plain(pf, b, w))
+
+
+def test_launches_reject_bad_operands_before_cuda(monkeypatch):
+    """launch_* take contiguous float32 (B, n, w+1) / (B, n) tensors on one
+    CUDA device and raise on anything else before reaching the library."""
+    def no_cuda(*_):
+        raise AssertionError("reached the CUDA library")
+
+    monkeypatch.setattr(tfb, "_lib_on", no_cuda)
+    B, n, w = 3, 20, 2
+    band, rhs = (torch.from_numpy(a) for a in _band(n, w, B, seed=3))
+    f, x = torch.empty_like(band), torch.empty_like(rhs)
+    strided = torch.empty(B, w + 1, n).transpose(1, 2)  # (B, n, w+1), not contiguous
+    cases = [
+        (ValueError, "contiguous", lambda: tfb.launch_factor(strided, f, w, CLAMP)),
+        (ValueError, "contiguous", lambda: tfb.launch_solve(f, rhs, x.t().contiguous().t(), w)),
+        (ValueError, "contiguous", lambda: tfb.launch_solve(f, torch.empty(n, B).t(), x, w)),
+        (ValueError, r"\(3, 20, 3\)", lambda: tfb.launch_factor(band, f[:, :, :2], w, CLAMP)),
+        (ValueError, r"\(3, 20\)",
+         lambda: tfb.launch_factor_solve(band, rhs[:, :5], f, x, w, CLAMP)),
+        (ValueError, "w=17", lambda: tfb.launch_factor(band, f, 17, CLAMP)),
+        (TypeError, "float32", lambda: tfb.launch_factor(band.double(), f, w, CLAMP)),
+        (ValueError, "CUDA device", lambda: tfb.launch_factor_solve(band, rhs, f, x, w, CLAMP)),
+    ]
+    for exc, match, call in cases:
+        with pytest.raises(exc, match=match):
+            call()
+
+
+# (n, w, B) -> (ring route, instances a CTA): the flagship fleet fills the
+# H100's 132 SMs, four one-warp CTAs each, at two a CTA; ragged and small
+# fleets; the widest band; a large fleet; instances whose group does not
+# fit the shared-memory cap staged take the ring
+PLANS = [
+    ((149, 4, 1024), (False, 2)),
+    ((69, 9, 1000), (False, 2)),
+    ((69, 9, 1003), (False, 2)),
+    ((37, 1, 64), (False, 1)),
+    ((149, 16, 1024), (False, 2)),
+    ((149, 4, 8192), (False, 16)),
+    ((149, 4, 40_000), (False, 32)),
+    ((3000, 16, 8), (False, 1)),
+    ((3000, 16, 1024), (True, 2)),
+    ((12000, 4, 64), (True, 1)),
+    ((12000, 4, 1024), (True, 2)),
+]
+
+
+@pytest.mark.parametrize("shape,expected", PLANS)
+def test_launch_plan_route_and_group(shape, expected):
+    n, w, B = shape
+    plan = tfb.launch_plan(n, w, B, sms=132)
+    assert (plan.ring, plan.group) == expected
+    assert plan.rows == (tfb.RING_ROWS if plan.ring else n + w + 1)
+    assert plan.stride == plan.rows * (w + 2) | 1 and plan.stride % 2 == 1
+    assert plan.smem == plan.group * tfb.instance_bytes(n, w, plan.ring)
+    assert plan.smem == plan.group * plan.stride * 4 <= tfb.SMEM_MAX
+
+
+def test_launch_plan_route_at_the_cap_edge():
+    """The route changes exactly where a group's staged instances (n + w + 1
+    rows of w + 1 floats and as many entries of x, made odd) pass the
+    block cap together: one instance at B = 8, two at B = 1024."""
+    assert tfb.SMEM_MAX == 232_448
+    assert tfb.instance_bytes(149, 4, False) == 4 * (154 * 6 + 1)
+    assert tfb.instance_bytes(149, 16, False) == 4 * (166 * 18 + 1)
+    for w in range(1, tfb.MAX_W + 1):
+        n_max = (tfb.SMEM_MAX // 4 - 1) // (w + 2) - w - 1
+        assert tfb.instance_bytes(n_max, w, False) <= tfb.SMEM_MAX
+        assert tfb.instance_bytes(n_max + 1, w, False) > tfb.SMEM_MAX
+        assert not tfb.launch_plan(n_max, w, 8).ring
+        assert tfb.launch_plan(n_max + 1, w, 8).ring
+        n2 = (tfb.SMEM_MAX // 8 - 1) // (w + 2) - w - 1
+        assert not tfb.launch_plan(n2, w, 1024).ring
+        assert tfb.launch_plan(n2 + 1, w, 1024).ring
+
+
+def test_launch_plan_fills_the_card_in_one_wave():
+    """At B = 1024 on 132 SMs the group is 2: 512 one-warp CTAs, at most
+    four an SM (one a scheduler), one wave; in general the fewest
+    instances a CTA that fit B in one wave of SM_SLOTS CTAs an SM."""
+    assert tfb.SM_SLOTS == 4
+    plan = tfb.launch_plan(149, 4, 1024, sms=132)
+    assert plan.group == 2 and -(-1024 // plan.group) == 512 <= 132 * tfb.SM_SLOTS
+    assert tfb.SM_SLOTS * plan.smem <= tfb.SMEM_MAX  # four CTAs fit an SM
+    for B in (1, 100, 528, 529, 999, 1000, 1001, 1024, 4224, 16_896):
+        plan = tfb.launch_plan(149, 4, B, sms=132)
+        assert plan.group == -(-B // (132 * tfb.SM_SLOTS))
+        assert -(-B // plan.group) <= 132 * tfb.SM_SLOTS
+    with pytest.raises(ValueError, match="group 33"):
+        tfb.launch_plan(149, 4, 1024, group=33)
+    with pytest.raises(ValueError, match="group 0"):
+        tfb.launch_plan(149, 4, 1024, group=0)
+    assert tfb.launch_plan(149, 4, 1024, group=8).group == 8
+
+
+@pytest.mark.parametrize("w", range(1, 17))
+def test_launch_plan_fits_the_cap_at_every_width(w):
+    """Rows and bytes a CTA stay under the 232,448-byte opt-in at every
+    width, staged or on the ring, for any fleet size."""
+    for n in (1, 2, w, 149, 3000, 9000, 20_000):
+        for B in (1, 7, 132, 1000, 1024, 5000):
+            plan = tfb.launch_plan(n, w, B)
+            assert 1 <= plan.group <= tfb.MAX_GROUP
+            assert plan.rows * (w + 2) <= plan.stride
+            assert plan.smem == plan.group * plan.stride * 4 <= tfb.SMEM_MAX
+            assert plan.ring or plan.rows == n + w + 1
+
+
+def test_launch_plan_ring_takes_any_n():
+    """The ring keeps RING_ROWS rows of the band and of x whatever n, so a
+    band of any length up to 100,000 rows and beyond has a plan, of the
+    same shared memory."""
+    for w in (1, 4, 9, tfb.MAX_W):
+        plans = [tfb.launch_plan(n, w, 1024) for n in (20_000, 60_000, 100_000, 10**7)]
+        assert all(p.ring and p.rows == tfb.RING_ROWS for p in plans)
+        assert {p.smem for p in plans} == {4 * (tfb.RING_ROWS * (w + 2) | 1) * 2}
+
+
 class _JaxOp:
     """Single-instance operator in the JAX adapter's contract."""
 
