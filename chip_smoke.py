@@ -37,8 +37,11 @@ Phases:
  10. kernels of slice 3: K4/K5 (fleet dense LDL^T) at (B, n) = (1024, 32),
      (1000, 13), (1024, 80) and (256, 160), and K6/K7/K8 (single-instance
      LDL^T) at n = 32, 200, 896 with B = 1 and at (64, 32), against their
-     plain versions, timed with CUDA events; K5 and K7 also beside their
-     library call, torch.linalg.ldl_solve with no interchanges;
+     plain versions, timed with CUDA events (K5 and K7, the warp solve
+     below n = 33, also by device time at every shape, with the route
+     taken); K5 and K7 also beside their library call,
+     torch.linalg.ldl_solve with no interchanges, and K4 and K6 at the sls
+     shapes beside torch.linalg.lu_factor_ex with no interchanges;
  11. slice 3, the dense KKT path (examples/sls, constrained least squares,
      N=400, float32): one solve cold and warm (K8, K7) against the CPU; a
      fleet of 1024 with per-instance A and b (K4, K5) and its cross-check
@@ -259,25 +262,29 @@ def dense_bound(kind: str, B: int, n: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dense_ptxas_report(dl) -> str:
-    """Registers a thread of each of K4-K8, from the ptxas report
-    (-Xptxas -v) in the library's build log; fails on a spill."""
+def dense_ptxas_report(log: Path, chunks: int) -> str:
+    """Registers a thread of each kernel of csrc/dense_ldl.cu (K4, K6, K7
+    above n = 32, K8, and the warp solve at ``chunks`` = 1..5 entries of x
+    a lane), from the ptxas report (-Xptxas -v) in the build log ``log``;
+    fails on a spill."""
     import re
 
-    from tenscalc_tpu_torch._build import build_log
-
     regs, spills, name = {}, {}, None
-    for line in build_log(dl.LIB_PATH).read_text().splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+((?:fleet|ldl)_\w*?kernel)E", line)
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '.*?\d+((?:fleet|ldl|warp)_\w*?kernel)"
+                      r"(?:ILi(\d+)E)?E", line)
         if m:
-            name = m.group(1)
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    check(len(regs) == 5, f"dense_ldl.cu: ptxas reported {sorted(regs)}")
+    want = {"fleet_factor_kernel", "ldl_factor_kernel", "ldl_solve_kernel",
+            "ldl_factor_solve_kernel"} | {f"warp_solve_kernel<{c}>"
+                                          for c in range(1, chunks + 1)}
+    check(set(regs) == want, f"dense_ldl.cu: ptxas reported {sorted(regs)}")
     check(not any(spills.values()), f"dense_ldl.cu: register spills: {spills}")
     return ", ".join(f"{k} {r}" for k, r in sorted(regs.items()))
 
@@ -288,23 +295,50 @@ def phase_dense_kernels(dl, fl, pl):
     recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
     clamp = dl.CLAMP
 
-    def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None):
+    def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None, route=""):
         """Holds the error, and times the launch ``kern`` (at the main
-        shape also its device time alone)."""
+        shape, and for the warp solve's K5/K7 at every shape, also its
+        device time alone)."""
         check(np.isfinite(err) and err <= KERNEL_RTOL * scale,
               f"{k} at B={B} n={n}: max abs err {err}")
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
         bms, by = dense_bound(k, B, n)
         ms = cuda_ms(kern, reps)
-        dev_ms = cuda_ms(kern, reps, spin=True) if main else None
+        timed = main or k in ("fleet_solve", "ldl_solve")
+        dev_ms = cuda_ms(kern, reps, spin=True) if timed else None
         dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
-        log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}: max_abs_err {err:.3e}  "
-            f"kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
+        log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}{route}: max_abs_err "
+            f"{err:.3e}  kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
             f"bound {bms:.3e} ms ({by})")
         if main:
             recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by, library_ms=lib_ms)
+
+    def warp_route(B, n):
+        plan = dl.solve_plan(n, B)
+        return (f" [warp solve, {plan.route} route, {plan.grid} CTAs of one warp, "
+                f"{plan.smem} B of shared memory a CTA]")
+
+    def library_factor(A, F, d, what):
+        """torch.linalg.lu_factor_ex with no interchanges: on a symmetric A
+        with no clamp firing, U's diagonal is d and the unit-lower L below
+        it is the factor's (F holds L's column c in row c).  Held to the
+        kernel at the kernels' tolerance; returns its time (ms)."""
+        B, n, _ = A.shape
+        LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
+        torch.cuda.synchronize()
+        low = torch.ones(n, n, dtype=torch.bool, device=A.device).tril(-1)
+        el = max((LU - F.mT).abs()[:, low].max().item(),
+                 (LU.diagonal(dim1=-2, dim2=-1) - d).abs().max().item())
+        scale = max(F.abs().max().item(), d.abs().max().item(), 1.0)
+        check(bool((d.abs() > clamp).all()), f"{what}: no clamp fired")
+        check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
+              f"lu_factor_ex against {what} at B={B} n={n}: max abs diff {el}")
+        t = cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 10)
+        log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) against "
+            f"{what} at B={B} n={n}: {t:.4f} ms, max abs diff from the kernel {el:.3e}")
+        return t
 
     def library_solve(LD, b, x, scale, what):
         """torch.linalg.ldl_solve against a factor in LAPACK's packed
@@ -339,10 +373,12 @@ def phase_dense_kernels(dl, fl, pl):
         p4 = cuda_ms(lambda: fl.fleet_ldl_factor_plain(A, clamp), preps)
         p5 = cuda_ms(lambda: fl.fleet_ldl_solve_plain(pL, pd, b), preps)
         main = (B, n) == (SLS_B, SLS_N)
+        l4 = library_factor(A, L, d, "K4") if main else None
         record("fleet_factor", B, n, e4, scale,
-               lambda: dl.launch_fleet_factor(A, L, d, clamp), reps, p4, main)
+               lambda: dl.launch_fleet_factor(A, L, d, clamp), reps, p4, main, l4)
         record("fleet_solve", B, n, e5, scale,
-               lambda: dl.launch_fleet_solve(L, d, b, xo), reps, p5, main, l5)
+               lambda: dl.launch_fleet_solve(L, d, b, xo), reps, p5, main, l5,
+               warp_route(B, n))
     for B, n in SINGLE_SHAPES:
         A, b = test_sym(B, n, seed=n + B)
         Lt, d = pl.pallas_ldl_factor(A, clamp)
@@ -365,10 +401,13 @@ def phase_dense_kernels(dl, fl, pl):
         p7 = cuda_ms(lambda: pl.pallas_ldl_solve_plain(pLt, pd, b), preps)
         p8 = cuda_ms(lambda: pl.pallas_ldl_factor_solve_plain(A, b, clamp), preps)
         main = (B, n) == (1, SLS_N)
+        l6 = library_factor(A, Lt, d, "K6") if main else None
         record("ldl_factor", B, n, e6, scale,
-               lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main)
+               lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main, l6)
+        route = (warp_route(B, n) if n <= dl.REG_MAX_N
+                 else f" [a CTA an instance, {dl.block_threads(n)} threads]")
         record("ldl_solve", B, n, e7, scale,
-               lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7)
+               lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7, route)
         record("ldl_factor_solve", B, n, e8, scale,
                lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main)
     return recs
@@ -1068,6 +1107,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from tenscalc_tpu_torch import native
+    from tenscalc_tpu_torch._build import build_log
     from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
     from tenscalc_tpu_torch.examples import mpcmhe_dcmotor as mm
     from tenscalc_tpu_torch.examples import sls
@@ -1091,8 +1131,8 @@ def main() -> int:
     log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W} on either "
         f"route; registers a thread at w=10: "
         f"{ptxas_report(lu, 10, ('staged', 'ring'))}")
-    log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: "
-        f"{dense_ptxas_report(dl)}")
+    dense_regs = dense_ptxas_report(build_log(dl.LIB_PATH), -(-dl.FLEET_MAX_N // 32))
+    log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: {dense_regs}")
 
     recs = phase_kernels(fb)
     solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)

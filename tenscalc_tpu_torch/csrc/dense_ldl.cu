@@ -6,9 +6,10 @@
 // Replaces the Pallas TPU kernels of tenscalc_tpu/kkt/fleet.py and
 // tenscalc_tpu/kkt/pallas_ldl.py:
 //   K4 tc_dense_ldl_fleet_factor  <- fleet.py      _fleet_factor_kernel (:68-113)
-//   K5 tc_dense_ldl_fleet_solve   <- fleet.py      _fleet_solve_kernel  (:116-159)
+//   K5 tc_dense_ldl_warp_solve    <- fleet.py      _fleet_solve_kernel  (:116-159)
 //   K6 tc_dense_ldl_factor        <- pallas_ldl.py _ldl_kernel          (:42-105)
-//   K7 tc_dense_ldl_solve         <- pallas_ldl.py _solve_kernel        (:108-137)
+//   K7 tc_dense_ldl_warp_solve (n <= 32), tc_dense_ldl_solve (n > 32)
+//                                 <- pallas_ldl.py _solve_kernel        (:108-137)
 //   K8 tc_dense_ldl_factor_solve  <- pallas_ldl.py _factor_solve_kernel (:140-147)
 //
 // What is computed, per instance: the unpivoted LDL^T of a symmetric
@@ -20,7 +21,8 @@
 // the pivot (K4, the fleet layout) or 1 (K6/K8, Lt = L^T), then
 // L[c+1.., c].  The solves run a forward scatter with L (row c of the
 // factor times y_c), a division by d and a backward gather (a dot of row
-// c with x).  Rows past n are masked, not padded.
+// c with x); they never read the diagonal, so one solve serves both
+// layouts.  Rows past n are masked, not padded.
 //
 // Arithmetic.  Each kernel keeps its TPU kernel's order: K4 updates
 // M[i, k] -= (d_c * r_i) * r_k (fleet.py:104), K6 M[i, k] -= d_c * (r_i * r_k)
@@ -28,14 +30,14 @@
 // backward sweeps x_c -= sum_{i>c} L[c, i] x_i.  The _rn intrinsics keep
 // nvcc from contracting products and sums into fused multiply-adds.  The
 // backward sums have a fixed tree: each thread of a group of T (a warp
-// for K5, the CTA for K7/K8) adds the products of its indices i = tid
-// (mod T) in increasing order, the warp then sums by butterfly (xor 16,
-// 8, 4, 2, 1), and the warps' sums are added in warp order.  The plain
-// PyTorch versions beside the wrappers form the same numbers in the same
-// order, so the two agree to the last bit.  K6's 128-wide panels and
-// MXU trailing GEMM exist for the TPU and are not copied: every step here
-// is a rank-1 update, so for n > 128 K6 rounds differently from the TPU
-// kernel (not from its plain version).
+// for the warp solve, the CTA for K7/K8 above n = 32) adds the products
+// of its indices i = tid (mod T) in increasing order, the warp then sums
+// by butterfly (xor 16, 8, 4, 2, 1), and the warps' sums are added in
+// warp order to 0.  The plain PyTorch versions beside the wrappers form
+// the same numbers in the same order, so the two agree to the last bit.
+// K6's 128-wide panels and MXU trailing GEMM exist for the TPU and are
+// not copied: every step here is a rank-1 update, so for n > 128 K6
+// rounds differently from the TPU kernel (not from its plain version).
 //
 // Layout and what bounds each kernel.
 //   K4: one CTA per instance, thread k owns column k (n <= 160 threads),
@@ -44,42 +46,65 @@
 //       3.35 TB/s) and do ~22 MFLOP (0.3 us at 67 TFLOP/s): byte-bound on
 //       paper, latency-bound in fact -- n dependent steps of two barriers
 //       each, one warp per CTA.
-//   K5: one warp per instance, four instances a CTA; x in shared memory,
-//       the factor read row by row from global memory (a warp's load is
-//       one contiguous row segment).  n dependent forward steps and n
-//       dependent backward reductions: latency-bound.
+//   K5, and K7 at n <= 32 (the warp solve): one warp per instance and a
+//       CTA per warp (two warps a CTA time within ~5% of one on an H100,
+//       PERF.md; kkt/dense_ldl.py's solve_plan).  The work is n
+//       dependent steps each way, so it is bound by latency; the design
+//       keeps memory off that chain.  Lane i keeps x_i, x_{i+32}, ... in
+//       registers.  At n <= 32 (the registers route) lane i also keeps
+//       column i of the stored rows, L[c, i] for c < i, filled by n
+//       independent coalesced row loads before the first step; above 32
+//       (the staged route) the rows are copied into shared memory by
+//       cp.async (the whole instance fits: 102,400 bytes at n = 160, two
+//       CTAs an SM, one wave at every fleet shape), and the loop over a
+//       chunk's 32 steps is unrolled four times, not fully.  A forward step is one shuffle
+//       (y_c from lane c), a product and a subtraction.  A backward
+//       step's butterfly runs on the terms of row c with x_{c+1} as it
+//       was before its own step; what each lane receives does not
+//       contain its own term, so the lane that owns x_{c+1} finishes the
+//       sum with its new term and five additions, and one shuffle hands
+//       the total to the lane of x_c.  The butterflies run a step ahead
+//       of the chain, which is then ~8 dependent operations a step
+//       instead of five shuffles.  At n = 32 the sweeps take ~2.3 us of
+//       ~8.8 (H100, PERF.md); the rest is the launch and the loads and
+//       stores of b, d and x.
 //   K6/K7/K8: one CTA per instance (a grid of one on the single-instance
 //       route), T = min(512, 32 ceil(n / 32)) threads, thread t owning
 //       columns t, t + T, ...  The working matrix lives in shared memory
 //       while it fits (n <= 240, 227 KB), else in place in the output Lt
 //       in global memory, where it stays L2-resident (3.2 MB at n = 896).
-//       K8 keeps the factor where K6 left it for the substitutions.  At
-//       n = 32 these are pure latency (a few microseconds of barriers;
-//       measured 36-58 us on an H100 80GB HBM3 at 700 W, PERF.md: ~1.5 us
-//       a step of two barriers and a dependent shared-memory chain);
-//       at n = 896 one SM does ~0.5 GFLOP in 896 dependent steps, each
-//       thread streaming its columns' trailing rows through L2 in groups of
-//       eight loads.
+//       K8 keeps the factor where K6 left it for the substitutions (the
+//       warp solve's at n <= 32, where T is one warp).  At n = 32 the
+//       factor is pure latency (PERF.md: ~1.5 us a step of two barriers
+//       and a dependent shared-memory chain); at n = 896 one SM does
+//       ~0.5 GFLOP in 896 dependent steps, each thread streaming its
+//       columns' trailing rows through L2 in groups of eight loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-// The fleet's largest n and the K6-K8 block size cap are the binding's
-// (kkt/dense_ldl.py), given on the compiler's command line.
-#if !defined(TC_FLEET_MAX_N) || !defined(TC_MAX_THREADS)
-#error "build with -DTC_FLEET_MAX_N=... -DTC_MAX_THREADS=... (kkt/dense_ldl.py)"
+// The fleet's largest n, the K6-K8 block size cap and the shared memory
+// a block can opt into are the binding's (kkt/dense_ldl.py), given on the
+// compiler's command line.
+#if !defined(TC_FLEET_MAX_N) || !defined(TC_MAX_THREADS) || !defined(TC_DENSE_SMEM_MAX)
+#error "build with -DTC_FLEET_MAX_N=... -DTC_MAX_THREADS=... -DTC_DENSE_SMEM_MAX=... (kkt/dense_ldl.py)"
 #endif
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFleetMaxN = TC_FLEET_MAX_N;  // K4/K5: threads of K4, K5's x buffer
+constexpr int kFleetMaxN = TC_FLEET_MAX_N;  // K4's threads, the warp solve's n
 constexpr int kMaxThreads = TC_MAX_THREADS; // K6/K7/K8 (one block an SM in the
                                             // launch bounds: without it ptxas
                                             // caps K6 at 40 registers and spills)
-constexpr int kSmemMaxN = 240;     // n (n + 1) + 32 floats within 227 KB
-constexpr int kSolveWarps = 4;     // K5: instances (warps) per CTA
+constexpr size_t kSmemCap = TC_DENSE_SMEM_MAX;  // a block's opt-in cap
+constexpr int kSmemMaxN = 240;     // n (n + 1) + 32 floats within the cap
+static_assert(sizeof(float) * (kSmemMaxN * (kSmemMaxN + 1) + 32) <= kSmemCap,
+              "K6/K8's working matrix must fit the shared-memory cap");
+static_assert(sizeof(float) * kFleetMaxN * kFleetMaxN <= kSmemCap,
+              "the warp solve's staged instance must fit the shared-memory cap");
 constexpr int kRowGroup = 8;       // K6/K8: trailing rows updated per batch of loads
+constexpr int kStagedUnroll = 4;  // see StepUnroll
 
 __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
   if (clamp > 0.0f) {
@@ -91,21 +116,155 @@ __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
   return d;
 }
 
-template <bool kWarp>
-__device__ __forceinline__ void group_sync() {
-  if (kWarp) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The factor as the warp solve reads it: at(c, k) is row c of the factor
+// at column lane + 32 k, read only where that column is below n.
+//
+// Registers route (n <= 32): lane i's column of the stored rows, L[c, i]
+// for c < i (0 elsewhere), loaded before the first step.
+struct RegFactor {
+  float l[32];
+  __device__ __forceinline__ void load(const float* __restrict__ F, int n, int lane) {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) l[c] = (lane > c && lane < n) ? F[c * n + lane] : 0.0f;
+  }
+  __device__ __forceinline__ float at(int c, int) const { return l[c]; }
+  __device__ __forceinline__ void wait() const {}
+};
+
+// Staged route (32 < n <= 160): the instance's rows in shared memory (n x
+// n floats; only the entries past each row's diagonal are copied).  The copies are in flight while b and d load; the forward
+// sweep waits for all of them (waiting a chunk of 32 rows at a time
+// measured the same, dense_ldl_ablation.py in PERF.md).
+struct SmemFactor {
+  float* s;
+  int n, lane;
+  __device__ __forceinline__ void stage(const float* __restrict__ F) const {
+    for (int r = 0; r < n - 1; ++r) {
+      for (int i = r + 1 + lane; i < n; i += 32) cp_async4(s + r * n + i, F + r * n + i);
+    }
+  }
+  __device__ __forceinline__ float at(int c, int k) const { return s[c * n + lane + 32 * k]; }
+  __device__ __forceinline__ void wait() const {
+    cp_async_wait_all();
     __syncwarp();
-  } else {
-    __syncthreads();
+  }
+};
+
+// Steps a warp solve's loop over the 32 rows of a chunk unrolls: all on
+// the registers route (its factor columns are registers, indexed by the
+// step), kStagedUnroll on the staged route, whose fully unrolled sweeps
+// (~190 steps at n = 80) would not fit the instruction cache.
+template <int NC>
+struct StepUnroll {
+  static constexpr int value = NC == 1 ? 32 : kStagedUnroll;
+};
+
+// Solve (L diag(d) L^T) x = b for one instance by one warp.  x holds b on
+// entry (0 past n) and x on exit; lane i holds x_{i+32k} in x[k] and
+// d_{i+32k} in dv[k] (1 past n).  The loops over chunks are unrolled, so
+// the arrays are registers.
+template <int NC, class Factor>
+__device__ __forceinline__ void warp_solve(float (&x)[NC], const float (&dv)[NC],
+                                           const Factor& lf, int n, int lane) {
+  // forward: y_c from lane c, then x_i -= y_c L[c, i] for c < i < n
+  lf.wait();
+#pragma unroll
+  for (int kc = 0; kc < NC; ++kc) {
+#pragma unroll (StepUnroll<NC>::value)
+    for (int cc = 0; cc < 32; ++cc) {
+      const int c = 32 * kc + cc;
+      const float y = __shfl_sync(kFull, x[kc], cc);
+#pragma unroll
+      for (int k = kc; k < NC; ++k) {
+        const int i = lane + 32 * k;
+        if (i > c && i < n) x[k] = __fsub_rn(x[k], __fmul_rn(y, lf.at(c, k)));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    if (lane + 32 * k < n) x[k] = __fdiv_rn(x[k], dv[k]);
+  }
+  // backward: x_c -= sum_{i>c} L[c, i] x_i.  The plain version adds each
+  // lane's terms to 0 and the total to 0; the terms here start without
+  // the 0: that changes only the sign of a zero inside the tree, and the
+  // total's own 0 + makes every zero +0 again.  The top step has no terms.
+  float xprev = x[NC - 1];  // x[ko] as it was before the last step's update
+#pragma unroll
+  for (int kc = NC - 1; kc >= 0; --kc) {
+#pragma unroll (StepUnroll<NC>::value)
+    for (int cc = 31; cc >= 0; --cc) {
+      const int c = 32 * kc + cc;
+      if (c == 32 * NC - 1) continue;
+      // x_{c+1}, finished by the last step, lives in lane lo, chunk ko
+      const int ko = (c + 1) >> 5, lo = (c + 1) & 31;
+      float stale = 0.0f, own = 0.0f;
+#pragma unroll
+      for (int k = kc; k < NC; ++k) {
+        const int i = lane + 32 * k;
+        const bool term = i > c && i < n;
+        const float l = term ? lf.at(c, k) : 0.0f;  // rows past n are not read
+        // the term with x[ko] from before its update, selected to 0 (never
+        // 0 * x) at columns <= c or >= n
+        const float xo = k == ko ? xprev : x[k];
+        const float p = term ? __fmul_rn(l, xo) : 0.0f;
+        stale = k == kc ? p : __fadd_rn(stale, p);
+        // lane lo's own sum from column c+1 on (its columns before are
+        // <= c); l and x are 0 past n
+        if (k == ko) own = __fmul_rn(l, x[k]);
+        if (k > ko) own = __fadd_rn(own, p);
+      }
+      // step c's butterfly on the stale terms: what a lane receives holds
+      // no term of its own, so lane lo adds it to its own sum
+      float v = stale;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float r = __shfl_xor_sync(kFull, v, off);
+        v = __fadd_rn(v, r);
+        own = __fadd_rn(own, r);
+      }
+      const float tot = __shfl_sync(kFull, __fadd_rn(0.0f, own), lo);
+      xprev = x[kc];
+      if (lane == cc) x[kc] = __fsub_rn(x[kc], tot);
+    }
   }
 }
 
-// Solve (L diag(d) L^T) x = b for one instance by a group of T threads
-// (one warp when kWarp, else the whole CTA).  Row c of Lr holds L[c+1.., c]
-// at columns c+1..n-1 (its diagonal and lower part are never read).  xs
-// (shared, n floats) holds b on entry and x on exit; red is shared scratch
-// of T / 32 floats (unused when kWarp).
-template <bool kWarp>
+// Load an instance's b and d into the warp solve's registers.
+template <int NC>
+__device__ __forceinline__ void load_vectors(float (&x)[NC], float (&dv)[NC],
+                                             const float* rhs, const float* d,
+                                             int n, int lane) {
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int i = lane + 32 * k;
+    x[k] = i < n ? rhs[i] : 0.0f;
+    dv[k] = i < n ? d[i] : 1.0f;
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void store_x(float* out, const float (&x)[NC], int n, int lane) {
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    if (lane + 32 * k < n) out[lane + 32 * k] = x[k];
+  }
+}
+
+// Solve (L diag(d) L^T) x = b for one instance by a group of T threads (the
+// CTA).  Row c of Lr holds L[c+1.., c] at columns c+1..n-1 (its diagonal
+// and lower part are never read).  xs (shared, n floats) holds b on entry
+// and x on exit; red is shared scratch of T / 32 floats.
 __device__ __forceinline__ void ldl_solve_rows(const float* Lr, const float* d,
                                                float* xs, float* red, int n,
                                                int tid, int T) {
@@ -114,10 +273,10 @@ __device__ __forceinline__ void ldl_solve_rows(const float* Lr, const float* d,
     for (int i = c + 1 + tid; i < n; i += T) {
       xs[i] = __fsub_rn(xs[i], __fmul_rn(yc, Lr[(size_t)c * n + i]));
     }
-    group_sync<kWarp>();
+    __syncthreads();
   }
   for (int i = tid; i < n; i += T) xs[i] = __fdiv_rn(xs[i], d[i]);
-  group_sync<kWarp>();
+  __syncthreads();
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nw = T >> 5;
@@ -132,16 +291,12 @@ __device__ __forceinline__ void ldl_solve_rows(const float* Lr, const float* d,
     for (int off = 16; off > 0; off >>= 1) {
       acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
     }
+    if (lane == 0) red[warp] = acc;
+    __syncthreads();
     float tot = 0.0f;
-    if (kWarp) {
-      tot = __fadd_rn(tot, acc);
-    } else {
-      if (lane == 0) red[warp] = acc;
-      __syncthreads();
-      for (int w = 0; w < nw; ++w) tot = __fadd_rn(tot, red[w]);
-    }
+    for (int w = 0; w < nw; ++w) tot = __fadd_rn(tot, red[w]);
     if (tid == 0) xs[c] = __fsub_rn(xs[c], tot);
-    group_sync<kWarp>();
+    __syncthreads();
   }
 }
 
@@ -224,22 +379,35 @@ fleet_factor_kernel(const float* __restrict__ A, float* __restrict__ L,
   }
 }
 
-// K5: one warp per instance against K4's factor (the pivot copy on the
-// diagonal is never read).
-__global__ void __launch_bounds__(kSolveWarps * 32)
-fleet_solve_kernel(const float* __restrict__ L, const float* __restrict__ d,
-                   const float* __restrict__ rhs, float* __restrict__ x,
-                   int n, int B) {
-  __shared__ float xs_all[kSolveWarps][kFleetMaxN];
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kSolveWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp: only warp barriers below
-  float* xs = xs_all[threadIdx.x >> 5];
-  const size_t vb = (size_t)b * n;
-  for (int i = lane; i < n; i += 32) xs[i] = rhs[vb + i];
-  __syncwarp();
-  ldl_solve_rows<true>(L + vb * n, d + vb, xs, nullptr, n, lane, 32);
-  for (int i = lane; i < n; i += 32) x[vb + i] = xs[i];
+// K5, and K7 at n <= 32: a CTA of one warp per instance against a factor
+// in either layout; NC = ceil(n / 32) entries of x a lane (1: the
+// registers route, 2-5: the staged route, n * n floats of dynamic shared
+// memory).  The bound is 64 threads, not the 32 launched: under a bound of
+// one warp ptxas schedules the registers route ~1 us slower on an H100
+// (69 registers against 59; a register cap does not recover it), which
+// dense_ldl_ablation.py's "bound of 32 threads" times.
+template <int NC>
+__global__ void __launch_bounds__(64)
+warp_solve_kernel(const float* __restrict__ F, const float* __restrict__ d,
+                  const float* __restrict__ rhs, float* __restrict__ x, int n) {
+  const int lane = threadIdx.x;
+  const size_t vb = (size_t)blockIdx.x * n;
+  float xv[NC], dv[NC];
+  // b and d first: loaded after the factor's columns, they left ptxas one
+  // register short around the division's slow-path call (a 4-byte spill)
+  if constexpr (NC == 1) {
+    RegFactor lf;
+    load_vectors(xv, dv, rhs + vb, d + vb, n, lane);
+    lf.load(F + vb * n, n, lane);
+    warp_solve<NC>(xv, dv, lf, n, lane);
+  } else {
+    extern __shared__ float smem[];
+    const SmemFactor lf{smem, n, lane};
+    lf.stage(F + vb * n);
+    load_vectors(xv, dv, rhs + vb, d + vb, n, lane);
+    warp_solve<NC>(xv, dv, lf, n, lane);
+  }
+  store_x(x + vb, xv, n, lane);
 }
 
 // K6: one CTA per instance; the working matrix in shared memory when
@@ -260,7 +428,7 @@ ldl_factor_kernel(const float* __restrict__ A, float* Lt, float* __restrict__ d,
                   threadIdx.x, blockDim.x);
 }
 
-// K7: one CTA per instance against K6's factor Lt.
+// K7 above n = 32: one CTA per instance against K6's factor Lt.
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ldl_solve_kernel(const float* __restrict__ Lt, const float* __restrict__ d,
                  const float* __restrict__ rhs, float* __restrict__ x, int n) {
@@ -270,12 +438,13 @@ ldl_solve_kernel(const float* __restrict__ Lt, const float* __restrict__ d,
   const size_t vb = (size_t)blockIdx.x * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = rhs[vb + i];
   __syncthreads();
-  ldl_solve_rows<false>(Lt + vb * n, d + vb, xs, red, n, threadIdx.x, blockDim.x);
+  ldl_solve_rows(Lt + vb * n, d + vb, xs, red, n, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[vb + i] = xs[i];
 }
 
 // K8: K6 then K7 in one launch, the substitutions reading the factor where
-// the elimination left it (shared memory when it fits).
+// the elimination left it (shared memory when it fits); at n <= 32 the
+// CTA is one warp and runs the warp solve.
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ldl_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ rhs,
                         float* Lt, float* d, float* __restrict__ x,
@@ -291,12 +460,29 @@ ldl_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ r
   }
   __syncthreads();
   ldl_factor_rows(M, Ltb, d + vb, r, n, clamp, threadIdx.x, blockDim.x);
+  if (n <= 32) {
+    float xv[1], dv[1];
+    RegFactor lf;
+    load_vectors(xv, dv, rhs + vb, d + vb, n, threadIdx.x);
+    lf.load(M, n, threadIdx.x);
+    warp_solve<1>(xv, dv, lf, n, threadIdx.x);
+    store_x(x + vb, xv, n, threadIdx.x);
+    return;
+  }
   float* xs = r;
   for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = rhs[vb + i];
   __syncthreads();
-  ldl_solve_rows<false>(M, d + vb, xs, r + n, n, threadIdx.x, blockDim.x);
+  ldl_solve_rows(M, d + vb, xs, r + n, n, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[vb + i] = xs[i];
 }
+
+// the warp solve's instantiations, by chunks of x a lane (kFleetMaxN = 160)
+using WarpSolveKernel = void (*)(const float*, const float*, const float*, float*, int);
+const WarpSolveKernel kWarpSolve[] = {warp_solve_kernel<1>, warp_solve_kernel<2>,
+                                      warp_solve_kernel<3>, warp_solve_kernel<4>,
+                                      warp_solve_kernel<5>};
+static_assert(sizeof(kWarpSolve) / sizeof(kWarpSolve[0]) * 32 >= kFleetMaxN,
+              "an instantiation for every chunk count up to the fleet's n");
 
 bool valid_threads(int threads) {
   return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
@@ -326,6 +512,9 @@ int tc_dense_ldl_init() {
   if (e == cudaSuccess) {
     e = allow_smem(ldl_factor_solve_kernel, single_smem(kSmemMaxN, true));
   }
+  for (const WarpSolveKernel k : kWarpSolve) {
+    if (e == cudaSuccess) e = allow_smem(k, sizeof(float) * kFleetMaxN * kFleetMaxN);
+  }
   return e;
 }
 
@@ -336,17 +525,20 @@ int tc_dense_ldl_fleet_factor(const float* A, float* L, float* d, int n, int B,
   if (n < 1 || n > kFleetMaxN || B < 1) return cudaErrorInvalidValue;
   const int threads = ((n + 31) / 32) * 32;
   const size_t smem = fleet_smem(n);
-  fleet_factor_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, L, d, n, clamp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fleet_factor_kernel<<<B, threads, smem, st>>>(A, L, d, n, clamp);
   return cudaGetLastError();
 }
 
-int tc_dense_ldl_fleet_solve(const float* L, const float* d, const float* rhs,
-                             float* x, int n, int B, void* stream) {
+// K5, and K7 at n <= 32: a CTA an instance (the binding's solve_plan).
+int tc_dense_ldl_warp_solve(const float* F, const float* d, const float* rhs, float* x,
+                            int n, int B, void* stream) {
   if (n < 1 || n > kFleetMaxN || B < 1) return cudaErrorInvalidValue;
-  const int grid = (B + kSolveWarps - 1) / kSolveWarps;
-  fleet_solve_kernel<<<grid, kSolveWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      L, d, rhs, x, n, B);
+  const int nc = (n + 31) / 32;
+  const size_t smem = nc > 1 ? (size_t)n * n * sizeof(float) : 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const WarpSolveKernel kernel = kWarpSolve[nc - 1];
+  kernel<<<B, 32, smem, st>>>(F, d, rhs, x, n);
   return cudaGetLastError();
 }
 
@@ -357,31 +549,34 @@ int tc_dense_ldl_factor(const float* A, float* Lt, float* d, int n, int B,
   }
   const bool in_smem = n <= kSmemMaxN;
   const size_t smem = single_smem(n, in_smem);
-  ldl_factor_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, Lt, d, n, clamp, in_smem ? 1 : 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ldl_factor_kernel<<<B, threads, smem, st>>>(A, Lt, d, n, clamp, in_smem ? 1 : 0);
   return cudaGetLastError();
 }
 
+// K7 above n = 32.
 int tc_dense_ldl_solve(const float* Lt, const float* d, const float* rhs, float* x,
                        int n, int B, int threads, void* stream) {
   if (n < 1 || B < 1 || !valid_threads(threads)) {
     return cudaErrorInvalidValue;
   }
-  ldl_solve_kernel<<<B, threads, single_smem(n, false),
-                     static_cast<cudaStream_t>(stream)>>>(Lt, d, rhs, x, n);
+  const size_t smem = single_smem(n, false);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ldl_solve_kernel<<<B, threads, smem, st>>>(Lt, d, rhs, x, n);
   return cudaGetLastError();
 }
 
 int tc_dense_ldl_factor_solve(const float* A, const float* rhs, float* Lt, float* d,
                               float* x, int n, int B, int threads, float clamp,
                               void* stream) {
-  if (n < 1 || B < 1 || !valid_threads(threads)) {
+  if (n < 1 || B < 1 || !valid_threads(threads) || (n <= 32 && threads != 32)) {
     return cudaErrorInvalidValue;
   }
   const bool in_smem = n <= kSmemMaxN;
   const size_t smem = single_smem(n, in_smem);
-  ldl_factor_solve_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, rhs, Lt, d, x, n, clamp, in_smem ? 1 : 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ldl_factor_solve_kernel<<<B, threads, smem, st>>>(A, rhs, Lt, d, x, n, clamp,
+                                                    in_smem ? 1 : 0);
   return cudaGetLastError();
 }
 

@@ -8,24 +8,32 @@ Both layouts keep column c of L in row c, so one substitution serves
 both: a forward scatter with row c of the factor, a division by d, and
 a backward gather whose sums follow the kernels' reduction tree
 (:func:`solve_rows_plain`).
+
+K5, and K7 at n <= 32, run one warp solve (a CTA of one warp an
+instance, x in its lanes' registers); :func:`solve_plan` gives its route
+and grid: the
+factor's columns in registers at n <= 32, the instance's rows staged in
+shared memory above.  K7 above n = 32 keeps a CTA an instance, whose
+reduction tree spans :func:`block_threads`.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as Fn
 
 from .._build import build_shared_library, find_tool
-from .fleet_banded import NVCC_FLAGS, _stream
+from .fleet_banded import NVCC_FLAGS, SMEM_MAX, _stream
 
 FLEET_MAX_N = 160    # the JAX fleet kernel's VMEM cap (fleet.py:54-61)
 SINGLE_MAX_N = 896   # the JAX single-instance cap (fleet.py:263)
 MAX_THREADS = 512    # K6-K8 block size cap
 CLAMP = 1e-7         # the pivot clamp of the IPM's dense backends
+REG_MAX_N = 32       # the warp solve's registers route: a lane a column
 
 # Kernel launches, one count per kernel; a launcher adds one where it
 # launches its kernel and nowhere else.
@@ -37,30 +45,38 @@ LIB_PATH: Optional[Path] = None  # the built library, once loaded
 _READY: set = set()  # devices where the kernels' shared-memory opt-in is set
 
 
+# the caps above as the CUDA source's compile-time limits
+DEFINES = [f"-DTC_FLEET_MAX_N={FLEET_MAX_N}", f"-DTC_MAX_THREADS={MAX_THREADS}",
+           f"-DTC_DENSE_SMEM_MAX={SMEM_MAX}"]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the library's C entry points."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tc_dense_ldl_fleet_factor.argtypes = [P, P, P, I, I, Fl, P]
+    lib.tc_dense_ldl_warp_solve.argtypes = [P, P, P, P, I, I, P]
+    lib.tc_dense_ldl_factor.argtypes = [P, P, P, I, I, I, Fl, P]
+    lib.tc_dense_ldl_solve.argtypes = [P, P, P, P, I, I, I, P]
+    lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, I, I, I, Fl, P]
+    lib.tc_dense_ldl_init.argtypes = []
+    for fn in (lib.tc_dense_ldl_fleet_factor, lib.tc_dense_ldl_warp_solve,
+               lib.tc_dense_ldl_factor, lib.tc_dense_ldl_solve,
+               lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_init):
+        fn.restype = ctypes.c_int
+    lib.tc_dense_ldl_error_string.argtypes = [I]
+    lib.tc_dense_ldl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     """Build (at first use) and bind the CUDA library; the caps above are
     its compile-time limits."""
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        flags = [*NVCC_FLAGS, f"-DTC_FLEET_MAX_N={FLEET_MAX_N}",
-                 f"-DTC_MAX_THREADS={MAX_THREADS}"]
-        path = LIB_PATH = build_shared_library("dense_ldl.cu", nvcc, flags)
-        lib = ctypes.CDLL(str(path))
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_dense_ldl_fleet_factor.argtypes = [P, P, P, I, I, Fl, P]
-        lib.tc_dense_ldl_fleet_solve.argtypes = [P, P, P, P, I, I, P]
-        lib.tc_dense_ldl_factor.argtypes = [P, P, P, I, I, I, Fl, P]
-        lib.tc_dense_ldl_solve.argtypes = [P, P, P, P, I, I, I, P]
-        lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, I, I, I, Fl, P]
-        lib.tc_dense_ldl_init.argtypes = []
-        for fn in (lib.tc_dense_ldl_fleet_factor, lib.tc_dense_ldl_fleet_solve,
-                   lib.tc_dense_ldl_factor, lib.tc_dense_ldl_solve,
-                   lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_init):
-            fn.restype = ctypes.c_int
-        lib.tc_dense_ldl_error_string.argtypes = [I]
-        lib.tc_dense_ldl_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        path = LIB_PATH = build_shared_library("dense_ldl.cu", nvcc,
+                                               [*NVCC_FLAGS, *DEFINES])
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib
 
 
@@ -88,6 +104,26 @@ def block_threads(n: int) -> int:
     return min(MAX_THREADS, 32 * -(-n // 32))
 
 
+class SolvePlan(NamedTuple):
+    route: str  # "registers" (n <= 32) or "staged" (rows in shared memory)
+    chunks: int  # entries of x a lane holds: ceil(n / 32)
+    grid: int  # CTAs, of one warp each: one an instance
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def solve_plan(n: int, B: int) -> SolvePlan:
+    """The warp solve's launch for B instances of order n, the C entry's
+    own: the registers route at n <= REG_MAX_N, else the instance's n x n
+    floats of shared memory (102,400 bytes at n = 160, so two instances an
+    SM).  Raises for shapes the kernel does not take."""
+    if not 1 <= n <= FLEET_MAX_N:
+        raise ValueError(f"the warp solve takes 1 <= n <= {FLEET_MAX_N}, got n={n}")
+    if B < 1:
+        raise ValueError(f"the warp solve needs B >= 1, got B={B}")
+    route = "registers" if n <= REG_MAX_N else "staged"
+    return SolvePlan(route, -(-n // 32), B, 0 if route == "registers" else 4 * n * n)
+
+
 # ---------------------------------------------------------------------------
 # launches: contiguous float32 (B, n, n) matrices and (B, n) vectors
 # ---------------------------------------------------------------------------
@@ -104,16 +140,21 @@ def launch_fleet_factor(A, L, d, clamp: float) -> None:
     LAUNCHES["fleet_factor"] += 1
 
 
-def launch_fleet_solve(L, d, b, x) -> None:
-    """K5: x preallocated."""
+def _warp_solve(F, d, b, x, what: str) -> None:
+    """The warp solve against a factor F in either layout."""
     lib = _lib_on(b.device)
     B, n = b.shape
+    solve_plan(n, B)  # raises for a shape the kernel does not take
     with torch.cuda.device(b.device):
-        rc = lib.tc_dense_ldl_fleet_solve(
-            L.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B,
-            _stream(b),
+        rc = lib.tc_dense_ldl_warp_solve(
+            F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B, _stream(b),
         )
-    _check_rc(lib, rc, "dense_ldl fleet_solve")
+    _check_rc(lib, rc, what)
+
+
+def launch_fleet_solve(L, d, b, x) -> None:
+    """K5: x preallocated."""
+    _warp_solve(L, d, b, x, "dense_ldl fleet_solve")
     LAUNCHES["fleet_solve"] += 1
 
 
@@ -131,15 +172,20 @@ def launch_factor(A, Lt, d, clamp: float) -> None:
 
 
 def launch_solve(Lt, d, b, x) -> None:
-    """K7: x preallocated."""
-    lib = _lib_on(b.device)
+    """K7: x preallocated.  At n <= REG_MAX_N the warp solve (the tree of
+    block_threads(n) = 32 threads is one warp's), above it a CTA an
+    instance."""
     B, n = b.shape
-    with torch.cuda.device(b.device):
-        rc = lib.tc_dense_ldl_solve(
-            Lt.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B,
-            block_threads(n), _stream(b),
-        )
-    _check_rc(lib, rc, "dense_ldl solve")
+    if n <= REG_MAX_N:
+        _warp_solve(Lt, d, b, x, "dense_ldl solve")
+    else:
+        lib = _lib_on(b.device)
+        with torch.cuda.device(b.device):
+            rc = lib.tc_dense_ldl_solve(
+                Lt.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(), n, B,
+                block_threads(n), _stream(b),
+            )
+        _check_rc(lib, rc, "dense_ldl solve")
     LAUNCHES["ldl_solve"] += 1
 
 

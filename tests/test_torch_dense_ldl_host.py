@@ -1,0 +1,174 @@
+"""csrc/dense_ldl.cu's warp solve (K5, and K7 at n <= 32) and its
+one-warp kernels (K4, K6 and K8 at n <= 32) run on the CPU, held bitwise
+against their plain versions; and the warp solve's launch plan.
+
+The CUDA source is compiled with the host's g++ against the emulation of
+``tests/test_torch_fleet_banded_host.py`` (a CTA's 32 lanes as threads,
+a shuffle an exchange through 32 slots between two warp barriers,
+``cp.async`` an immediate copy, shared memory NaN at start, the ``_rn``
+intrinsics the host's IEEE operations with no contraction): a CTA of one
+warp, as the warp solve launches on the card.  The data
+hold zero right-hand sides, negative and clamped pivots, an inf and NaN
+below every diagonal, so signed zeros, NaN propagation and the rows'
+unread parts are checked.  Skipped where there is no g++."""
+
+from pathlib import Path
+
+import pytest
+import torch
+
+from tenscalc_tpu_torch.kkt import dense_ldl as tdl
+from tenscalc_tpu_torch.kkt import fleet as tfl
+from tenscalc_tpu_torch.kkt import pallas_ldl as tpl
+from test_torch_fleet_banded_host import build_host_library
+
+torch.set_num_threads(1)
+
+SOURCE = Path(tdl.__file__).resolve().parents[1] / "csrc" / "dense_ldl.cu"
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return tdl.bind(build_host_library(tmp_path_factory.mktemp("dense_ldl_host"),
+                                       SOURCE, tdl.DEFINES))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, signed zeros included, with NaN where the other
+    has NaN (payloads aside)."""
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def _solve_data(B, n, seed, diagonal):
+    """A factor F whose rows past the diagonal are L's columns, NaN below
+    the diagonal (never read), ``diagonal`` ("d": K4's layout, "1": K6's
+    Lt) on it; pivots of either sign, every fifth at the clamp; instance 0
+    with b = 0, instance 1 with an inf in b."""
+    g = torch.Generator().manual_seed(seed)
+    F = torch.randn(B, n, n, generator=g)
+    sign = torch.where(torch.rand(B, n, generator=g) < 0.5, -1.0, 1.0)
+    d = sign * (0.5 + torch.rand(B, n, generator=g))
+    d[:, ::5] = sign[:, ::5] * tdl.CLAMP
+    b = torch.randn(B, n, generator=g)
+    b[0] = 0.0
+    if B > 1:
+        b[1, n // 2] = float("inf")
+    F = torch.where(torch.ones(n, n, dtype=torch.bool).tril(-1), float("nan"), F)
+    F.diagonal(dim1=1, dim2=2).copy_(d if diagonal == "d" else torch.ones_like(d))
+    return F, d, b
+
+
+def _warp_solve(lib, F, d, b):
+    B, n = b.shape
+    x = torch.full_like(b, float("nan"))
+    assert lib.tc_dense_ldl_warp_solve(F.data_ptr(), d.data_ptr(), b.data_ptr(),
+                                       x.data_ptr(), n, B, None) == 0
+    return x
+
+
+# K5 at the sls width, a ragged width, and each staged chunk count's
+# edges; K7's warp route from n = 1 to its top, one instance and five
+K5_CASES = [(5, 13), (4, 32), (3, 80), (2, 160), (2, 33)]
+K7_CASES = [(B, n) for n in (1, 13, 32) for B in (1, 5)]
+
+
+@pytest.mark.parametrize("B,n", K5_CASES)
+def test_k5_on_the_host_equals_its_plain_version(lib, B, n):
+    F, d, b = _solve_data(B, n, seed=B + n, diagonal="d")
+    px = tfl.fleet_ldl_solve_plain(F, d, b)
+    assert (px == 0).logical_and(px.signbit()).any()  # a -0 to keep
+    if n > 1:
+        assert px.isnan().any()  # the inf's NaNs to propagate
+    assert _same_bits(_warp_solve(lib, F, d, b), px)
+
+
+@pytest.mark.parametrize("B,n", K7_CASES)
+def test_k7_warp_route_on_the_host_equals_its_plain_version(lib, B, n):
+    F, d, b = _solve_data(B, n, seed=7 * B + n, diagonal="1")
+    assert tdl.solve_plan(n, B).route == "registers"
+    px = tpl.pallas_ldl_solve_plain(F, d, b)
+    assert _same_bits(_warp_solve(lib, F, d, b), px)
+
+
+@pytest.mark.parametrize("n", [13, 32])
+def test_k7_and_k5_give_the_same_bits_on_one_factor(lib, n):
+    """K4's layout (d on the diagonal) and K6's (1 on it) of one factor:
+    the two routes read neither diagonal, and their plain versions share
+    one reduction tree at n <= 32."""
+    F5, d, b = _solve_data(5, n, seed=n, diagonal="d")
+    F7 = F5.clone()
+    F7.diagonal(dim1=1, dim2=2).fill_(1.0)
+    x5, x7 = _warp_solve(lib, F5, d, b), _warp_solve(lib, F7, d, b)
+    assert _same_bits(x5, x7)
+    assert _same_bits(x5, tfl.fleet_ldl_solve_plain(F5, d, b))
+    assert _same_bits(x7, tpl.pallas_ldl_solve_plain(F7, d, b))
+
+
+def _sym(B, n, seed):
+    """Symmetric-indefinite matrices, a zero first pivot (clamped)."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(B, n, n, generator=g)
+    A = A + A.transpose(1, 2)
+    sign = torch.where(torch.rand(B, n, generator=g) < 0.5, -1.0, 1.0)
+    A.diagonal(dim1=1, dim2=2).copy_(sign * (n + torch.rand(B, n, generator=g)))
+    A[:, 0, :] = 0.0
+    A[:, :, 0] = 0.0
+    return A, torch.randn(B, n, generator=g)
+
+
+@pytest.mark.parametrize("n", [1, 13, 32])
+def test_one_warp_factor_kernels_on_the_host_equal_plain_versions(lib, n):
+    """K4, K6 and K8 (whose solve is the warp solve at n <= 32) on CTAs
+    of one warp."""
+    B, clamp = 3, tdl.CLAMP
+    A, b = _sym(B, n, seed=n)
+    L, d4 = torch.empty_like(A), torch.empty_like(b)
+    assert lib.tc_dense_ldl_fleet_factor(A.data_ptr(), L.data_ptr(), d4.data_ptr(),
+                                         n, B, clamp, None) == 0
+    pL, pd4 = tfl.fleet_ldl_factor_plain(A, clamp)
+    assert _same_bits(L, pL) and _same_bits(d4, pd4)
+    threads = tdl.block_threads(n)
+    Lt, d6 = torch.empty_like(A), torch.empty_like(b)
+    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d6.data_ptr(), n, B,
+                                   threads, clamp, None) == 0
+    Lt8, d8, x8 = torch.empty_like(A), torch.empty_like(b), torch.empty_like(b)
+    assert lib.tc_dense_ldl_factor_solve(A.data_ptr(), b.data_ptr(), Lt8.data_ptr(),
+                                         d8.data_ptr(), x8.data_ptr(), n, B, threads,
+                                         clamp, None) == 0
+    pLt, pd6, px8 = tpl.pallas_ldl_factor_solve_plain(A, b, clamp)
+    assert _same_bits(Lt, pLt) and _same_bits(d6, pd6)
+    assert _same_bits(Lt8, pLt) and _same_bits(d8, pd6) and _same_bits(x8, px8)
+
+
+def test_host_launches_refuse_what_the_kernels_do_not_take(lib):
+    F, d, b = _solve_data(2, 160, seed=0, diagonal="d")
+    x = torch.empty_like(b)
+    args = (F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr())
+    for n, B in [(161, 2), (0, 2), (32, 0), (160, -1)]:
+        assert lib.tc_dense_ldl_warp_solve(*args, n, B, None) != 0
+    # K8 at n <= 32 runs the warp solve: its CTA must be one warp
+    assert lib.tc_dense_ldl_factor_solve(F.data_ptr(), b.data_ptr(), F.data_ptr(),
+                                         d.data_ptr(), x.data_ptr(), 32, 1, 64,
+                                         tdl.CLAMP, None) != 0
+
+
+@pytest.mark.parametrize("n,route,chunks", [
+    (1, "registers", 1), (13, "registers", 1), (32, "registers", 1),
+    (33, "staged", 2), (80, "staged", 3), (128, "staged", 4), (160, "staged", 5),
+])
+@pytest.mark.parametrize("B", [1, 5, 1000, 1024])
+def test_solve_plan_routes_and_covers_the_batch(n, route, chunks, B):
+    plan = tdl.solve_plan(n, B)
+    assert (plan.route, plan.chunks) == (route, chunks)
+    assert plan.grid == B  # a CTA of one warp an instance
+    assert plan.smem == (0 if route == "registers" else 4 * n * n)
+    assert plan.smem <= tdl.SMEM_MAX
+
+
+def test_solve_plan_refuses_shapes_the_kernel_does_not_take():
+    for n, B in [(0, 4), (tdl.FLEET_MAX_N + 1, 4), (32, 0)]:
+        with pytest.raises(ValueError):
+            tdl.solve_plan(n, B)
+    assert tdl.solve_plan(tdl.FLEET_MAX_N, 8).smem == 102_400

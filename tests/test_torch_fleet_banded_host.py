@@ -5,9 +5,10 @@ The CUDA source is compiled with the host's g++ against a small
 emulation of the CUDA pieces it uses: a CTA's 32 lanes run as threads,
 ``__syncwarp`` is a barrier, a ``cp.async`` copies at once, shared memory
 starts as NaN, the ``_rn`` intrinsics are the host's IEEE float
-operations (no contraction), and the hardware's reciprocal estimate is
-the host's correctly rounded 1/d.  This checks the kernels' indexing, staging,
-ring and look-ahead logic and the reciprocal division's rounding on any
+operations (no contraction), the hardware's reciprocal estimate is the
+host's correctly rounded 1/d, and a shuffle is an exchange through 32
+slots between two warp barriers.  This checks the kernels' indexing,
+staging, ring and look-ahead logic and the reciprocal division's rounding on any
 machine; the card's own compiler, timing and registers are checked by
 chip_smoke.py.  Skipped where there is no g++."""
 
@@ -68,20 +69,33 @@ inline float __frcp_rn(float a) { return 1.0f / a; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline std::barrier<> warp_barrier(32);
 inline void __syncwarp() { warp_barrier.arrive_and_wait(); }
+inline void __syncthreads() { __syncwarp(); }  // a CTA is one warp here
+// a shuffle: each lane posts its value in its slot, then reads its source's
+inline float shfl_slot[32];
+inline float __shfl_sync(unsigned, float v, int src) {
+  shfl_slot[threadIdx.x & 31] = v;
+  __syncwarp();
+  const float r = shfl_slot[src & 31];
+  __syncwarp();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned mask, float v, int off) {
+  return __shfl_sync(mask, v, (threadIdx.x & 31) ^ off);
+}
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
-inline float smem[TC_FB_SMEM_MAX / 4];
+inline float smem[HOST_SMEM_BYTES / 4];  // a CTA's shared memory
 // a launch: the CTAs one after another, a CTA's lanes as threads
 template <typename K> struct Launch {
   dim3 grid;
   K kernel;
   template <typename... A> void operator()(A... a) {
     for (unsigned b = 0; b < grid.x; ++b) {
-      std::fill(smem, smem + TC_FB_SMEM_MAX / 4, NAN);
+      std::fill(smem, smem + HOST_SMEM_BYTES / 4, NAN);
       std::vector<std::thread> lanes;
       for (unsigned t = 0; t < 32; ++t)
         lanes.emplace_back([=, this] {
@@ -98,12 +112,13 @@ template <typename K> Launch<K> launch(dim3 grid, K kernel) { return {grid, kern
 """
 
 
-def _host_source(src: str) -> str:
-    """The CUDA source with its launches, cp.async and shared-memory
-    declaration in host form; each rewrite must apply."""
+def host_source(src: str, extra=()) -> str:
+    """A CUDA source with its launches, cp.async and shared-memory
+    declaration in host form, after the source's own ``extra`` rewrites;
+    each rewrite must apply."""
     rewrites = [
-        (r"(\w+(?:<\w+, (?:true|false)>)?)<<<(\w+),[^>]*>>>\(", r"launch(\2, \1)("),
-        (r'asm\("rcp\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(d\)\);', "y = 1.0f / d;"),
+        *extra,
+        (r"(\w+(?:<[\w, ]+>)?)<<<(\w+),[^>]*>>>\(", r"launch(\2, \1)("),
         (r"(void cp_async4\(float\* dst, const float\* src\) \{).*?\n\}",
          r"\1 *dst = *src; }"),
         (r"asm volatile\(.*?\);", ";"),
@@ -115,24 +130,35 @@ def _host_source(src: str) -> str:
     return src
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_host_library(d: Path, source: Path, defines, extra=()) -> ctypes.CDLL:
+    """``source`` compiled with g++ against HOST_CUDA in directory ``d``,
+    with the emulated card's shared memory the binding's opt-in cap (skips
+    the test where there is no g++)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host emulation")
-    d = tmp_path_factory.mktemp("fleet_banded_host")
     (d / "cuda_runtime.h").write_text(HOST_CUDA)
-    (d / "fleet_banded.cpp").write_text(_host_source(SOURCE.read_text()))
-    out = d / "libfleet_banded_host.so"
+    cpp = d / f"{source.stem}.cpp"
+    cpp.write_text(host_source(source.read_text(), extra))
+    out = d / f"lib{source.stem}_host.so"
     subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-pthread", "-Wno-unknown-pragmas", f"-I{d}",
-         f"-DTC_FB_CHUNK_ROWS={tfb.CHUNK_ROWS}", f"-DTC_FB_RING_ROWS={tfb.RING_ROWS}",
-         f"-DTC_FB_MAX_GROUP={tfb.MAX_GROUP}", f"-DTC_FB_SMEM_MAX={tfb.SMEM_MAX}",
-         "-o", str(out), str(d / "fleet_banded.cpp")],
+         f"-DHOST_SMEM_BYTES={tfb.SMEM_MAX}", *defines, "-o", str(out), str(cpp)],
         check=True, capture_output=True, timeout=300,
     )
-    h = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    h = build_host_library(
+        tmp_path_factory.mktemp("fleet_banded_host"), SOURCE,
+        [f"-DTC_FB_CHUNK_ROWS={tfb.CHUNK_ROWS}", f"-DTC_FB_RING_ROWS={tfb.RING_ROWS}",
+         f"-DTC_FB_MAX_GROUP={tfb.MAX_GROUP}", f"-DTC_FB_SMEM_MAX={tfb.SMEM_MAX}"],
+        [(r'asm\("rcp\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(d\)\);',
+          "y = 1.0f / d;")],
+    )
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     h.tc_fleet_banded_factor_solve.argtypes = [I, I, I, I, I, P, P, P, P, I, I, Fl, P]
     h.tc_fleet_banded_solve.argtypes = [I, I, I, I, I, P, P, P, I, I, P]
