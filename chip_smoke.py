@@ -37,9 +37,11 @@ Phases:
  10. kernels of slice 3: K4/K5 (fleet dense LDL^T) at (B, n) = (1024, 32),
      (1000, 13), (1024, 80) and (256, 160), and K6/K7/K8 (single-instance
      LDL^T) at n = 32, 200, 896 with B = 1 and at (64, 32), against their
-     plain versions, timed with CUDA events (K5 and K7, the warp solve
-     below n = 33, also by device time at every shape, with the route
-     taken); K5 and K7 also beside their library call,
+     plain versions (K6 and K8 bitwise, also at extreme magnitudes),
+     timed with CUDA events (K5-K8
+     also by device time at every shape, with the route taken: the warp
+     solve and the warp factor below n = 33); K5 and K7 also beside their
+     library call,
      torch.linalg.ldl_solve with no interchanges, and K4 and K6 at the sls
      shapes beside torch.linalg.lu_factor_ex with no interchanges;
  11. slice 3, the dense KKT path (examples/sls, constrained least squares,
@@ -263,10 +265,10 @@ def dense_bound(kind: str, B: int, n: int):
 
 
 def dense_ptxas_report(log: Path, chunks: int) -> str:
-    """Registers a thread of each kernel of csrc/dense_ldl.cu (K4, K6, K7
-    above n = 32, K8, and the warp solve at ``chunks`` = 1..5 entries of x
-    a lane), from the ptxas report (-Xptxas -v) in the build log ``log``;
-    fails on a spill."""
+    """Registers a thread of each kernel of csrc/dense_ldl.cu (K4; K6, K7
+    and K8 above n = 32; the warp factor of K6 and K8; the warp solve at
+    ``chunks`` = 1..5 entries of x a lane), from the ptxas report
+    (-Xptxas -v) in the build log ``log``; fails on a spill."""
     import re
 
     regs, spills, name = {}, {}, None
@@ -282,7 +284,8 @@ def dense_ptxas_report(log: Path, chunks: int) -> str:
         if m and name:
             regs[name] = int(m.group(1))
     want = {"fleet_factor_kernel", "ldl_factor_kernel", "ldl_solve_kernel",
-            "ldl_factor_solve_kernel"} | {f"warp_solve_kernel<{c}>"
+            "ldl_factor_solve_kernel", "ldl_warp_factor_kernel",
+            "ldl_warp_factor_solve_kernel"} | {f"warp_solve_kernel<{c}>"
                                           for c in range(1, chunks + 1)}
     check(set(regs) == want, f"dense_ldl.cu: ptxas reported {sorted(regs)}")
     check(not any(spills.values()), f"dense_ldl.cu: register spills: {spills}")
@@ -291,20 +294,21 @@ def dense_ptxas_report(log: Path, chunks: int) -> str:
 
 def phase_dense_kernels(dl, fl, pl):
     """K4-K8 against their plain versions at the fleet and single-route
-    shapes; returns per-kernel records (times at the sls shapes)."""
+    shapes (K6 and K8 to the last bit); returns per-kernel records (times
+    at the sls shapes)."""
     recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
     clamp = dl.CLAMP
 
     def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None, route=""):
         """Holds the error, and times the launch ``kern`` (at the main
-        shape, and for the warp solve's K5/K7 at every shape, also its
-        device time alone)."""
+        shape, and for K5-K8 at every shape, also its device time
+        alone)."""
         check(np.isfinite(err) and err <= KERNEL_RTOL * scale,
               f"{k} at B={B} n={n}: max abs err {err}")
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
         bms, by = dense_bound(k, B, n)
         ms = cuda_ms(kern, reps)
-        timed = main or k in ("fleet_solve", "ldl_solve")
+        timed = main or k != "fleet_factor"
         dev_ms = cuda_ms(kern, reps, spin=True) if timed else None
         dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
@@ -319,6 +323,12 @@ def phase_dense_kernels(dl, fl, pl):
         plan = dl.solve_plan(n, B)
         return (f" [warp solve, {plan.route} route, {plan.grid} CTAs of one warp, "
                 f"{plan.smem} B of shared memory a CTA]")
+
+    def factor_route(B, n):
+        plan = dl.factor_plan(n, B)
+        if plan.route == "warp":
+            return f" [warp factor, {plan.grid} CTAs of one warp]"
+        return f" [a CTA an instance, {plan.grid} CTAs of {plan.threads} threads]"
 
     def library_factor(A, F, d, what):
         """torch.linalg.lu_factor_ex with no interchanges: on a symmetric A
@@ -387,6 +397,10 @@ def phase_dense_kernels(dl, fl, pl):
         pLt, pd = pl.pallas_ldl_factor_plain(A, clamp)
         px = pl.pallas_ldl_solve_plain(pLt, pd, b)
         torch.cuda.synchronize()
+        for name, got, want in (("K6 Lt", Lt, pLt), ("K6 d", d, pd), ("K8 Lt", Lt8, pLt),
+                                ("K8 d", d8, pd), ("K8 x", x8, px)):
+            check(torch.equal(got, want), f"{name} at B={B} n={n}: not bitwise "
+                  "equal to the plain version")
         e6 = max((Lt - pLt).abs().max().item(), (d - pd).abs().max().item())
         e7 = (x - pl.pallas_ldl_solve_plain(Lt, d, b)).abs().max().item()
         e8 = max((Lt8 - pLt).abs().max().item(), (d8 - pd).abs().max().item(),
@@ -403,14 +417,42 @@ def phase_dense_kernels(dl, fl, pl):
         main = (B, n) == (1, SLS_N)
         l6 = library_factor(A, Lt, d, "K6") if main else None
         record("ldl_factor", B, n, e6, scale,
-               lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main, l6)
+               lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main, l6,
+               factor_route(B, n))
         route = (warp_route(B, n) if n <= dl.REG_MAX_N
                  else f" [a CTA an instance, {dl.block_threads(n)} threads]")
         record("ldl_solve", B, n, e7, scale,
                lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7, route)
         record("ldl_factor_solve", B, n, e8, scale,
-               lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main)
+               lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main,
+               route=factor_route(B, n))
+    # K6 and K8 at extreme magnitudes (instances scaled beyond 2^+-60,
+    # pivots clamped, a quotient that overflows), to the same bits (NaN
+    # where the plain version has NaN)
+    A, b = test_sym(64, SLS_N, seed=7)
+    A[1::4] *= 1e21
+    A[2::4] *= 1e-25
+    A[3::4, 1, 2] = 1e38
+    Lt, d = pl.pallas_ldl_factor(A, clamp)
+    Lt8, d8, x8 = pl.pallas_ldl_factor_solve(A, b, clamp)
+    pLt, pd, px = pl.pallas_ldl_factor_solve_plain(A, b, clamp)
+    for name, got, want in (("K6 Lt", Lt, pLt), ("K6 d", d, pd), ("K8 Lt", Lt8, pLt),
+                            ("K8 d", d8, pd), ("K8 x", x8, px)):
+        check(same_bits(got, want), f"{name} at extreme magnitudes: not bitwise equal "
+              "to the plain version")
+    check(bool(px.isnan().any()) and bool(pd[2::4].abs().eq(clamp).all()),
+          "the extreme data overflow and clamp")
+    log(f"[dense-kernels] K6/K8 B=64 n={SLS_N} at magnitudes beyond 2^+-60: bitwise "
+        "equal to the plain versions")
     return recs
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, signed zeros included, with NaN where the other
+    has NaN (payloads aside)."""
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
 
 
 def ptxas_report(mod, w: int, routes=("",)) -> str:

@@ -68,17 +68,29 @@
 //       instead of five shuffles.  At n = 32 the sweeps take ~2.3 us of
 //       ~8.8 (H100, PERF.md); the rest is the launch and the loads and
 //       stores of b, d and x.
-//   K6/K7/K8: one CTA per instance (a grid of one on the single-instance
-//       route), T = min(512, 32 ceil(n / 32)) threads, thread t owning
-//       columns t, t + T, ...  The working matrix lives in shared memory
-//       while it fits (n <= 240, 227 KB), else in place in the output Lt
-//       in global memory, where it stays L2-resident (3.2 MB at n = 896).
-//       K8 keeps the factor where K6 left it for the substitutions (the
-//       warp solve's at n <= 32, where T is one warp).  At n = 32 the
-//       factor is pure latency (PERF.md: ~1.5 us a step of two barriers
-//       and a dependent shared-memory chain); at n = 896 one SM does
-//       ~0.5 GFLOP in 896 dependent steps, each thread streaming its
-//       columns' trailing rows through L2 in groups of eight loads.
+//   K6 and K8 at n <= 32 (the warp factor): a CTA of one warp an
+//       instance, lane k holding column k of the upper triangle, M[i, k]
+//       for i <= k, in registers, filled by n coalesced row loads before
+//       the first step (the lower triangle is not read).  The factor is n
+//       dependent steps, so it is bound by latency: no block barrier and no
+//       shared memory; the pivot and each r_i reach the lanes by shuffles,
+//       and the chain of a step runs through the next pivot's own lane (its
+//       r without a shuffle: the pivot's shuffle, the clamp, the division,
+//       two products and a subtraction).  The steps are fully unrolled and
+//       every lane runs every update (a predicate a row cost more than the
+//       rows below the diagonal).  Step c leaves
+//       L[k, c] in the register of row c, so the columns end as the warp
+//       solve's RegFactor and K8 hands them to it without a reload; Lt and
+//       d are written by n coalesced row stores.
+//       dense_ldl_ablation.py times each of these choices undone.
+//   K6/K7/K8 above n = 32: one CTA per instance, T = min(512,
+//       32 ceil(n / 32)) threads, thread t owning columns t, t + T, ...
+//       The working matrix lives in shared memory while it fits (n <= 240,
+//       227 KB), else in place in the output Lt in global memory, where it
+//       stays L2-resident (3.2 MB at n = 896).  K8 keeps the factor where
+//       K6 left it for the substitutions.  At n = 896 one SM does ~0.5
+//       GFLOP in 896 dependent steps, each thread streaming its columns'
+//       trailing rows through L2 in groups of eight loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -261,6 +273,78 @@ __device__ __forceinline__ void store_x(float* out, const float (&x)[NC], int n,
   }
 }
 
+// The rank-1 update of a factor step, in its TPU kernel's rounding order.
+enum class Rank1 {
+  kPivotTimesProduct,  // K6: M[i, k] - d_c (r_i r_k)   (pallas_ldl.py:79-82)
+  kScaledRowTimesR,    // K4: M[i, k] - (d_c r_i) r_k   (fleet.py:104)
+};
+
+template <Rank1 U>
+__device__ __forceinline__ float rank1(float m, float dc, float ri, float rk) {
+  if constexpr (U == Rank1::kPivotTimesProduct) {
+    return __fsub_rn(m, __fmul_rn(dc, __fmul_rn(ri, rk)));
+  } else {
+    return __fsub_rn(m, __fmul_rn(__fmul_rn(dc, ri), rk));
+  }
+}
+
+// Lane k's column of the upper triangle, A[i, k] for i <= k < n (0 elsewhere).
+__device__ __forceinline__ void load_upper(float (&m)[32], const float* __restrict__ A,
+                                           int n, int lane) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) m[i] = (i <= lane && lane < n) ? A[i * n + lane] : 0.0f;
+}
+
+// The unpivoted LDL^T of one instance (n <= 32) by one warp, in registers:
+// lane k loads column k of the upper triangle and runs the n steps.  Step
+// c takes d_c from lane c, clamps it, forms r_k = M[c, k] / d_c, keeps it
+// in m[c] and updates m[i] for i > c with r_i from lane i.  Every lane runs
+// every update (a warp issues them for all its lanes in any case): rows
+// below a lane's diagonal and lanes past n hold values nothing reads.  On
+// return lane k holds L[k, c] in m[c] for c < k (the rest is not defined)
+// and its pivot in dk (1 past n).
+template <Rank1 U>
+__device__ __forceinline__ void warp_factor(float (&m)[32], float& dk,
+                                            const float* __restrict__ A, int n,
+                                            int lane, float clamp) {
+  load_upper(m, A, n, lane);
+  dk = 1.0f;
+  float piv = __shfl_sync(kFull, m[0], 0);  // M[c, c], from lane c
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    if (c >= n) break;
+    const float dc = clamp_pivot(piv, clamp);
+    const float rk = __fdiv_rn(m[c], dc);
+    m[c] = rk;
+    if (lane == c) dk = dc;
+    if (c + 1 < 32) {
+      // the next pivot from lane c+1's own r, so no shuffle of r is on
+      // the chain from one step to the next
+      piv = __shfl_sync(kFull, rank1<U>(m[c + 1], dc, rk, rk), c + 1);
+    }
+#pragma unroll
+    for (int i = c + 1; i < 32; ++i) {
+      m[i] = rank1<U>(m[i], dc, __shfl_sync(kFull, rk, i), rk);
+    }
+  }
+}
+
+// Row c of the stored factor at lane k < n: 0 before the diagonal, then the
+// pivot (K4's layout) or 1 (K6's Lt), then L[k, c]; and d.
+template <bool kPivotOnDiagonal>
+__device__ __forceinline__ void store_warp_factor(float* __restrict__ F,
+                                                  float* __restrict__ d,
+                                                  const float (&m)[32], float dk,
+                                                  int n, int lane) {
+  if (lane >= n) return;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    if (c >= n) break;
+    F[c * n + lane] = c < lane ? m[c] : (c == lane ? (kPivotOnDiagonal ? dk : 1.0f) : 0.0f);
+  }
+  d[lane] = dk;
+}
+
 // Solve (L diag(d) L^T) x = b for one instance by a group of T threads (the
 // CTA).  Row c of Lr holds L[c+1.., c] at columns c+1..n-1 (its diagonal
 // and lower part are never read).  xs (shared, n floats) holds b on entry
@@ -410,8 +494,8 @@ warp_solve_kernel(const float* __restrict__ F, const float* __restrict__ d,
   store_x(x + vb, xv, n, lane);
 }
 
-// K6: one CTA per instance; the working matrix in shared memory when
-// in_smem, else in place in Lt.
+// K6 above n = 32: one CTA per instance; the working matrix in shared
+// memory when in_smem, else in place in Lt.
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ldl_factor_kernel(const float* __restrict__ A, float* Lt, float* __restrict__ d,
                   int n, float clamp, int in_smem) {
@@ -442,9 +526,39 @@ ldl_solve_kernel(const float* __restrict__ Lt, const float* __restrict__ d,
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[vb + i] = xs[i];
 }
 
-// K8: K6 then K7 in one launch, the substitutions reading the factor where
-// the elimination left it (shared memory when it fits); at n <= 32 the
-// CTA is one warp and runs the warp solve.
+// K6 at n <= 32: the warp factor, a CTA of one warp an instance (the
+// launch bound of 64 threads as the warp solve's).
+__global__ void __launch_bounds__(64)
+ldl_warp_factor_kernel(const float* __restrict__ A, float* __restrict__ Lt,
+                       float* __restrict__ d, int n, float clamp) {
+  const int lane = threadIdx.x;
+  const size_t nn = (size_t)n * n;
+  float m[32], dk;
+  warp_factor<Rank1::kPivotTimesProduct>(m, dk, A + blockIdx.x * nn, n, lane, clamp);
+  store_warp_factor<false>(Lt + blockIdx.x * nn, d + (size_t)blockIdx.x * n, m, dk, n,
+                           lane);
+}
+
+// K8 at n <= 32: the warp factor hands its columns to the warp solve in
+// registers (lane k's L[k, c] is RegFactor::l[c]); b is loaded first.
+__global__ void __launch_bounds__(64)
+ldl_warp_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ rhs,
+                             float* __restrict__ Lt, float* __restrict__ d,
+                             float* __restrict__ x, int n, float clamp) {
+  const int lane = threadIdx.x;
+  const size_t nn = (size_t)n * n;
+  const size_t vb = (size_t)blockIdx.x * n;
+  float xv[1], dv[1];
+  xv[0] = lane < n ? rhs[vb + lane] : 0.0f;
+  RegFactor lf;
+  warp_factor<Rank1::kPivotTimesProduct>(lf.l, dv[0], A + blockIdx.x * nn, n, lane, clamp);
+  store_warp_factor<false>(Lt + blockIdx.x * nn, d + vb, lf.l, dv[0], n, lane);
+  warp_solve<1>(xv, dv, lf, n, lane);
+  store_x(x + vb, xv, n, lane);
+}
+
+// K8 above n = 32: K6 then K7 in one launch, the substitutions reading the
+// factor where the elimination left it (shared memory when it fits).
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ldl_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ rhs,
                         float* Lt, float* d, float* __restrict__ x,
@@ -460,15 +574,6 @@ ldl_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ r
   }
   __syncthreads();
   ldl_factor_rows(M, Ltb, d + vb, r, n, clamp, threadIdx.x, blockDim.x);
-  if (n <= 32) {
-    float xv[1], dv[1];
-    RegFactor lf;
-    load_vectors(xv, dv, rhs + vb, d + vb, n, threadIdx.x);
-    lf.load(M, n, threadIdx.x);
-    warp_solve<1>(xv, dv, lf, n, threadIdx.x);
-    store_x(x + vb, xv, n, threadIdx.x);
-    return;
-  }
   float* xs = r;
   for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = rhs[vb + i];
   __syncthreads();
@@ -542,14 +647,20 @@ int tc_dense_ldl_warp_solve(const float* F, const float* d, const float* rhs, fl
   return cudaGetLastError();
 }
 
+// K6 and K8: the warp factor at n <= 32, a CTA of `threads` an instance
+// above (the binding's factor_plan).
 int tc_dense_ldl_factor(const float* A, float* Lt, float* d, int n, int B,
                         int threads, float clamp, void* stream) {
-  if (n < 1 || B < 1 || !valid_threads(threads)) {
+  if (n < 1 || B < 1 || !valid_threads(threads) || (n <= 32 && threads != 32)) {
     return cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32) {
+    ldl_warp_factor_kernel<<<B, 32, 0, st>>>(A, Lt, d, n, clamp);
+    return cudaGetLastError();
   }
   const bool in_smem = n <= kSmemMaxN;
   const size_t smem = single_smem(n, in_smem);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   ldl_factor_kernel<<<B, threads, smem, st>>>(A, Lt, d, n, clamp, in_smem ? 1 : 0);
   return cudaGetLastError();
 }
@@ -572,9 +683,13 @@ int tc_dense_ldl_factor_solve(const float* A, const float* rhs, float* Lt, float
   if (n < 1 || B < 1 || !valid_threads(threads) || (n <= 32 && threads != 32)) {
     return cudaErrorInvalidValue;
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32) {
+    ldl_warp_factor_solve_kernel<<<B, 32, 0, st>>>(A, rhs, Lt, d, x, n, clamp);
+    return cudaGetLastError();
+  }
   const bool in_smem = n <= kSmemMaxN;
   const size_t smem = single_smem(n, in_smem);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   ldl_factor_solve_kernel<<<B, threads, smem, st>>>(A, rhs, Lt, d, x, n, clamp,
                                                     in_smem ? 1 : 0);
   return cudaGetLastError();

@@ -15,6 +15,11 @@ and grid: the
 factor's columns in registers at n <= 32, the instance's rows staged in
 shared memory above.  K7 above n = 32 keeps a CTA an instance, whose
 reduction tree spans :func:`block_threads`.
+
+K6 and K8 at n <= 32 run the warp factor (a CTA of one warp an instance,
+the matrix's upper triangle in its lanes' registers; K8 hands the factor
+to the warp solve in registers); above 32 a CTA an instance of
+:func:`block_threads`.  :func:`factor_plan` gives the route and grid.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ FLEET_MAX_N = 160    # the JAX fleet kernel's VMEM cap (fleet.py:54-61)
 SINGLE_MAX_N = 896   # the JAX single-instance cap (fleet.py:263)
 MAX_THREADS = 512    # K6-K8 block size cap
 CLAMP = 1e-7         # the pivot clamp of the IPM's dense backends
-REG_MAX_N = 32       # the warp solve's registers route: a lane a column
+REG_MAX_N = 32       # the warp solve's registers route and the warp factor:
+                     # a lane a column
 
 # Kernel launches, one count per kernel; a launcher adds one where it
 # launches its kernel and nowhere else.
@@ -124,6 +130,24 @@ def solve_plan(n: int, B: int) -> SolvePlan:
     return SolvePlan(route, -(-n // 32), B, 0 if route == "registers" else 4 * n * n)
 
 
+class FactorPlan(NamedTuple):
+    route: str  # "warp" (n <= 32: the warp factor) or "cta"
+    grid: int  # CTAs: one an instance
+    threads: int  # threads of a CTA: one warp, or block_threads(n)
+
+
+def factor_plan(n: int, B: int) -> FactorPlan:
+    """K6's and K8's launch for B instances of order n, the C entries'
+    own: the warp factor at n <= REG_MAX_N, else a CTA of
+    :func:`block_threads` an instance.  Raises for shapes the kernels do
+    not take."""
+    if not 1 <= n <= SINGLE_MAX_N:
+        raise ValueError(f"K6/K8 take 1 <= n <= {SINGLE_MAX_N}, got n={n}")
+    if B < 1:
+        raise ValueError(f"K6/K8 need B >= 1, got B={B}")
+    return FactorPlan("warp" if n <= REG_MAX_N else "cta", B, block_threads(n))
+
+
 # ---------------------------------------------------------------------------
 # launches: contiguous float32 (B, n, n) matrices and (B, n) vectors
 # ---------------------------------------------------------------------------
@@ -162,9 +186,10 @@ def launch_factor(A, Lt, d, clamp: float) -> None:
     """K6: Lt, d preallocated."""
     lib = _lib_on(A.device)
     B, n = A.shape[0], A.shape[-1]
+    plan = factor_plan(n, B)
     with torch.cuda.device(A.device):
         rc = lib.tc_dense_ldl_factor(
-            A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B, block_threads(n),
+            A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B, plan.threads,
             clamp, _stream(A),
         )
     _check_rc(lib, rc, "dense_ldl factor")
@@ -193,10 +218,11 @@ def launch_factor_solve(A, b, Lt, d, x, clamp: float) -> None:
     """K8: Lt, d, x preallocated."""
     lib = _lib_on(A.device)
     B, n = b.shape
+    plan = factor_plan(n, B)
     with torch.cuda.device(A.device):
         rc = lib.tc_dense_ldl_factor_solve(
             A.data_ptr(), b.data_ptr(), Lt.data_ptr(), d.data_ptr(),
-            x.data_ptr(), n, B, block_threads(n), clamp, _stream(A),
+            x.data_ptr(), n, B, plan.threads, clamp, _stream(A),
         )
     _check_rc(lib, rc, "dense_ldl factor_solve")
     LAUNCHES["ldl_factor_solve"] += 1

@@ -4,8 +4,9 @@
 column c of the unit-lower L, 1 on the diagonal); pivots are clamped
 (Cheng-Higham) ``d <- sign(d) * max(|d|, clamp)`` with sign(0) = +, and
 there is no pivoting.  Every entry point takes one matrix (n, n) or a
-batch (B, n, n), one instance per CTA (K7 at n <= 32: a warp, the warp
-solve of K5), as the JAX kernels batch under ``vmap``.
+batch (B, n, n), one instance per CTA, as the JAX kernels batch under
+``vmap``; at n <= 32 the CTA is one warp (K6 and K8 the warp factor, K8
+and K7 the warp solve of K5; ``dense_ldl.factor_plan``).
 
 A CPU tensor goes to the plain PyTorch version (``*_plain``); a CUDA
 tensor goes to the hand-written kernels of ``csrc/dense_ldl.cu`` (K6

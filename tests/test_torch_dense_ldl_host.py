@@ -1,17 +1,21 @@
-"""csrc/dense_ldl.cu's warp solve (K5, and K7 at n <= 32) and its
-one-warp kernels (K4, K6 and K8 at n <= 32) run on the CPU, held bitwise
-against their plain versions; and the warp solve's launch plan.
+"""csrc/dense_ldl.cu's warp solve (K5, and K7 at n <= 32), its warp
+factor (K6 and K8 at n <= 32, and the warp factor in K4's rounding order
+and layout) and K4 on a CTA of one warp run on the CPU, held bitwise
+against their plain versions; and the launch plans of the warp solve and
+of K6/K8.
 
 The CUDA source is compiled with the host's g++ against the emulation of
 ``tests/test_torch_fleet_banded_host.py`` (a CTA's 32 lanes as threads,
-a shuffle an exchange through 32 slots between two warp barriers,
+a shuffle an exchange through 32 slots at one warp barrier,
 ``cp.async`` an immediate copy, shared memory NaN at start, the ``_rn``
 intrinsics the host's IEEE operations with no contraction): a CTA of one
-warp, as the warp solve launches on the card.  The data
-hold zero right-hand sides, negative and clamped pivots, an inf and NaN
-below every diagonal, so signed zeros, NaN propagation and the rows'
-unread parts are checked.  Skipped where there is no g++."""
+warp, as the warp solve and the warp factor launch on the card.  The
+data hold zero right-hand sides, negative and clamped pivots, an inf in
+a right-hand side and NaN below the diagonal of every factor and matrix,
+so signed zeros, NaN propagation and the unread parts are checked.
+Skipped where there is no g++."""
 
+import ctypes
 from pathlib import Path
 
 import pytest
@@ -27,10 +31,35 @@ torch.set_num_threads(1)
 SOURCE = Path(tdl.__file__).resolve().parents[1] / "csrc" / "dense_ldl.cu"
 
 
+# the warp factor in K4's rounding order and layout (the pivot on the
+# diagonal), as a host-only entry point appended to the source
+K4_ORDER_ENTRY = r"""
+namespace {
+__global__ void host_k4_warp_factor_kernel(const float* A, float* L, float* d, int n,
+                                           float clamp) {
+  const size_t nn = (size_t)n * n;
+  float m[32], dk;
+  warp_factor<Rank1::kScaledRowTimesR>(m, dk, A + blockIdx.x * nn, n, threadIdx.x, clamp);
+  store_warp_factor<true>(L + blockIdx.x * nn, d + (size_t)blockIdx.x * n, m, dk, n,
+                          threadIdx.x);
+}
+}  // namespace
+extern "C" int tc_host_k4_warp_factor(const float* A, float* L, float* d, int n, int B,
+                                      float clamp) {
+  host_k4_warp_factor_kernel<<<B, 32, 0, nullptr>>>(A, L, d, n, clamp);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    return tdl.bind(build_host_library(tmp_path_factory.mktemp("dense_ldl_host"),
-                                       SOURCE, tdl.DEFINES))
+    h = tdl.bind(build_host_library(
+        tmp_path_factory.mktemp("dense_ldl_host"), SOURCE, tdl.DEFINES,
+        [(r"\Z", K4_ORDER_ENTRY)]))
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    h.tc_host_k4_warp_factor.argtypes = [P, P, P, I, I, Fl]
+    return h
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -148,7 +177,9 @@ def test_host_launches_refuse_what_the_kernels_do_not_take(lib):
     args = (F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr())
     for n, B in [(161, 2), (0, 2), (32, 0), (160, -1)]:
         assert lib.tc_dense_ldl_warp_solve(*args, n, B, None) != 0
-    # K8 at n <= 32 runs the warp solve: its CTA must be one warp
+    # K6 and K8 at n <= 32 run the warp factor: their CTA must be one warp
+    assert lib.tc_dense_ldl_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), 32, 1, 64,
+                                   tdl.CLAMP, None) != 0
     assert lib.tc_dense_ldl_factor_solve(F.data_ptr(), b.data_ptr(), F.data_ptr(),
                                          d.data_ptr(), x.data_ptr(), 32, 1, 64,
                                          tdl.CLAMP, None) != 0
@@ -172,3 +203,71 @@ def test_solve_plan_refuses_shapes_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             tdl.solve_plan(n, B)
     assert tdl.solve_plan(tdl.FLEET_MAX_N, 8).smem == 102_400
+
+
+def _factor_data(B, n, seed):
+    """``_sym``'s matrices (a zero first pivot, clamped; pivots of either
+    sign) with NaN in the strict lower triangle, which no kernel may
+    read; with B > 1 an inf in instance 1's b, instance 1 scaled by 1e21
+    and instance 2 by 1e-25 (every pivot clamped) with an entry of 1e38
+    whose quotient overflows."""
+    A, b = _sym(B, n, seed)
+    A = torch.where(torch.ones(n, n, dtype=torch.bool).tril(-1), float("nan"), A)
+    if B > 1:
+        b[1, n // 2] = float("inf")
+        A[1] *= 1e21
+        A[2:] *= 1e-25
+        if n > 2:
+            A[2:, 1, 2] = 1e38
+    return A, b
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", range(1, tdl.REG_MAX_N + 1))
+def test_k6_and_k8_warp_factor_on_the_host_equal_plain_versions(lib, n, B):
+    """K6 and K8 on the warp-factor route (the C entries' own launch at
+    n <= 32), bit for bit: the factor, the pivots and K8's x."""
+    A, b = _factor_data(B, n, seed=100 + 2 * n + B)
+    plan = tdl.factor_plan(n, B)
+    assert plan.route == "warp"
+    pLt, pd, px = tpl.pallas_ldl_factor_solve_plain(A, b, tdl.CLAMP)
+    # the NaNs below the diagonal stay unread (instance 2 overflows)
+    assert not pLt[:2].isnan().any() and not pd[:2].isnan().any()
+    Lt, d = torch.full_like(A, float("nan")), torch.full_like(b, float("nan"))
+    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B,
+                                   plan.threads, tdl.CLAMP, None) == 0
+    assert _same_bits(Lt, pLt) and _same_bits(d, pd)
+    Lt8, d8, x8 = (torch.full_like(t, float("nan")) for t in (A, b, b))
+    assert lib.tc_dense_ldl_factor_solve(A.data_ptr(), b.data_ptr(), Lt8.data_ptr(),
+                                         d8.data_ptr(), x8.data_ptr(), n, B,
+                                         plan.threads, tdl.CLAMP, None) == 0
+    assert _same_bits(Lt8, pLt) and _same_bits(d8, pd) and _same_bits(x8, px)
+
+
+@pytest.mark.parametrize("n", [1, 13, 32])
+def test_warp_factor_in_k4_order_on_the_host_equals_k4_plain(lib, n):
+    """The warp factor's template in K4's rounding, (d_c r_i) r_k, and
+    layout (the pivot on the diagonal) against K4's plain version."""
+    B = 3
+    A, _ = _factor_data(B, n, seed=n)
+    L, d = torch.full_like(A, float("nan")), A.new_full((B, n), float("nan"))
+    assert lib.tc_host_k4_warp_factor(A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B,
+                                      tdl.CLAMP) == 0
+    pL, pd = tfl.fleet_ldl_factor_plain(A, tdl.CLAMP)
+    assert _same_bits(L, pL) and _same_bits(d, pd)
+
+
+@pytest.mark.parametrize("n,route", [(1, "warp"), (13, "warp"), (32, "warp"),
+                                     (33, "cta"), (896, "cta")])
+@pytest.mark.parametrize("B", [1, 64])
+def test_factor_plan_routes_and_covers_the_batch(n, route, B):
+    plan = tdl.factor_plan(n, B)
+    assert plan.route == route
+    assert plan.grid == B  # a CTA an instance
+    assert plan.threads == (32 if route == "warp" else tdl.block_threads(n))
+
+
+def test_factor_plan_refuses_shapes_the_kernels_do_not_take():
+    for n, B in [(0, 1), (tdl.SINGLE_MAX_N + 1, 1), (32, 0)]:
+        with pytest.raises(ValueError):
+            tdl.factor_plan(n, B)

@@ -6,8 +6,8 @@ emulation of the CUDA pieces it uses: a CTA's 32 lanes run as threads,
 ``__syncwarp`` is a barrier, a ``cp.async`` copies at once, shared memory
 starts as NaN, the ``_rn`` intrinsics are the host's IEEE float
 operations (no contraction), the hardware's reciprocal estimate is the
-host's correctly rounded 1/d, and a shuffle is an exchange through 32
-slots between two warp barriers.  This checks the kernels' indexing,
+host's correctly rounded 1/d, and a shuffle is an exchange through one
+of two banks of 32 slots at one warp barrier.  This checks the kernels' indexing,
 staging, ring and look-ahead logic and the reciprocal division's rounding on any
 machine; the card's own compiler, timing and registers are checked by
 chip_smoke.py.  Skipped where there is no g++."""
@@ -70,14 +70,17 @@ inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline std::barrier<> warp_barrier(32);
 inline void __syncwarp() { warp_barrier.arrive_and_wait(); }
 inline void __syncthreads() { __syncwarp(); }  // a CTA is one warp here
-// a shuffle: each lane posts its value in its slot, then reads its source's
-inline float shfl_slot[32];
+// a shuffle: each lane posts its value in its slot, then reads its
+// source's; the lanes alternate between two banks of slots, so one warp
+// barrier a shuffle suffices (a lane writes a bank again only after the
+// next shuffle's barrier, which every lane reaches after its read)
+inline float shfl_slot[2][32];
+inline thread_local unsigned shfl_bank;
 inline float __shfl_sync(unsigned, float v, int src) {
-  shfl_slot[threadIdx.x & 31] = v;
+  float* slot = shfl_slot[shfl_bank ^= 1];
+  slot[threadIdx.x & 31] = v;
   __syncwarp();
-  const float r = shfl_slot[src & 31];
-  __syncwarp();
-  return r;
+  return slot[src & 31];
 }
 inline float __shfl_xor_sync(unsigned mask, float v, int off) {
   return __shfl_sync(mask, v, (threadIdx.x & 31) ^ off);
