@@ -9,7 +9,8 @@ Phases:
      plan, at the flagship shape (B=1024, n=149, w=4; warm, with L2 cold,
      and through the entry point; K2 beside its library call,
      torch.linalg.ldl_solve with no interchanges on K1's factor expanded
-     to dense), ragged fleets (B=1000: n=69, w=9; B=1001: n=37, w=1; both
+     to dense, and K3 beside torch.linalg.lu_factor_ex with no
+     interchanges on the band expanded to dense), ragged fleets (B=1000: n=69, w=9; B=1001: n=37, w=1; both
      with instances of magnitudes far outside the usual), w=16, and bands
      above the shared-memory cap (B=64: n=12000, w=4; n=3520, w=16: the
      ring route), timed with CUDA events; at the flagship shape and
@@ -24,7 +25,8 @@ Phases:
   6. kernels of slice 2: K9 (LU factor+solve), K10 (LU solve) and K11 (LU
      factor) against their plain versions, at the MPC-MHE fleet's shapes
      (B=1024, n=290, w=10; warm, with L2 cold, and through the entry
-     point; K10 beside torch.linalg.lu_solve with no interchanges), ragged
+     point; K10 beside torch.linalg.lu_solve and K11 beside
+     torch.linalg.lu_factor_ex, both with no interchanges), ragged
      ones (B=1000: n=146, w=10; n=69, w=3 and w=1), w=12, and bands
      above the shared-memory cap (B=64: n=3000, w=12; n=16000, w=1: the
      ring route);
@@ -37,10 +39,10 @@ Phases:
  10. kernels of slice 3: K4/K5 (fleet dense LDL^T) at (B, n) = (1024, 32),
      (1000, 13), (1024, 80) and (256, 160), and K6/K7/K8 (single-instance
      LDL^T) at n = 32, 200, 896 with B = 1 and at (64, 32), against their
-     plain versions (K6 and K8 bitwise, also at extreme magnitudes),
-     timed with CUDA events (K5-K8
-     also by device time at every shape, with the route taken: the warp
-     solve and the warp factor below n = 33); K5 and K7 also beside their
+     plain versions (K4, K6 and K8 bitwise, also at extreme magnitudes),
+     timed with CUDA events (also by device time at every shape, with the
+     route taken: K4's registers or blocked route, the warp solve and the
+     warp factor below n = 33); K5 and K7 also beside their
      library call,
      torch.linalg.ldl_solve with no interchanges, and K4 and K6 at the sls
      shapes beside torch.linalg.lu_factor_ex with no interchanges;
@@ -265,9 +267,10 @@ def dense_bound(kind: str, B: int, n: int):
 
 
 def dense_ptxas_report(log: Path, chunks: int) -> str:
-    """Registers a thread of each kernel of csrc/dense_ldl.cu (K4; K6, K7
-    and K8 above n = 32; the warp factor of K6 and K8; the warp solve at
-    ``chunks`` = 1..5 entries of x a lane), from the ptxas report
+    """Registers a thread of each kernel of csrc/dense_ldl.cu (K4 at
+    ``chunks`` = 1..5 panels; K6, K7 and K8 above n = 32; the warp factor
+    of K6 and K8; the warp solve at ``chunks`` = 1..5 entries of x a lane),
+    from the ptxas report
     (-Xptxas -v) in the build log ``log``; fails on a spill."""
     import re
 
@@ -283,10 +286,10 @@ def dense_ptxas_report(log: Path, chunks: int) -> str:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    want = {"fleet_factor_kernel", "ldl_factor_kernel", "ldl_solve_kernel",
-            "ldl_factor_solve_kernel", "ldl_warp_factor_kernel",
-            "ldl_warp_factor_solve_kernel"} | {f"warp_solve_kernel<{c}>"
-                                          for c in range(1, chunks + 1)}
+    want = {"ldl_factor_kernel", "ldl_solve_kernel", "ldl_factor_solve_kernel",
+            "ldl_warp_factor_kernel", "ldl_warp_factor_solve_kernel"}
+    for c in range(1, chunks + 1):
+        want |= {f"warp_solve_kernel<{c}>", f"fleet_factor_kernel<{c}>"}
     check(set(regs) == want, f"dense_ldl.cu: ptxas reported {sorted(regs)}")
     check(not any(spills.values()), f"dense_ldl.cu: register spills: {spills}")
     return ", ".join(f"{k} {r}" for k, r in sorted(regs.items()))
@@ -294,23 +297,21 @@ def dense_ptxas_report(log: Path, chunks: int) -> str:
 
 def phase_dense_kernels(dl, fl, pl):
     """K4-K8 against their plain versions at the fleet and single-route
-    shapes (K6 and K8 to the last bit); returns per-kernel records (times
-    at the sls shapes)."""
+    shapes (K4, K6 and K8 to the last bit); returns per-kernel records
+    (times at the sls shapes)."""
     recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
     clamp = dl.CLAMP
 
     def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None, route=""):
-        """Holds the error, and times the launch ``kern`` (at the main
-        shape, and for K5-K8 at every shape, also its device time
-        alone)."""
+        """Holds the error, and times the launch ``kern`` (also its device
+        time alone)."""
         check(np.isfinite(err) and err <= KERNEL_RTOL * scale,
               f"{k} at B={B} n={n}: max abs err {err}")
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], err)
         bms, by = dense_bound(k, B, n)
         ms = cuda_ms(kern, reps)
-        timed = main or k != "fleet_factor"
-        dev_ms = cuda_ms(kern, reps, spin=True) if timed else None
-        dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
+        dev_ms = cuda_ms(kern, reps, spin=True)
+        dev = f" (device {dev_ms:.4f} ms)"
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
         log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}{route}: max_abs_err "
             f"{err:.3e}  kernel {ms:.4f} ms{dev}  plain {plain_ms:.3f} ms{lib}  "
@@ -323,6 +324,11 @@ def phase_dense_kernels(dl, fl, pl):
         plan = dl.solve_plan(n, B)
         return (f" [warp solve, {plan.route} route, {plan.grid} CTAs of one warp, "
                 f"{plan.smem} B of shared memory a CTA]")
+
+    def fleet_factor_route(B, n):
+        plan = dl.fleet_factor_plan(n, B)
+        return (f" [{plan.route} route, {plan.panels} panel(s), {plan.grid} CTAs of one "
+                f"warp, {plan.smem} B of shared memory a CTA]")
 
     def factor_route(B, n):
         plan = dl.factor_plan(n, B)
@@ -372,6 +378,8 @@ def phase_dense_kernels(dl, fl, pl):
         pL, pd = fl.fleet_ldl_factor_plain(A, clamp)
         px = fl.fleet_ldl_solve_plain(pL, pd, b)
         torch.cuda.synchronize()
+        check(same_bits(L, pL) and same_bits(d, pd),
+              f"K4 at B={B} n={n}: not bitwise equal to the plain version")
         e4 = max((L - pL).abs().max().item(), (d - pd).abs().max().item())
         e5 = (x - fl.fleet_ldl_solve_plain(L, d, b)).abs().max().item()
         scale = max(pL.abs().max().item(), px.abs().max().item(), 1.0)
@@ -385,7 +393,8 @@ def phase_dense_kernels(dl, fl, pl):
         main = (B, n) == (SLS_B, SLS_N)
         l4 = library_factor(A, L, d, "K4") if main else None
         record("fleet_factor", B, n, e4, scale,
-               lambda: dl.launch_fleet_factor(A, L, d, clamp), reps, p4, main, l4)
+               lambda: dl.launch_fleet_factor(A, L, d, clamp), reps, p4, main, l4,
+               fleet_factor_route(B, n))
         record("fleet_solve", B, n, e5, scale,
                lambda: dl.launch_fleet_solve(L, d, b, xo), reps, p5, main, l5,
                warp_route(B, n))
@@ -444,6 +453,20 @@ def phase_dense_kernels(dl, fl, pl):
           "the extreme data overflow and clamp")
     log(f"[dense-kernels] K6/K8 B=64 n={SLS_N} at magnitudes beyond 2^+-60: bitwise "
         "equal to the plain versions")
+    # K4 the same, on both routes
+    for n in (SLS_N, WIDE_N):
+        A, _ = test_sym(64, n, seed=n + 7)
+        A[1::4] *= 1e21
+        A[2::4] *= 1e-25
+        A[3::4, 1, 2] = 1e38
+        L, d = fl.fleet_ldl_factor_batched(A, clamp)
+        pL, pd = fl.fleet_ldl_factor_plain(A, clamp)
+        check(same_bits(L, pL) and same_bits(d, pd),
+              f"K4 at n={n}, extreme magnitudes: not bitwise equal to the plain version")
+        check(not bool(pL.isfinite().all()) and bool(pd[2::4].abs().eq(clamp).all()),
+              "the extreme data overflow and clamp")
+        log(f"[dense-kernels] K4 B=64 n={n}{fleet_factor_route(64, n)} at magnitudes "
+            "beyond 2^+-60: bitwise equal to the plain version")
     return recs
 
 
@@ -531,6 +554,24 @@ def library_check(fn, x, scale, what, reps):
     return cuda_ms(fn, reps), el
 
 
+def library_lu_factor(A, want, scale, what, lower=False):
+    """torch.linalg.lu_factor_ex(A, pivot=False) on a band expanded to its
+    dense matrix A (built before the timed calls): its LU held to a
+    kernel's factor in LAPACK's packed form ``want`` at the kernels'
+    tolerance (``lower``: L and the diagonal only, the part an LDL^T
+    factor shares with it); returns its time (ms, CUDA events, 5 single
+    calls) and the difference."""
+    LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
+    if lower:
+        LU = LU.tril()
+    torch.cuda.synchronize()
+    el = (LU - want).abs().max().item()
+    check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
+          f"{what}: max abs diff from the kernel {el}")
+    del LU
+    return cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 5), el
+
+
 # (B, n, w): the MPC-MHE fleet; ragged batches (B not a multiple of the
 # group) at the T = 6 game's width and a narrow band; the width range's
 # ends; and bands above the shared-memory cap (the ring route), one with
@@ -586,18 +627,30 @@ def phase_lu_kernels(lu):
                 lambda: lu.fleet_banded_lu_factor_plain(band, w, clamp),
                 lambda: lu.fleet_banded_lu_factor_batched(band, w, clamp)),
         }
-        lib_ms = None
+        libs = {}
         if main:
             # K10's library call: lu_solve with no interchanges (pivots
             # 1..n) on K9's factor expanded to dense (not timed)
             LU = lu_dense(f9)
             piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
-            lib_ms, el = library_check(
+            libs["lu_solve"], el = library_check(
                 lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0],
                 x10, scale, f"lu_solve against K10 at B={B} n={n} w={w}", 5)
             log(f"[lu-kernels] library torch.linalg.lu_solve (pivots 1..n) on K9's "
-                f"factor as dense LU: {lib_ms:.4f} ms, max abs diff from K10 {el:.3e}")
-            del LU
+                f"factor as dense LU: {libs['lu_solve']:.4f} ms, max abs diff from K10 "
+                f"{el:.3e}")
+            # K11's library call: lu_factor_ex with no interchanges on the
+            # band expanded to its dense matrix (not timed); no clamp fires
+            # on these data, so its LU is K11's factor
+            check(bool((f11[..., 0].abs() > clamp).all()), "no clamp fired in K11")
+            LU = lu_dense(f11)
+            Ad = lu_dense(band)
+            libs["lu_factor"], el = library_lu_factor(
+                Ad, LU, scale, f"lu_factor_ex against K11 at B={B} n={n} w={w}")
+            log(f"[lu-kernels] library torch.linalg.lu_factor_ex(pivot=False) on the band "
+                f"as a dense matrix: {libs['lu_factor']:.4f} ms, max abs diff from K11 "
+                f"{el:.3e}")
+            del LU, Ad
         for k, (kern, plain, entry) in runs.items():
             ms = cuda_ms(kern, reps)
             plain_ms = cuda_ms(plain, preps) if preps else None
@@ -609,15 +662,14 @@ def phase_lu_kernels(lu):
                 entry_ms = cuda_ms(entry, reps)
                 extra = (f" (device {dev_ms:.4f} ms; with L2 cold {cold:.4f} ms)  "
                          f"entry point {entry_ms:.4f} ms")
-            lib = f"  library {lib_ms:.4f} ms" if (main and k == "lu_solve") else ""
+            lib = f"  library {libs[k]:.4f} ms" if k in libs else ""
             plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
             log(f"[lu-kernels] {LU_NAMES[k]} B={B} n={n} w={w}: max_abs_err "
                 f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
             if main:
                 recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                               bound_by=by,
-                               library_ms=lib_ms if k == "lu_solve" else None)
+                               bound_by=by, library_ms=libs.get(k))
         del band, rhs, f9, x9, x10, f11, pf, px, px10, fb, xo
     return recs
 
@@ -698,18 +750,32 @@ def phase_kernels(fb):
                 lambda: fb.fleet_banded_factor_plain(band, w, clamp),
                 lambda: fb.fleet_banded_factor_batched(band, w, clamp)),
         }
-        lib_ms = None
+        libs = {}
         if main:
             # K2's library call: ldl_solve with no interchanges (pivots
             # 1..n) on K1's factor expanded to dense (not timed)
             LD = ldl_dense(f1)
             piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
-            lib_ms, el = library_check(
+            libs["solve"], el = library_check(
                 lambda: torch.linalg.ldl_solve(LD, piv, rhs[..., None])[..., 0],
                 x2, scale, f"ldl_solve against K2 at B={B} n={n} w={w}", 3)
             log(f"[kernels] library torch.linalg.ldl_solve (pivots 1..n) on K1's "
-                f"factor as dense LDL^T: {lib_ms:.4f} ms, max abs diff from K2 {el:.3e}")
-            del LD
+                f"factor as dense LDL^T: {libs['solve']:.4f} ms, max abs diff from K2 "
+                f"{el:.3e}")
+            # K3's library call: lu_factor_ex with no interchanges on the
+            # band expanded to its dense symmetric matrix (not timed); no
+            # clamp fires on these data, so L below U's diagonal and d on it
+            # are K3's factor
+            check(bool((f3[..., 0].abs() > clamp).all()), "no clamp fired in K3")
+            LD = ldl_dense(f3)
+            Ad = ldl_dense(band)
+            Ad = Ad + Ad.tril(-1).mT
+            libs["factor"], el = library_lu_factor(
+                Ad, LD, scale, f"lu_factor_ex against K3 at B={B} n={n} w={w}", lower=True)
+            log(f"[kernels] library torch.linalg.lu_factor_ex(pivot=False) on the band "
+                f"as a dense symmetric matrix: {libs['factor']:.4f} ms, max abs diff from "
+                f"K3 {el:.3e}")
+            del LD, Ad
         for k, (kern, plain, entry) in runs.items():
             ms = cuda_ms(kern, reps)
             plain_ms = cuda_ms(plain, preps) if preps else None
@@ -721,14 +787,14 @@ def phase_kernels(fb):
                 entry_ms = cuda_ms(entry, reps)
                 extra = (f" (device {dev_ms:.4f} ms; with L2 cold {cold:.4f} ms)  "
                          f"entry point {entry_ms:.4f} ms")
-            lib = f"  library {lib_ms:.4f} ms" if (main and k == "solve") else ""
+            lib = f"  library {libs[k]:.4f} ms" if k in libs else ""
             plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
             log(f"[kernels] {NAMES[k]} B={B} n={n} w={w}: max_abs_err "
                 f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
             if main:
                 recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
-                               bound_by=by, library_ms=lib_ms if k == "solve" else None)
+                               bound_by=by, library_ms=libs.get(k))
         if (B, n, w) in FB_SWEEP_SHAPES:
             phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp)
         del band, rhs, f1, x1, x2, f3, pf, px, px2, fbo, xo

@@ -40,12 +40,27 @@
 // rounds differently from the TPU kernel (not from its plain version).
 //
 // Layout and what bounds each kernel.
-//   K4: one CTA per instance, thread k owns column k (n <= 160 threads),
-//       the matrix in shared memory (4 KB at n = 32, 100 KB at n = 160).
-//       At the sls fleet (B = 1024, n = 32) it must move ~4.4 MB (1.3 us at
-//       3.35 TB/s) and do ~22 MFLOP (0.3 us at 67 TFLOP/s): byte-bound on
-//       paper, latency-bound in fact -- n dependent steps of two barriers
-//       each, one warp per CTA.
+//   K4: a CTA of one warp an instance, lane l owning column k = 32 p + l
+//       of panel p of the upper triangle.  At the sls fleet (B = 1024,
+//       n = 32) it must move ~4.4 MB (1.3 us at 3.35 TB/s) and do ~22
+//       MFLOP (0.3 us at 67 TFLOP/s); its n dependent steps make it
+//       latency-bound unless the steps carry no barrier.  Registers route
+//       (n <= 32): the warp factor below, in K4's rounding order.  Blocked
+//       route (32 < n <= 160): the panels in order, each in 32-row blocks,
+//       left-looking across blocks and right-looking inside one.  Block q
+//       of column k is loaded into registers, then takes the updates of
+//       every earlier step j < 32 q in increasing j (delayed updates:
+//       W[i, j] = d_j L[i, j] read as float4 broadcasts from shared
+//       memory, L[k, j] the lane's own), then its own 32 steps: the warp
+//       factor's, by shuffles, on the diagonal block; on a block above it
+//       the pivots and W are known, so only divisions and updates.  Every
+//       element M[i, k] (i <= k) thus takes its subtractions in the plain
+//       version's order, j = 0 .. i - 1, and the same bits.  A finished
+//       block goes to the factor (coalesced rows) and to shared memory,
+//       where L and W are packed upper triangles with rows padded to 16
+//       bytes (27 KB at n = 80: eight CTAs an SM; 106 KB at n = 160: two).
+//       The delayed updates, two FP32 operations and 1/8 of a broadcast
+//       load each on 32 independent chains a lane, are issue-bound.
 //   K5, and K7 at n <= 32 (the warp solve): one warp per instance and a
 //       CTA per warp (two warps a CTA time within ~5% of one on an H100,
 //       PERF.md; kkt/dense_ldl.py's solve_plan).  The work is n
@@ -105,7 +120,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFleetMaxN = TC_FLEET_MAX_N;  // K4's threads, the warp solve's n
+constexpr int kFleetMaxN = TC_FLEET_MAX_N;  // K4's and the warp solve's n
 constexpr int kMaxThreads = TC_MAX_THREADS; // K6/K7/K8 (one block an SM in the
                                             // launch bounds: without it ptxas
                                             // caps K6 at 40 registers and spills)
@@ -115,6 +130,19 @@ static_assert(sizeof(float) * (kSmemMaxN * (kSmemMaxN + 1) + 32) <= kSmemCap,
               "K6/K8's working matrix must fit the shared-memory cap");
 static_assert(sizeof(float) * kFleetMaxN * kFleetMaxN <= kSmemCap,
               "the warp solve's staged instance must fit the shared-memory cap");
+// K4's blocked route: an instance's shared memory holds L and W = d L as
+// packed upper triangles (row j from column 4 floor(j / 4) to n rounded up
+// to 4, so each row and each 32-column block of it starts on 16 bytes),
+// then d, then 32 floats the reads of the last panel's columns past n may
+// run into.  panel_tri(n) is a triangle's floats, the offset of row n.
+__host__ __device__ constexpr int panel_tri(int n) {
+  return n * (4 * ((n + 3) / 4)) - 8 * (n / 4) * (n / 4 - 1) - 4 * (n / 4) * (n % 4);
+}
+__host__ __device__ constexpr size_t fleet_smem(int n) {
+  return sizeof(float) * (2 * (size_t)panel_tri(n) + n + 32);
+}
+static_assert(fleet_smem(kFleetMaxN) <= kSmemCap,
+              "K4's blocked route must fit the shared-memory cap");
 constexpr int kRowGroup = 8;       // K6/K8: trailing rows updated per batch of loads
 constexpr int kStagedUnroll = 4;  // see StepUnroll
 
@@ -288,26 +316,28 @@ __device__ __forceinline__ float rank1(float m, float dc, float ri, float rk) {
   }
 }
 
-// Lane k's column of the upper triangle, A[i, k] for i <= k < n (0 elsewhere).
-__device__ __forceinline__ void load_upper(float (&m)[32], const float* __restrict__ A,
-                                           int n, int lane) {
+// Rows 32 q .. 32 q + 31 of column k of the upper triangle, A[i, k] for
+// i <= k < n (0 elsewhere).
+__device__ __forceinline__ void load_block(float (&m)[32], const float* __restrict__ A,
+                                           int n, int q, int k) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) m[i] = (i <= lane && lane < n) ? A[i * n + lane] : 0.0f;
+  for (int t = 0; t < 32; ++t) {
+    const int i = 32 * q + t;
+    m[t] = (i <= k && k < n) ? A[i * n + k] : 0.0f;
+  }
 }
 
-// The unpivoted LDL^T of one instance (n <= 32) by one warp, in registers:
-// lane k loads column k of the upper triangle and runs the n steps.  Step
-// c takes d_c from lane c, clamps it, forms r_k = M[c, k] / d_c, keeps it
-// in m[c] and updates m[i] for i > c with r_i from lane i.  Every lane runs
-// every update (a warp issues them for all its lanes in any case): rows
-// below a lane's diagonal and lanes past n hold values nothing reads.  On
-// return lane k holds L[k, c] in m[c] for c < k (the rest is not defined)
-// and its pivot in dk (1 past n).
+// The steps of the unpivoted LDL^T of an n x n block (n <= 32) by one
+// warp, in registers: lane k holds column k of the block's upper triangle.
+// Step c takes d_c from lane c, clamps it, forms r_k = M[c, k] / d_c,
+// keeps it in m[c] and updates m[i] for i > c with r_i from lane i.  Every
+// lane runs every update (a warp issues them for all its lanes in any
+// case): rows below a lane's diagonal and lanes past n hold values nothing
+// reads.  On return lane k holds L[k, c] in m[c] for c < k (the rest is
+// not defined) and its pivot in dk (1 past n).
 template <Rank1 U>
-__device__ __forceinline__ void warp_factor(float (&m)[32], float& dk,
-                                            const float* __restrict__ A, int n,
-                                            int lane, float clamp) {
-  load_upper(m, A, n, lane);
+__device__ __forceinline__ void warp_factor_steps(float (&m)[32], float& dk, int n,
+                                                  int lane, float clamp) {
   dk = 1.0f;
   float piv = __shfl_sync(kFull, m[0], 0);  // M[c, c], from lane c
 #pragma unroll
@@ -329,6 +359,16 @@ __device__ __forceinline__ void warp_factor(float (&m)[32], float& dk,
   }
 }
 
+// The warp factor of one instance (n <= 32): lane k loads column k of the
+// upper triangle and runs the n steps.
+template <Rank1 U>
+__device__ __forceinline__ void warp_factor(float (&m)[32], float& dk,
+                                            const float* __restrict__ A, int n,
+                                            int lane, float clamp) {
+  load_block(m, A, n, 0, lane);
+  warp_factor_steps<U>(m, dk, n, lane, clamp);
+}
+
 // Row c of the stored factor at lane k < n: 0 before the diagonal, then the
 // pivot (K4's layout) or 1 (K6's Lt), then L[k, c]; and d.
 template <bool kPivotOnDiagonal>
@@ -343,6 +383,134 @@ __device__ __forceinline__ void store_warp_factor(float* __restrict__ F,
     F[c * n + lane] = c < lane ? m[c] : (c == lane ? (kPivotOnDiagonal ? dk : 1.0f) : 0.0f);
   }
   d[lane] = dk;
+}
+
+// K4's blocked route: an instance's finished L, W = d L and d in shared
+// memory (the layout of panel_tri).  L[k, j] and W[k, j] sit at row j,
+// column k > j, as the factor stores them.
+struct PanelSmem {
+  float* L;
+  float* W;
+  float* d;
+  int n4;  // n rounded up to 4
+  __device__ __forceinline__ PanelSmem(float* s, int n)
+      : L(s), W(s + panel_tri(n)), d(s + 2 * panel_tri(n)), n4(4 * ((n + 3) / 4)) {}
+  // row j's column c (c >= 4 floor(j / 4)) in a triangle
+  __device__ __forceinline__ int at(int j, int c) const {
+    const int a = j >> 2;
+    return j * n4 - 8 * a * (a - 1) - 4 * a * (j & 3) + c - 4 * a;
+  }
+};
+
+// W[c .. c + 3, j] at offset off of the W triangle: a broadcast, every lane
+// reads the same 16 bytes (j is for dense_ldl_ablation.py's variant that
+// forms W from L and d[j] here).
+__device__ __forceinline__ float4 w4(const PanelSmem& s, int j, int off) {
+  return *reinterpret_cast<const float4*>(s.W + off);
+}
+
+// The updates of steps 0 .. 32 q - 1 on block q of lane k's column, in
+// increasing step order: m[t] -= W[32 q + t, j] L[k, j].  Two steps a trip,
+// so the next step's loads are in flight during this one's updates.
+__device__ __forceinline__ void delayed_updates(float (&m)[32], const PanelSmem& s, int q,
+                                                int k) {
+#pragma unroll 2
+  for (int j = 0; j < 32 * q; ++j) {
+    const float lk = s.L[s.at(j, k)];
+    const int off = s.at(j, 32 * q);
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const float4 w = w4(s, j, off + 4 * g);
+      m[4 * g] = __fsub_rn(m[4 * g], __fmul_rn(w.x, lk));
+      m[4 * g + 1] = __fsub_rn(m[4 * g + 1], __fmul_rn(w.y, lk));
+      m[4 * g + 2] = __fsub_rn(m[4 * g + 2], __fmul_rn(w.z, lk));
+      m[4 * g + 3] = __fsub_rn(m[4 * g + 3], __fmul_rn(w.w, lk));
+    }
+  }
+}
+
+// Steps 32 q .. 32 q + 31 on a block above the lane's diagonal block: the
+// pivots and W are known, so a step divides and updates the rows below it;
+// m[c] becomes L[k, 32 q + c].  A warp barrier ends each step: without it
+// ptxas hoists the W loads of all 32 steps (255 registers, ~1 KB spilled).
+__device__ __forceinline__ void block_steps(float (&m)[32], const PanelSmem& s, int q) {
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int j = 32 * q + c;
+    const float rk = __fdiv_rn(m[c], s.d[j]);
+    m[c] = rk;
+    const int off = s.at(j, 32 * q);
+#pragma unroll
+    for (int g = (c + 1) / 4; g < 8; ++g) {
+      const float4 w = w4(s, j, off + 4 * g);
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * g + e > c) m[4 * g + e] = __fsub_rn(m[4 * g + e], __fmul_rn(wv[e], rk));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// A finished block above the diagonal block of column k < n: rows 32 q ..
+// 32 q + 31 of the factor (a coalesced store a row), and L and W.
+__device__ __forceinline__ void publish_block(float* __restrict__ L, const PanelSmem& s,
+                                              const float (&m)[32], int n, int q, int k) {
+  if (k >= n) return;
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    const int j = 32 * q + t;
+    const int o = s.at(j, k);
+    L[j * n + k] = m[t];
+    s.L[o] = m[t];
+    s.W[o] = __fmul_rn(s.d[j], m[t]);
+  }
+}
+
+// A finished diagonal block of panel p: the pivots to d (global and
+// shared), then column k's rows 32 p .. n - 1 of the factor (L[k, j] before
+// the diagonal, the pivot on it, 0 after), and L and W.
+__device__ __forceinline__ void publish_diagonal(float* __restrict__ L, float* __restrict__ d,
+                                                 const PanelSmem& s, const float (&m)[32],
+                                                 float dk, int n, int p, int lane) {
+  const int k = 32 * p + lane;
+  if (k < n) s.d[k] = dk;
+  __syncwarp();
+  if (k >= n) return;
+  d[k] = dk;
+#pragma unroll
+  for (int t = 0; t < 32; ++t) {
+    const int j = 32 * p + t;
+    if (j >= n) break;
+    L[j * n + k] = t < lane ? m[t] : (t == lane ? dk : 0.0f);
+    if (t < lane) {
+      const int o = s.at(j, k);
+      s.L[o] = m[t];
+      s.W[o] = __fmul_rn(s.d[j], m[t]);
+    }
+  }
+  for (int j = 32 * (p + 1); j < n; ++j) L[j * n + k] = 0.0f;
+}
+
+// Block q of panel p (lane k = 32 p + lane's column): loaded, its delayed
+// updates, its steps (the warp factor's on the diagonal block), published.
+template <bool kDiagonal>
+__device__ __forceinline__ void panel_block(float (&m)[32], float& dk,
+                                            const float* __restrict__ A,
+                                            float* __restrict__ L, float* __restrict__ d,
+                                            const PanelSmem& s, int n, int p, int q,
+                                            int lane, float clamp) {
+  const int k = 32 * p + lane;
+  load_block(m, A, n, q, k);
+  delayed_updates(m, s, q, k);
+  if constexpr (kDiagonal) {
+    warp_factor_steps<Rank1::kScaledRowTimesR>(m, dk, n - 32 * p, lane, clamp);
+    publish_diagonal(L, d, s, m, dk, n, p, lane);
+  } else {
+    block_steps(m, s, q);
+    publish_block(L, s, m, n, q, k);
+  }
 }
 
 // Solve (L diag(d) L^T) x = b for one instance by a group of T threads (the
@@ -432,34 +600,36 @@ __device__ __forceinline__ void ldl_factor_rows(float* M, float* Lt, float* d,
   }
 }
 
-// K4: thread k owns column k of one instance's matrix in shared memory.
-__global__ void __launch_bounds__(kFleetMaxN)
+// K4: a CTA of one warp an instance; P = ceil(n / 32) panels (1: the
+// registers route, the warp factor in K4's order; 2-5: the blocked route,
+// fleet_smem(n) bytes of dynamic shared memory).  The launch bound of 64
+// threads as the other warp kernels'.
+template <int P>
+__global__ void __launch_bounds__(64)
 fleet_factor_kernel(const float* __restrict__ A, float* __restrict__ L,
                     float* __restrict__ d, int n, float clamp) {
-  extern __shared__ float smem[];
-  float* M = smem;          // n * n
-  float* r = smem + n * n;  // n
-  const int k = threadIdx.x;
+  const int lane = threadIdx.x;
   const size_t nn = (size_t)n * n;
-  const size_t base = (size_t)blockIdx.x * nn;
-  for (size_t idx = k; idx < nn; idx += blockDim.x) M[idx] = A[base + idx];
-  __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    const float dj = clamp_pivot(M[j * n + j], clamp);
-    float rk = 0.0f;
-    if (k < n) {
-      if (k > j) rk = __fdiv_rn(M[j * n + k], dj);
-      r[k] = rk;
-      L[base + (size_t)j * n + k] = k > j ? rk : (k == j ? dj : 0.0f);
-    }
-    if (k == 0) d[(size_t)blockIdx.x * n + j] = dj;
-    __syncthreads();
-    if (k > j && k < n) {
-      for (int i = j + 1; i < n; ++i) {
-        M[i * n + k] = __fsub_rn(M[i * n + k], __fmul_rn(__fmul_rn(dj, r[i]), rk));
+  A += blockIdx.x * nn;
+  L += blockIdx.x * nn;
+  d += (size_t)blockIdx.x * n;
+  float m[32], dk;
+  if constexpr (P == 1) {
+    warp_factor<Rank1::kScaledRowTimesR>(m, dk, A, n, lane, clamp);
+    store_warp_factor<true>(L, d, m, dk, n, lane);
+  } else {
+    extern __shared__ float smem[];
+    const PanelSmem s(smem, n);
+#pragma unroll 1
+    for (int p = 0; p < P; ++p) {
+#pragma unroll 1
+      for (int q = 0; q < p; ++q) {
+        panel_block<false>(m, dk, A, L, d, s, n, p, q, lane, clamp);
       }
+      __syncwarp();  // the panel's W above its diagonal block, for every lane
+      panel_block<true>(m, dk, A, L, d, s, n, p, p, lane, clamp);
+      __syncwarp();  // the panel's W and d, for the next
     }
-    __syncthreads();
   }
 }
 
@@ -589,11 +759,17 @@ const WarpSolveKernel kWarpSolve[] = {warp_solve_kernel<1>, warp_solve_kernel<2>
 static_assert(sizeof(kWarpSolve) / sizeof(kWarpSolve[0]) * 32 >= kFleetMaxN,
               "an instantiation for every chunk count up to the fleet's n");
 
+// K4's instantiations, by panels
+using FleetFactorKernel = void (*)(const float*, float*, float*, int, float);
+const FleetFactorKernel kFleetFactor[] = {fleet_factor_kernel<1>, fleet_factor_kernel<2>,
+                                          fleet_factor_kernel<3>, fleet_factor_kernel<4>,
+                                          fleet_factor_kernel<5>};
+static_assert(sizeof(kFleetFactor) / sizeof(kFleetFactor[0]) * 32 >= kFleetMaxN,
+              "an instantiation for every panel count up to the fleet's n");
+
 bool valid_threads(int threads) {
   return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
 }
-
-size_t fleet_smem(int n) { return sizeof(float) * ((size_t)n * n + n); }
 
 size_t single_smem(int n, bool in_smem) {
   return sizeof(float) * ((in_smem ? (size_t)n * n : 0) + n + 32);
@@ -612,27 +788,45 @@ extern "C" {
 // Once per device, before the first launch: the opt-in to dynamic shared
 // memory above the 48 KB default, at the most each kernel can ask for.
 int tc_dense_ldl_init() {
-  cudaError_t e = allow_smem(fleet_factor_kernel, fleet_smem(kFleetMaxN));
-  if (e == cudaSuccess) e = allow_smem(ldl_factor_kernel, single_smem(kSmemMaxN, true));
+  cudaError_t e = allow_smem(ldl_factor_kernel, single_smem(kSmemMaxN, true));
   if (e == cudaSuccess) {
     e = allow_smem(ldl_factor_solve_kernel, single_smem(kSmemMaxN, true));
   }
   for (const WarpSolveKernel k : kWarpSolve) {
     if (e == cudaSuccess) e = allow_smem(k, sizeof(float) * kFleetMaxN * kFleetMaxN);
   }
+  // K4's blocked route: as many instances an SM as its shared memory allows
+  // (eight at n = 80)
+  for (const FleetFactorKernel k : kFleetFactor) {
+    if (e == cudaSuccess) e = allow_smem(k, fleet_smem(kFleetMaxN));
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+  }
   return e;
 }
 
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported shape).
+// K4: the registers route at n <= 32, the blocked route above (the
+// binding's fleet_factor_plan).
 int tc_dense_ldl_fleet_factor(const float* A, float* L, float* d, int n, int B,
                               float clamp, void* stream) {
   if (n < 1 || n > kFleetMaxN || B < 1) return cudaErrorInvalidValue;
-  const int threads = ((n + 31) / 32) * 32;
-  const size_t smem = fleet_smem(n);
+  const int panels = (n + 31) / 32;
+  const size_t smem = panels > 1 ? fleet_smem(n) : 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fleet_factor_kernel<<<B, threads, smem, st>>>(A, L, d, n, clamp);
+  const FleetFactorKernel kernel = kFleetFactor[panels - 1];
+  kernel<<<B, 32, smem, st>>>(A, L, d, n, clamp);
   return cudaGetLastError();
+}
+
+// K4's dynamic shared memory a CTA at order n (the binding's
+// fleet_factor_plan holds its own to it); -1 outside 1..kFleetMaxN.
+int tc_dense_ldl_fleet_factor_smem(int n) {
+  if (n < 1 || n > kFleetMaxN) return -1;
+  return n > 32 ? static_cast<int>(fleet_smem(n)) : 0;
 }
 
 // K5, and K7 at n <= 32: a CTA an instance (the binding's solve_plan).

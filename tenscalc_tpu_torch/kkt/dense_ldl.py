@@ -16,6 +16,11 @@ factor's columns in registers at n <= 32, the instance's rows staged in
 shared memory above.  K7 above n = 32 keeps a CTA an instance, whose
 reduction tree spans :func:`block_threads`.
 
+K4 runs a CTA of one warp an instance: the warp factor in K4's rounding
+order at n <= 32 (the registers route), 32-row blocks of 32-column
+panels above it (the blocked route, the finished factor in shared
+memory); :func:`fleet_factor_plan` gives its route and grid.
+
 K6 and K8 at n <= 32 run the warp factor (a CTA of one warp an instance,
 the matrix's upper triangle in its lanes' registers; K8 hands the factor
 to the warp solve in registers); above 32 a CTA an instance of
@@ -64,10 +69,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tc_dense_ldl_factor.argtypes = [P, P, P, I, I, I, Fl, P]
     lib.tc_dense_ldl_solve.argtypes = [P, P, P, P, I, I, I, P]
     lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, I, I, I, Fl, P]
+    lib.tc_dense_ldl_fleet_factor_smem.argtypes = [I]
     lib.tc_dense_ldl_init.argtypes = []
     for fn in (lib.tc_dense_ldl_fleet_factor, lib.tc_dense_ldl_warp_solve,
                lib.tc_dense_ldl_factor, lib.tc_dense_ldl_solve,
-               lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_init):
+               lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_fleet_factor_smem,
+               lib.tc_dense_ldl_init):
         fn.restype = ctypes.c_int
     lib.tc_dense_ldl_error_string.argtypes = [I]
     lib.tc_dense_ldl_error_string.restype = ctypes.c_char_p
@@ -130,6 +137,32 @@ def solve_plan(n: int, B: int) -> SolvePlan:
     return SolvePlan(route, -(-n // 32), B, 0 if route == "registers" else 4 * n * n)
 
 
+class FleetFactorPlan(NamedTuple):
+    route: str  # "registers" (n <= 32: the warp factor) or "blocked"
+    panels: int  # 32-column panels: ceil(n / 32)
+    grid: int  # CTAs, of one warp each: one an instance
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def fleet_factor_plan(n: int, B: int) -> FleetFactorPlan:
+    """K4's launch for B instances of order n, the C entry's own: the
+    registers route at n <= REG_MAX_N, else the blocked route, whose CTA
+    holds the finished L and W = d L as packed upper triangles (rows from
+    column 4 floor(j / 4) to n rounded up to 4), d and 32 floats of slack
+    (27,328 bytes at n = 80, eight CTAs an SM; 105,728 at n = 160).
+    Raises for shapes the kernel does not take."""
+    if not 1 <= n <= FLEET_MAX_N:
+        raise ValueError(f"K4 takes 1 <= n <= {FLEET_MAX_N}, got n={n}")
+    if B < 1:
+        raise ValueError(f"K4 needs B >= 1, got B={B}")
+    panels = -(-n // 32)
+    if panels == 1:
+        return FleetFactorPlan("registers", 1, B, 0)
+    a, b = divmod(n, 4)
+    tri = n * 4 * -(-n // 4) - 8 * a * (a - 1) - 4 * a * b
+    return FleetFactorPlan("blocked", panels, B, 4 * (2 * tri + n + 32))
+
+
 class FactorPlan(NamedTuple):
     route: str  # "warp" (n <= 32: the warp factor) or "cta"
     grid: int  # CTAs: one an instance
@@ -156,6 +189,7 @@ def launch_fleet_factor(A, L, d, clamp: float) -> None:
     """K4: L, d preallocated."""
     lib = _lib_on(A.device)
     B, n = A.shape[0], A.shape[-1]
+    fleet_factor_plan(n, B)  # raises for a shape the kernel does not take
     with torch.cuda.device(A.device):
         rc = lib.tc_dense_ldl_fleet_factor(
             A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B, clamp, _stream(A)

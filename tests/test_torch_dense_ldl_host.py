@@ -1,8 +1,8 @@
 """csrc/dense_ldl.cu's warp solve (K5, and K7 at n <= 32), its warp
-factor (K6 and K8 at n <= 32, and the warp factor in K4's rounding order
-and layout) and K4 on a CTA of one warp run on the CPU, held bitwise
-against their plain versions; and the launch plans of the warp solve and
-of K6/K8.
+factor (K6 and K8 at n <= 32) and K4 on both its routes (the warp factor
+in K4's rounding order at n <= 32, 32-row blocks above) run on the CPU,
+held bitwise against their plain versions; and the launch plans of the
+warp solve, of K4 and of K6/K8.
 
 The CUDA source is compiled with the host's g++ against the emulation of
 ``tests/test_torch_fleet_banded_host.py`` (a CTA's 32 lanes as threads,
@@ -15,7 +15,6 @@ a right-hand side and NaN below the diagonal of every factor and matrix,
 so signed zeros, NaN propagation and the unread parts are checked.
 Skipped where there is no g++."""
 
-import ctypes
 from pathlib import Path
 
 import pytest
@@ -31,35 +30,10 @@ torch.set_num_threads(1)
 SOURCE = Path(tdl.__file__).resolve().parents[1] / "csrc" / "dense_ldl.cu"
 
 
-# the warp factor in K4's rounding order and layout (the pivot on the
-# diagonal), as a host-only entry point appended to the source
-K4_ORDER_ENTRY = r"""
-namespace {
-__global__ void host_k4_warp_factor_kernel(const float* A, float* L, float* d, int n,
-                                           float clamp) {
-  const size_t nn = (size_t)n * n;
-  float m[32], dk;
-  warp_factor<Rank1::kScaledRowTimesR>(m, dk, A + blockIdx.x * nn, n, threadIdx.x, clamp);
-  store_warp_factor<true>(L + blockIdx.x * nn, d + (size_t)blockIdx.x * n, m, dk, n,
-                          threadIdx.x);
-}
-}  // namespace
-extern "C" int tc_host_k4_warp_factor(const float* A, float* L, float* d, int n, int B,
-                                      float clamp) {
-  host_k4_warp_factor_kernel<<<B, 32, 0, nullptr>>>(A, L, d, n, clamp);
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    h = tdl.bind(build_host_library(
-        tmp_path_factory.mktemp("dense_ldl_host"), SOURCE, tdl.DEFINES,
-        [(r"\Z", K4_ORDER_ENTRY)]))
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    h.tc_host_k4_warp_factor.argtypes = [P, P, P, I, I, Fl]
-    return h
+    return tdl.bind(build_host_library(
+        tmp_path_factory.mktemp("dense_ldl_host"), SOURCE, tdl.DEFINES))
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -149,15 +123,11 @@ def _sym(B, n, seed):
 
 @pytest.mark.parametrize("n", [1, 13, 32])
 def test_one_warp_factor_kernels_on_the_host_equal_plain_versions(lib, n):
-    """K4, K6 and K8 (whose solve is the warp solve at n <= 32) on CTAs
-    of one warp."""
+    """K6 and K8 (whose solve is the warp solve at n <= 32) on CTAs of one
+    warp, on matrices with no NaN (K4's half is a case of
+    test_k4_on_the_host_equals_its_plain_version)."""
     B, clamp = 3, tdl.CLAMP
     A, b = _sym(B, n, seed=n)
-    L, d4 = torch.empty_like(A), torch.empty_like(b)
-    assert lib.tc_dense_ldl_fleet_factor(A.data_ptr(), L.data_ptr(), d4.data_ptr(),
-                                         n, B, clamp, None) == 0
-    pL, pd4 = tfl.fleet_ldl_factor_plain(A, clamp)
-    assert _same_bits(L, pL) and _same_bits(d4, pd4)
     threads = tdl.block_threads(n)
     Lt, d6 = torch.empty_like(A), torch.empty_like(b)
     assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d6.data_ptr(), n, B,
@@ -177,6 +147,8 @@ def test_host_launches_refuse_what_the_kernels_do_not_take(lib):
     args = (F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr())
     for n, B in [(161, 2), (0, 2), (32, 0), (160, -1)]:
         assert lib.tc_dense_ldl_warp_solve(*args, n, B, None) != 0
+        assert lib.tc_dense_ldl_fleet_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), n,
+                                             B, tdl.CLAMP, None) != 0
     # K6 and K8 at n <= 32 run the warp factor: their CTA must be one warp
     assert lib.tc_dense_ldl_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), 32, 1, 64,
                                    tdl.CLAMP, None) != 0
@@ -244,17 +216,63 @@ def test_k6_and_k8_warp_factor_on_the_host_equal_plain_versions(lib, n, B):
     assert _same_bits(Lt8, pLt) and _same_bits(d8, pd) and _same_bits(x8, px)
 
 
-@pytest.mark.parametrize("n", [1, 13, 32])
-def test_warp_factor_in_k4_order_on_the_host_equals_k4_plain(lib, n):
-    """The warp factor's template in K4's rounding, (d_c r_i) r_k, and
-    layout (the pivot on the diagonal) against K4's plain version."""
-    B = 3
-    A, _ = _factor_data(B, n, seed=n)
-    L, d = torch.full_like(A, float("nan")), A.new_full((B, n), float("nan"))
-    assert lib.tc_host_k4_warp_factor(A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B,
-                                      tdl.CLAMP) == 0
+# K4's registers route at its ends and a ragged n, and the blocked
+# route at each panel count's edges, the n = 80 fleet and the cap
+K4_CASES = [(B, n) for n in (1, 13, 31, 32, 33, 63, 64, 65, 80, 96) for B in (1, 3)]
+K4_CASES.append((1, tdl.FLEET_MAX_N))
+
+
+@pytest.mark.parametrize("B,n", K4_CASES)
+def test_k4_on_the_host_equals_its_plain_version(lib, B, n):
+    """K4's C entry (its own launch: the warp factor in K4's rounding
+    order, (d_c r_i) r_k, at n <= 32, the blocked route above) bit for
+    bit against K4's plain version: the factor with the pivot on its
+    diagonal and zeros below, and d; with NaN below A's diagonal (never
+    read), a zero first row (its pivot clamped), and at B = 3 an instance
+    scaled by 1e21 and one by 1e-25 (every pivot clamped) whose quotient
+    1e38 / 1e-7 overflows."""
+    A, _ = _factor_data(B, n, seed=300 + 2 * n + B)
+    plan = tdl.fleet_factor_plan(n, B)
+    assert plan.route == ("registers" if n <= tdl.REG_MAX_N else "blocked")
     pL, pd = tfl.fleet_ldl_factor_plain(A, tdl.CLAMP)
+    assert not pL[:2].isnan().any() and not pd[:2].isnan().any()
+    if B > 2 and n > 2:
+        assert pL[2].isinf().any() and pd[2, :2].abs().eq(tdl.CLAMP).all()
+    L, d = torch.full_like(A, float("nan")), A.new_full((B, n), float("nan"))
+    assert lib.tc_dense_ldl_fleet_factor(A.data_ptr(), L.data_ptr(), d.data_ptr(), n, B,
+                                         tdl.CLAMP, None) == 0
     assert _same_bits(L, pL) and _same_bits(d, pd)
+
+
+@pytest.mark.parametrize("n,route,panels", [
+    (1, "registers", 1), (13, "registers", 1), (32, "registers", 1),
+    (33, "blocked", 2), (80, "blocked", 3), (128, "blocked", 4), (160, "blocked", 5),
+])
+@pytest.mark.parametrize("B", [1, 256, 1000, 1024])
+def test_fleet_factor_plan_routes_and_covers_the_batch(n, route, panels, B):
+    plan = tdl.fleet_factor_plan(n, B)
+    assert (plan.route, plan.panels) == (route, panels)
+    assert plan.grid == B  # a CTA of one warp an instance
+    assert (plan.smem == 0) == (route == "registers")
+    assert plan.smem <= tdl.SMEM_MAX
+
+
+def test_fleet_factor_plan_is_the_c_entrys_own(lib):
+    """The shared memory the C entry launches K4 with, at every n; eight
+    CTAs an SM at the n = 80 fleet (an SM's 233,472 bytes, 1,024 of them
+    reserved a CTA), two at the cap."""
+    for n in range(1, tdl.FLEET_MAX_N + 1):
+        assert lib.tc_dense_ldl_fleet_factor_smem(n) == tdl.fleet_factor_plan(n, 1).smem
+    assert lib.tc_dense_ldl_fleet_factor_smem(tdl.FLEET_MAX_N + 1) == -1
+    assert 8 * (tdl.fleet_factor_plan(80, 1).smem + 1024) <= 233_472
+    assert 2 * (tdl.fleet_factor_plan(160, 1).smem + 1024) <= 233_472
+    assert tdl.fleet_factor_plan(160, 1).smem == 105_728
+
+
+def test_fleet_factor_plan_refuses_shapes_the_kernel_does_not_take():
+    for n, B in [(0, 4), (tdl.FLEET_MAX_N + 1, 4), (32, 0)]:
+        with pytest.raises(ValueError):
+            tdl.fleet_factor_plan(n, B)
 
 
 @pytest.mark.parametrize("n,route", [(1, "warp"), (13, "warp"), (32, "warp"),

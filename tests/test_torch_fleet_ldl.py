@@ -53,7 +53,8 @@ def _close(a, b, scale=None):
     np.testing.assert_allclose(np.asarray(a), b, rtol=0, atol=RTOL * max(scale, 1.0))
 
 
-@pytest.mark.parametrize("B,n,clamp", [(5, 13, 0.0), (6, 24, 0.0), (4, 11, 1e-7)])
+@pytest.mark.parametrize("B,n,clamp", [(5, 13, 0.0), (6, 24, 0.0), (4, 11, 1e-7),
+                                     (3, 40, 0.0)])
 def test_plain_versions_match_jax_kernels(B, n, clamp):
     rng = np.random.default_rng(n)
     A = _spd_batch(rng, B, n) if clamp == 0.0 else _indefinite_batch(rng, B, n)
