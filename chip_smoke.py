@@ -6,7 +6,9 @@ Phases:
   1. setup: the card, a parallel build of the port's native sources;
   2. kernels: K1 (factor+solve), K2 (solve) and K3 (factor) against their
      plain PyTorch versions on the card, bitwise, with each shape's launch
-     plan, at the flagship shape (B=1024, n=149, w=4; warm, with L2 cold,
+     plan, at the main paths' shapes (the flagship's B=1024, n=149, w=4;
+     the min-max saddle KKT's B=1024, n=480, w=6 and HessD's B=1024,
+     n=240, w=1; warm, with L2 cold,
      and through the entry point; K2 beside its library call,
      torch.linalg.ldl_solve with no interchanges on K1's factor expanded
      to dense, and K3 beside torch.linalg.lu_factor_ex with no
@@ -51,7 +53,13 @@ Phases:
      fleet of 1024 with per-instance A and b (K4, K5) and its cross-check
      on eight instances on the CPU; the unbanded width n=80 as a fleet;
      kkt_backend='pallas' (K6, K7), one solve and a fleet of 64; a profile
-     of the sls fleet solve.
+     of the sls fleet solve;
+ 12. the min-max slice: bench.py's robust-control saddle fleet (n=80,
+     B=1024, float32, built inline) through solve_many, with the launch
+     counts read around it (K1, K2 on the saddle KKT, K3 on the HessD
+     inertia; no other kernel), then one single solve; its cross-check,
+     eight instances solved again on the CPU; a profile of one fleet
+     solve.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -126,6 +134,11 @@ DENSE_NAMES = {"fleet_factor": "K4 fleet_ldl_factor_batched",
 SLS_B, SLS_N, WIDE_N = 1024, 32, 80
 FLEET_SHAPES = [(SLS_B, SLS_N), (1000, 13), (SLS_B, WIDE_N), (256, 160)]
 SINGLE_SHAPES = [(1, SLS_N), (1, 200), (1, 896), (64, SLS_N)]
+# the min-max fleet (bench.py:809-865): n = 80 minimizer and maximizer
+# variables, their bounds; saddle KKT (nK = 480, RCM w = 6), HessD
+# (m = 240, w = 1)
+MM_B, MM_N = 1024, 80
+MM_SADDLE, MM_HESSD = (MM_B, 480, 6), (MM_B, 240, 1)
 
 
 def log(msg: str) -> None:
@@ -679,8 +692,14 @@ def phase_lu_kernels(lu):
 # bands above the shared-memory cap (the ring route), one with n a whole
 # number of chunks
 FB_SHAPE = (FLEET_B, 149, 4)
-FB_SHAPES = [FB_SHAPE, (1000, 69, 9), (1001, 37, 1), (FLEET_B, 149, 16),
-             (64, 12000, 4), (64, 3520, 16)]
+FB_SHAPES = [FB_SHAPE, MM_SADDLE, MM_HESSD, (1000, 69, 9), (1001, 37, 1),
+             (FLEET_B, 149, 16), (64, 12000, 4), (64, 3520, 16)]
+# the main paths' shapes, timed in full (device time alone, L2 cold, the
+# entry point, the library call); the shape each kernel's record (the
+# kernels line) comes from: K1/K2 the flagship's, K3 the min-max HessD
+# inertia's, its only main-path caller
+FB_MAIN_SHAPES = (FB_SHAPE, MM_SADDLE, MM_HESSD)
+FB_RECORDED = {"factor_solve": FB_SHAPE, "solve": FB_SHAPE, "factor": MM_HESSD}
 # fleets whose instances reach far outside the usual magnitudes, at a
 # width that divides through the pivot's reciprocal and one that does not
 FB_RANGE_SHAPES = [(1001, 37, 1), (1000, 69, 9)]
@@ -692,7 +711,7 @@ FB_GROUPS = (1, 2, 4, 8, 16, 32)
 
 def phase_kernels(fb):
     """K1-K3 against their plain versions (bitwise); returns per-kernel
-    records (times at the flagship shape)."""
+    records (times at the shapes of FB_RECORDED)."""
     recs = {k: {"max_abs_err": 0.0} for k in REPLACES}
     clamp = 1e-7
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -701,7 +720,7 @@ def phase_kernels(fb):
     log("[kernels] the factor's reciprocal equals __frcp_rn at all 2,013,265,922 "
         "floats of magnitude 2^-60..2^60")
     for B, n, w in FB_SHAPES:
-        main = (B, n, w) == FB_SHAPE
+        main = (B, n, w) in FB_MAIN_SHAPES
         plan = fb.launch_plan(n, w, B, sms)
         band, rhs = test_band(B, n, w, seed=n + w)
         if (B, n, w) in FB_RANGE_SHAPES:
@@ -732,8 +751,8 @@ def phase_kernels(fb):
             f"{plan.group} instances (a lane each) a CTA of one warp, "
             f"{-(-B // plan.group)} CTAs, {plan.smem} bytes of shared memory a CTA")
         fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
-        reps = 50 if n <= 149 else 5
-        preps = 20 if main else (3 if n <= 149 else 0)
+        reps = 50 if n <= 480 else 5
+        preps = (20 if n <= 149 else 3) if main else (3 if n <= 149 else 0)
         # kernel launch, plain version, entry point; the band (3 MB at the
         # flagship shape) stays in L2 as it does after assembly
         runs = {
@@ -758,7 +777,7 @@ def phase_kernels(fb):
             piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
             libs["solve"], el = library_check(
                 lambda: torch.linalg.ldl_solve(LD, piv, rhs[..., None])[..., 0],
-                x2, scale, f"ldl_solve against K2 at B={B} n={n} w={w}", 3)
+                x2, scale, f"ldl_solve against K2 at B={B} n={n} w={w}", 3 if n <= 149 else 1)
             log(f"[kernels] library torch.linalg.ldl_solve (pivots 1..n) on K1's "
                 f"factor as dense LDL^T: {libs['solve']:.4f} ms, max abs diff from K2 "
                 f"{el:.3e}")
@@ -792,7 +811,7 @@ def phase_kernels(fb):
             log(f"[kernels] {NAMES[k]} B={B} n={n} w={w}: max_abs_err "
                 f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
-            if main:
+            if FB_RECORDED[k] == (B, n, w):
                 recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                                bound_by=by, library_ms=libs.get(k))
         if (B, n, w) in FB_SWEEP_SHAPES:
@@ -1209,11 +1228,113 @@ def phase_sls_pallas(sls, dl, others):
     return {k: n_one[k] + n_fleet[k] for k in n_one}
 
 
+def build_minmax(ttc, ns: str, device=None):
+    """bench.py:809-865's saddle problem: a horizon-chain minimizer with a
+    bilinear coupling to a strongly concave maximizer, both bounded."""
+    u = ttc.variable(ns + "u", (MM_N,))
+    d = ttc.variable(ns + "d", (MM_N,))
+    p = ttc.parameter(ns + "p", (MM_N,))
+
+    def sq(e):  # the reference's norm2: the sum of squares
+        return (e * e).sum()
+
+    f = sq(u - p) + 2.0 * sq(u[1:] - u[:-1]) + u @ d - sq(d)
+    return ttc.minmax(
+        objective=f, minOptimizationVariables=[u], maxOptimizationVariables=[d],
+        minConstraints=[u >= -2.0, u <= 2.0], maxConstraints=[d >= -2.0, d <= 2.0],
+        parameters=[p], dtype="float32", device=device,
+    )
+
+
+def minmax_inputs(ns: str, B: int):
+    """bench.py's inputs: p = 0.5 N(0, 1) from default_rng(0), zero inits."""
+    rng = np.random.default_rng(0)
+    return ({ns + "p": 0.5 * rng.standard_normal((B, MM_N))},
+            {ns + "u": np.zeros((B, MM_N)), ns + "d": np.zeros((B, MM_N))})
+
+
+def phase_minmax(ttc, fb, others):
+    """The min-max fleet on the card: K1/K2 on the saddle KKT, K3 on the
+    banded HessD inertia, no other kernel."""
+    ns = "bmm_"
+    t0 = time.perf_counter()
+    solver = build_minmax(ttc, ns)
+    log(f"[minmax] solver built in {time.perf_counter() - t0:.1f} s")
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(solver._ipm_dims == (MM_N, MM_N, 2 * MM_N, 2 * MM_N, 0, 0), "min-max sizes")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode == "hoisted" and solver._solve_raw.hessd_banded
+          and (solver.kkt_plan.n, solver.kkt_plan.bandwidth) == MM_SADDLE[1:]
+          and (solver.hessd_plan.n, solver.hessd_plan.bandwidth) == MM_HESSD[1:],
+          "fleet banded, hoisted band (480, w=6), banded HessD (240, w=1)")
+    params, inits = minmax_inputs(ns, MM_B)
+
+    def run():
+        res = solver.solve_many(params, inits=inits, mu0=1.0, max_iter=60)
+        torch.cuda.synchronize()
+        return res
+
+    run()  # warm-up (first-call allocations)
+    reset_counts(fb, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the min-max path: {[m.LAUNCHES for m in others]}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (MM_B, 2 * MM_N) and bool(torch.isfinite(res.u).all()),
+          "finite z of the expected shape")
+    check(int((status == 0).sum()) == MM_B,
+          f"all {MM_B} instances at status 0 (got {np.bincount(status)})")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0 and launches["factor"] > 0,
+          f"K1, K2 and K3 ran on the min-max path: {launches}")
+    check(launches["factor_solve"] == launches["solve"] == launches["factor"],
+          f"one K1, one K2 and one K3 an adaptation trip: {launches}")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    log(f"[minmax] fleet B={MM_B} n={MM_N} f32: status 0 for all; iters max {iters.max()} "
+        f"mean {iters.mean():.2f}; wall {wall:.4f} s; {MM_B / wall:.1f} solves/s; launches "
+        f"{launches}; per lockstep iteration K1 {launches['factor_solve'] / lockstep:.2f} "
+        f"K2 {launches['solve'] / lockstep:.2f} K3 {launches['factor'] / lockstep:.2f}")
+
+    one = {ns + "p": params[ns + "p"][0]}
+    sol = solver.solve(one, init={k: v[0] for k, v in inits.items()}, mu0=1.0, max_iter=60)
+    check(sol.status == 0, f"single solve status {sol.describe()}")
+    du = np.abs(sol.variables[ns + "u"] - res.u[0, :MM_N].cpu().numpy()).max()
+    check(du <= U_ATOL, f"the single solve is the fleet's instance 0 within {U_ATOL} ({du:.3e})")
+    log(f"[minmax] single solve: status 0, {sol.iters} iters (the fleet's instance 0: "
+        f"{iters[0]}), {sol.time:.4f} s, max |du| from instance 0 {du:.3e}")
+    return solver, params, inits, res, launches
+
+
+def phase_minmax_cross_check(ttc, params, inits, res):
+    """Eight of the min-max fleet's instances solved again by the port on
+    the CPU (plain versions of K1-K3)."""
+    ns = "bmm_"
+    idx = np.arange(0, MM_B, MM_B // 8)
+    cpu = build_minmax(ttc, ns, device="cpu")
+    r = cpu.solve_many({k: v[idx] for k, v in params.items()},
+                       inits={k: v[idx] for k, v in inits.items()}, mu0=1.0, max_iter=60)
+    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
+    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
+    du = np.abs(r.u.numpy()[:, :MM_N] - card.u.cpu().numpy()[:, :MM_N]).max()
+    df = (np.abs(r.f.numpy() - card.f.cpu().numpy()) / np.abs(r.f.numpy())).max()
+    check((st_c == st_g).all(), "status equal on card and CPU")
+    check((np.abs(it_c - it_g) <= 1).all(), "iterations within one")
+    check(du <= U_ATOL, f"u within {U_ATOL} (max {du:.3e})")
+    check(df <= F_RTOL, f"objective within {F_RTOL} relative (max {df:.3e})")
+    log(f"[minmax-cross-check] 8 instances on the CPU: status equal; iterations card "
+        f"{it_g.tolist()} cpu {it_c.tolist()}; max |du| {du:.3e}; objective max rel diff "
+        f"{df:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import tenscalc_tpu_torch as ttc
     from tenscalc_tpu_torch import native
     from tenscalc_tpu_torch._build import build_log
     from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
@@ -1275,6 +1396,14 @@ def main() -> int:
     pallas_launches = phase_sls_pallas(sls, dl, (fb, lu))
     phase_profile("profile3", lambda: solve_sls_fleet(ssolver, "slsf_", sdata))
 
+    # the min-max slice: K1/K2 on the saddle KKT, K3 on the HessD inertia
+    mmsolver, mmparams, mminits, mmres, mm_launches = phase_minmax(ttc, fb, (lu, dl))
+    phase_minmax_cross_check(ttc, mmparams, mminits, mmres)
+    phase_profile("profile4", lambda: mmsolver.solve_many(
+        mmparams, inits=mminits, mu0=1.0, max_iter=60),
+        watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<"),
+               ("K3", r"\bfactor_kernel<")))
+
     # launches: the count on the path that runs the kernel;
     # entry_point_launches: the count of the separate drive of a kernel
     # that no main path runs; ms: host launch overhead included, as the
@@ -1295,8 +1424,12 @@ def main() -> int:
         "ldl_solve": single_launches["ldl_solve"],
         "ldl_factor_solve": single_launches["ldl_factor_solve"],
     }
+    # K1/K2: the flagship's counts and shapes (the min-max path's counts
+    # are in its [minmax] line); K3: the min-max HessD inertia, its only
+    # main-path caller, at the shape that path gives it
+    fb_launches = {**launches, "factor": mm_launches["factor"]}
     kernels = [
-        entry(NAMES[k], SOURCE, REPLACES[k], launches[k], entry_launches.get(k), recs[k])
+        entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k])
         for k in ("factor_solve", "solve", "factor")
     ] + [
         entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,

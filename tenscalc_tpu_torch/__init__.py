@@ -27,7 +27,7 @@ from .expr import (
 from .ops.tseries import tsIntegral
 from .ipm.options import SolverOptions
 from .ipm.status import SolverStatus, describe_status
-from .api import OptimizeSolver, Solution, equilibrium, optimize
+from .api import OptimizeSolver, Solution, equilibrium, minmax, optimize
 from .parallel.batch import solve_batched
 
 __all__ = [
@@ -35,5 +35,5 @@ __all__ = [
     "Variable", "clear_variables", "concat", "constant", "lift",
     "parameter", "to_expr", "variable", "tsIntegral", "SolverOptions",
     "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
-    "optimize", "equilibrium", "solve_batched",
+    "optimize", "minmax", "equilibrium", "solve_batched",
 ]

@@ -12,9 +12,12 @@ device, as the JAX package does with ``TENSCALC_AUTO_FLEET=1``: the
 fleet banded LDL^T (``'fleet_banded'``) when the condensed KKT has at
 least 64 rows and a worthwhile band, else the fleet dense LDL^T
 (``'fleet'``).  ``'pallas'`` factors with the single-instance dense
-LDL^T.  :func:`equilibrium` builds a
-two-player Nash solver (:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose
-unsymmetric KKT goes to the fleet banded LU (``'fleet_banded_lu'``).
+LDL^T.  :func:`minmax` builds a min-max solver
+(:mod:`tenscalc_tpu_torch.ipm.minmax`) whose symmetric saddle KKT goes to
+the same fleet LDL^T backends, or with ``kkt_backend='dense'`` to an
+unpivoted dense LDL^T; :func:`equilibrium` builds a two-player Nash
+solver (:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose unsymmetric KKT
+goes to the fleet banded LU (``'fleet_banded_lu'``).
 """
 
 from __future__ import annotations
@@ -379,6 +382,14 @@ class OptimizeSolver(SolverBase):
             self, parameters, inits=inits, mu0=mu0, max_iter=max_iter,
             addEye2Hessian=addEye2Hessian,
         )
+
+def minmax(*args, **kwargs):
+    """Create a min-max solver on ``device`` (the card when None); see
+    :class:`tenscalc_tpu_torch.ipm.minmax.MinMaxSolver`."""
+    from .ipm.minmax import MinMaxSolver
+
+    return MinMaxSolver(*args, **kwargs)
+
 
 def equilibrium(*args, **kwargs):
     """Create a two-player equilibrium solver on ``device`` (the card when

@@ -8,6 +8,9 @@ iteration loop.  This module holds the shared pieces:
 
 * band extraction of a permuted matrix (its constant part, once per
   solve), by diagonals;
+* per-diagonal pair products for rank-structured terms A diag(wts) B:
+  band[c, i] = (wts @ (AP[:, i:] * BP[:, :n-i]))[c], one product a
+  diagonal;
 * static masks that place global (row, col) entries into band slots;
 * the per-slot shifted copies of a vector (row scalings of a band);
 * :class:`BandedOperator`, the band plus a structured matvec, which the
@@ -15,8 +18,8 @@ iteration loop.  This module holds the shared pieces:
 
 The JAX package permutes by one-hot matrix products at HIGHEST
 precision; the port indexes by the permutation, which gives the same
-values.  The per-diagonal pair products (``pair_products_*``) of the min-
-max solver are ROADMAP item M12.
+values.  No solver of either package calls the pair products; they are
+here so that the module is whole.
 """
 
 from __future__ import annotations
@@ -46,6 +49,30 @@ def extract_band_upper(Wp: torch.Tensor, w: int) -> torch.Tensor:
         for q in range(1, w + 1)
     ]
     return torch.stack(cols, dim=-1)
+
+
+def pair_products_lower(AP: torch.Tensor, BP: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., nF, n) pairs -> (..., w+1, nF, n) with out[..., i, k, c] =
+    AP[..., k, c+i] * BP[..., k, c] (zero past the edge): the lower-band
+    contribution of sum_k wts_k A[:, k] B[k, :] is ``wts @ out[..., i, :, :]``
+    on diagonal i."""
+    n = AP.shape[-1]
+    return torch.stack(
+        [Fn.pad(AP[..., i:] * BP[..., : n - i], (0, i)) for i in range(w + 1)],
+        dim=-3,
+    )
+
+
+def pair_products_upper(AP: torch.Tensor, BP: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., nF, n) pairs -> (..., w, nF, n) with out[..., q-1, k, c] =
+    AP[..., k, c] * BP[..., k, c+q] (zero past the edge)."""
+    n = AP.shape[-1]
+    if w == 0:
+        return AP.new_zeros(AP.shape[:-2] + (0,) + AP.shape[-2:])
+    return torch.stack(
+        [Fn.pad(AP[..., : n - q] * BP[..., q:], (0, q)) for q in range(1, w + 1)],
+        dim=-3,
+    )
 
 
 def entry_masks(perm: np.ndarray, rows: np.ndarray, cols: np.ndarray,
@@ -96,6 +123,7 @@ def shifted_cols(v: torch.Tensor, w: int, start: int = 0) -> torch.Tensor:
 class BandedOperator:
     """Directly assembled permuted band + a structured matvec closure,
     the handle the FromBand factorization adapters consume.  ``band`` is
+    (B, n, w+1) lower storage for the symmetric LDL^T kernels, or
     (B, n, 2w+1) full storage ([diag, sub 1..w, super 1..w]) for the
     unsymmetric LU kernels; ``perm`` (n,) is the permutation as an index:
     band row a belongs to original row ``perm[a]``."""

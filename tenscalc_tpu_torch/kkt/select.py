@@ -2,12 +2,17 @@
 ``tenscalc_tpu/kkt/select.py``).
 
 The KKT pattern is probed at build time, an RCM banded plan computed,
-and a factorization chosen.  The equilibrium KKT stacks two Lagrangians'
-rows, so it is unsymmetric and routes to the banded LU
-(:mod:`tenscalc_tpu_torch.kkt.banded_lu`).  ``kkt_backend='auto'``
-resolves the same way on the CPU and on the card (the plain versions of
-the kernels run on the CPU); the JAX package picks its pure-XLA
-block-tridiagonal LU on the CPU instead, which is ROADMAP item M13.
+and a factorization chosen.  The min-max saddle KKT is symmetric: a
+worthwhile band goes to the fleet banded LDL^T
+(:mod:`tenscalc_tpu_torch.kkt.fleet_banded`), a small or unbanded one to
+the fleet dense LDL^T (:mod:`tenscalc_tpu_torch.kkt.fleet`), and
+``'dense'``/``'ldl'`` to the solver's own unpivoted LDL^T.  The
+equilibrium KKT stacks two Lagrangians' rows, so it is unsymmetric and
+routes to the banded LU (:mod:`tenscalc_tpu_torch.kkt.banded_lu`).
+``kkt_backend='auto'`` resolves to the fleet backends on the CPU and on
+the card alike (the plain versions of the kernels run on the CPU); the
+JAX package picks its pure-XLA block-tridiagonal factorizations on the
+CPU instead (ROADMAP items M11 and M13).
 """
 
 from __future__ import annotations
@@ -40,12 +45,16 @@ def _deferred(what: str, item: str):
 def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     """Return ``(kkt_solver, resolved_name, plan)`` for a game solver.
 
-    ``plan_fn``: lazy () -> BandedPlan | None.  ``kkt_solver`` maps the
-    band-mode :class:`~tenscalc_tpu_torch.kkt.band_assemble.BandedOperator`
-    to a factorization with ``solve`` and ``inertia``."""
+    ``plan_fn``: lazy () -> BandedPlan | None.  ``kkt_solver`` is None for
+    the min-max solver's dense LDL^T; else it maps the KKT of a direction
+    to a factorization with ``solve`` and ``inertia``: the band-mode
+    :class:`~tenscalc_tpu_torch.kkt.band_assemble.BandedOperator` on the
+    banded backends, the dense (B, nK, nK) matrix on ``'fleet'``."""
     kb = opts.kkt_backend
     if kb in ("dense", "ldl"):
-        raise _deferred(f"kkt_backend={kb!r} for the game solvers", "M13")
+        if symmetric:
+            return None, "dense", None
+        raise _deferred(f"kkt_backend={kb!r} for the equilibrium solver", "M13")
     allowed = ("auto", "tridiag", "fleet", "fleet_banded")
     if kb not in allowed:
         raise ValueError(
@@ -53,7 +62,7 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
             f"use one of {('dense',) + allowed}"
         )
     if symmetric:
-        raise _deferred("the symmetric (min-max) game backends", "M12")
+        return _select_symmetric(opts, nK, plan_fn)
     if kb == "fleet":
         raise ValueError(
             "kkt_backend='fleet' (dense LDL fleet kernel) needs a "
@@ -74,3 +83,37 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     n_ref = opts.refine_for("fleet_banded_lu")
     return (lambda op: FleetBandedLUFromBand(op, plan, n_refine=n_ref),
             "fleet_banded_lu", plan)
+
+
+def _select_symmetric(opts, nK, plan_fn):
+    """The min-max branch: the fleet dense LDL^T below nK = 64 or without
+    a worthwhile band, else the fleet banded LDL^T on the directly
+    assembled band."""
+    if opts.kkt_backend == "tridiag":
+        raise _deferred("the block-tridiagonal LDL^T (tridiag_factorize)", "M11")
+    if opts.kkt_backend == "fleet" or nK < 64:
+        return _fleet_dense(opts), "fleet", None
+    plan = plan_fn()
+    if plan is None or not plan.worthwhile:
+        return _fleet_dense(opts), "fleet", None
+    from .band_assemble import BandedOperator
+    from .fleet_banded import FleetBandedFromBand
+
+    n_ref = opts.refine_for("fleet_banded")
+
+    def kkt_sym(op):
+        if not isinstance(op, BandedOperator):
+            raise _deferred(
+                "the fleet banded LDL^T of a dense KKT (FleetBandedFactorization)", "M8"
+            )
+        return FleetBandedFromBand(op, plan, n_refine=n_ref)
+
+    return kkt_sym, "fleet_banded", plan
+
+
+def _fleet_dense(opts):
+    """The fleet dense LDL^T (K4/K5, or K8/K7 at B = 1) on a dense KKT."""
+    from .fleet import fleet_kkt_factorize
+
+    n_ref = opts.refine_for("fleet")
+    return lambda WW: fleet_kkt_factorize(WW, n_refine=n_ref)

@@ -20,10 +20,10 @@ def solve_batched(solver, parameters: Mapping[str, Any],
                   mu0: float = 1.0, max_iter: Optional[int] = None,
                   addEye2Hessian=(1e-9, 1e-9)):
     """Solve a fleet on the solver's device; returns the batched
-    IPMResult (tensors on that device)."""
+    IPMResult (tensors on that device).  ``addEye2Hessian`` holds the
+    solver's initial regularizations: (addU, addEq) for a minimization,
+    (addU, addD, addEq) for a min-max problem."""
     dt = solver.opts.torch_dtype
     penv, shared, B = params_from_numpy(solver, parameters, solver.device, dt)
     u0 = inits_from_numpy(solver, inits, B, solver.device, dt)
-    return solver._solve_raw(
-        u0, penv, shared, mu0, max_iter, addEye2Hessian[0], addEye2Hessian[1]
-    )
+    return solver._solve_raw(u0, penv, shared, mu0, max_iter, *addEye2Hessian)
