@@ -59,7 +59,19 @@ Phases:
      counts read around it (K1, K2 on the saddle KKT, K3 on the HessD
      inertia; no other kernel), then one single solve; its cross-check,
      eight instances solved again on the CPU; a profile of one fleet
-     solve.
+     solve;
+ 13. the slice of problems without inequalities (float32, 'auto', one
+     instance each): bench.py's flops curve (examples/flops, N = 30 ...
+     4000: K8/K7 up to 896 KKT rows, the blocked LDL^T above, with no
+     kernel), each size's build time, warm solve and one-iteration solve,
+     and the launches read around the warm solve; N = 300 again on
+     kkt_backend='dense' and 'ldl' (no kernel); N = 100 and 1000 again on
+     the CPU; bench.py's two mls rows (N = 100, n = 8); the reference's
+     slseq (N = 10000, n = 800, m = 40: K8 at n = 840) against its float64
+     KKT oracle and against the CPU; profiles of the N = 300 and the slseq
+     solves.  [dense-kernels] also holds K8/K7 at these paths' shapes
+     (1, 45), (1, 150), (1, 450) and (1, 840) and times the blocked LDL^T
+     at (1, 1500).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -133,7 +145,17 @@ DENSE_NAMES = {"fleet_factor": "K4 fleet_ldl_factor_batched",
 # cap; the single-instance route at sls, mid and cap widths, and batched
 SLS_B, SLS_N, WIDE_N = 1024, 32, 80
 FLEET_SHAPES = [(SLS_B, SLS_N), (1000, 13), (SLS_B, WIDE_N), (256, 160)]
-SINGLE_SHAPES = [(1, SLS_N), (1, 200), (1, 896), (64, SLS_N)]
+SINGLE_SHAPES = [(1, SLS_N), (1, 45), (1, 150), (1, 200), (1, 450), (1, 840), (1, 896),
+                 (64, SLS_N)]
+# one instance's KKT on the paths without inequalities: flops at N = 30,
+# 100 and 300 (1.5 N rows) and slseq (n + m = 840); the blocked LDL^T's
+# order on the flops curve at N = 1000
+FLOPS_SHAPES = [(1, 45), (1, 150), (1, 450), (1, 840)]
+FALLBACK_N = 1500
+FLOPS_SIZES = (30, 60, 100, 200, 300, 1000, 2000, 4000)
+SLSEQ = (10000, 800, 40)
+# slseq's x against its float64 oracle: 11x the port's float32 CPU error
+SLSEQ_ATOL = 1e-4
 # the min-max fleet (bench.py:809-865): n = 80 minimizer and maximizer
 # variables, their bounds; saddle KKT (nK = 480, RCM w = 6), HessD
 # (m = 240, w = 1)
@@ -315,6 +337,8 @@ def phase_dense_kernels(dl, fl, pl):
     recs = {k: {"max_abs_err": 0.0} for k in DENSE_REPLACES}
     clamp = dl.CLAMP
 
+    shape_ms, shape_dev = {}, {}
+
     def record(k, B, n, err, scale, kern, reps, plain_ms, main, lib_ms=None, route=""):
         """Holds the error, and times the launch ``kern`` (also its device
         time alone)."""
@@ -324,6 +348,7 @@ def phase_dense_kernels(dl, fl, pl):
         bms, by = dense_bound(k, B, n)
         ms = cuda_ms(kern, reps)
         dev_ms = cuda_ms(kern, reps, spin=True)
+        shape_ms[k], shape_dev[k] = ms, dev_ms
         dev = f" (device {dev_ms:.4f} ms)"
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
         log(f"[dense-kernels] {DENSE_NAMES[k]} B={B} n={n}{route}: max_abs_err "
@@ -367,6 +392,29 @@ def phase_dense_kernels(dl, fl, pl):
         t = cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 10)
         log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) against "
             f"{what} at B={B} n={n}: {t:.4f} ms, max abs diff from the kernel {el:.3e}")
+        return t
+
+    def library_pair(A, b, x, scale):
+        """K8's function in two PyTorch calls, torch.linalg.lu_factor_ex
+        with no interchanges then torch.linalg.lu_solve (pivots 1..n): its
+        x held to K8's at the kernels' tolerance; returns the pair's time
+        (ms)."""
+        B, n = b.shape
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device=b.device).repeat(B, 1)
+
+        def pair():
+            LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
+            return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
+
+        xl = pair()
+        torch.cuda.synchronize()
+        el = (xl - x).abs().max().item()
+        check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
+              f"lu_factor_ex + lu_solve against K8 at B={B} n={n}: max abs diff {el}")
+        t = cuda_ms(pair, 10 if n <= 200 else 3)
+        log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) then "
+            f"lu_solve (two calls) against K8 at B={B} n={n}: {t:.4f} ms, max abs diff "
+            f"{el:.3e}")
         return t
 
     def library_solve(LD, b, x, scale, what):
@@ -438,6 +486,7 @@ def phase_dense_kernels(dl, fl, pl):
         p8 = cuda_ms(lambda: pl.pallas_ldl_factor_solve_plain(A, b, clamp), preps)
         main = (B, n) == (1, SLS_N)
         l6 = library_factor(A, Lt, d, "K6") if main else None
+        l8 = library_pair(A, b, x8, scale) if (main or (B, n) in FLOPS_SHAPES) else None
         record("ldl_factor", B, n, e6, scale,
                lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main, l6,
                factor_route(B, n))
@@ -446,8 +495,16 @@ def phase_dense_kernels(dl, fl, pl):
         record("ldl_solve", B, n, e7, scale,
                lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7, route)
         record("ldl_factor_solve", B, n, e8, scale,
-               lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main,
+               lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main, l8,
                route=factor_route(B, n))
+        if (B, n) in FLOPS_SHAPES:
+            # the shapes of the paths without inequalities, beside the record
+            for k, lib in (("ldl_solve", l7), ("ldl_factor_solve", l8)):
+                bms, by = dense_bound(k, B, n)
+                recs[k].setdefault("main_shapes", []).append(
+                    {"n": n, "ms": shape_ms[k], "device_ms": shape_dev[k],
+                     "plain_ms": {"ldl_solve": p7, "ldl_factor_solve": p8}[k],
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib})
     # K6 and K8 at extreme magnitudes (instances scaled beyond 2^+-60,
     # pivots clamped, a quotient that overflows), to the same bits (NaN
     # where the plain version has NaN)
@@ -480,7 +537,40 @@ def phase_dense_kernels(dl, fl, pl):
               "the extreme data overflow and clamp")
         log(f"[dense-kernels] K4 B=64 n={n}{fleet_factor_route(64, n)} at magnitudes "
             "beyond 2^+-60: bitwise equal to the plain version")
+    phase_fallback(dl, fl)
     return recs
+
+
+def phase_fallback(dl, fl):
+    """One instance above K6-K8's cap of 896 (the flops curve at N = 1000):
+    the JAX package's size rule takes it to the blocked LDL^T of
+    kkt/dense.py, plain PyTorch on the card, with no kernel of ours;
+    timed beside K8's bound and the lu_factor_ex + lu_solve pair."""
+    n = FALLBACK_N
+    A, b = test_sym(1, n, seed=n)
+    reset_counts(dl)
+    L, d, x = fl.fleet_ldl_factor_solve(A, b)
+    torch.cuda.synchronize()
+    check(not any(dl.LAUNCHES.values()), f"no K4-K8 above n = 896: {dl.LAUNCHES}")
+    check(bool(torch.equal(L.diagonal(dim1=-2, dim2=-1), torch.ones_like(d))),
+          "the fallback's factor is a unit-lower L")
+    xd = torch.linalg.solve(A.double(), b.double()[..., None])[..., 0]
+    err = ((x.double() - xd).abs().max() / xd.abs().max()).item()
+    check(err <= 1e-5, f"the blocked LDL^T's x within 1e-5 of a float64 solve ({err:.3e})")
+    t_fs = cuda_ms(lambda: fl.fleet_ldl_factor_solve(A, b), 3)
+    t_s = cuda_ms(lambda: fl.fleet_ldl_solve(L, d, b), 10)
+    piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[None]
+
+    def pair():
+        LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
+        return torch.linalg.lu_solve(LU, piv, b[..., None])
+
+    t_lib = cuda_ms(pair, 3)
+    bms, by = dense_bound("ldl_factor_solve", 1, n)
+    log(f"[dense-kernels] the blocked LDL^T above K8's cap, B=1 n={n} (no kernel launch): "
+        f"factor+solve {t_fs:.4f} ms, solve {t_s:.4f} ms, x within {err:.3e} of float64; "
+        f"bound {bms:.4f} ms ({by}); library lu_factor_ex(pivot=False) + lu_solve "
+        f"(two calls) {t_lib:.4f} ms")
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -942,7 +1032,7 @@ def phase_cross_check(mpc, params, inits, res):
 
 
 def phase_profile(label: str, run_fleet, watch=()):
-    """One fleet solve under the profiler: the device's busy and idle
+    """One solve (a fleet's or one instance's) under the profiler: the device's busy and idle
     shares, the top ten kernels, and the kernels whose names ``watch``'s
     patterns find, with their share of the device time."""
     import re
@@ -962,7 +1052,7 @@ def phase_profile(label: str, run_fleet, watch=()):
     }
     check(bool(dev_us), "the profiler saw device kernels")
     busy = sum(dev_us.values()) / 1e6
-    log(f"[{label}] fleet solve under the profiler: wall {wall:.4f} s, device "
+    log(f"[{label}] a solve under the profiler: wall {wall:.4f} s, device "
         f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[{label}]   {v / 1e3:9.3f} ms  {k[:90]}")
@@ -1329,6 +1419,160 @@ def phase_minmax_cross_check(ttc, params, inits, res):
         f"{df:.3e}")
 
 
+def flops_launch_check(rows, n_launch, others, where):
+    """K8 and K7 alone up to 896 KKT rows, no kernel above."""
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"{where}: no banded kernel")
+    if rows <= 896:
+        check(n_launch["ldl_factor_solve"] > 0 and n_launch["ldl_solve"] > 0
+              and n_launch["fleet_factor"] == n_launch["fleet_solve"]
+              == n_launch["ldl_factor"] == 0, f"{where}: through K8 and K7 alone: {n_launch}")
+    else:
+        check(not any(n_launch.values()), f"{where}: no K4-K8 above 896 rows: {n_launch}")
+
+
+def phase_flops(flops, dl, others):
+    """bench.py's flops curve (bench.py:472-556) through optimize() in
+    float32 under 'auto': u0 = 0, mu0 = 1, max_iter = 60; per size the
+    build time, a warm solve with the launches read around it, and a
+    max_iter = 1 solve.  Returns the launches summed over the sizes and
+    the N = 300 solver."""
+    total = {k: 0 for k in dl.LAUNCHES}
+    keep = None
+    for N in FLOPS_SIZES:
+        t0 = time.perf_counter()
+        solver, ns = flops.build_solver(N, ns=f"bfl{N}_", dtype="float32")
+        build = time.perf_counter() - t0
+        check((solver.nU, solver.nF, solver.nG) == (N, 0, N // 2), f"flops N={N} sizes")
+        check(solver.kkt_backend_resolved == "fleet" and solver.kkt_plan is None,
+              f"flops N={N}: auto resolves to the fleet dense backend")
+        params, init = flops.default_data(N, ns)
+        solver.solve(params, init=init, mu0=1.0, max_iter=60)  # warm-up
+        reset_counts(dl, *others)
+        sol = solver.solve(params, init=init, mu0=1.0, max_iter=60)
+        n = dict(dl.LAUNCHES)
+        check(sol.status == 0, f"flops N={N}: {sol.describe()}")
+        check(np.isfinite(sol.variables[ns + "x"]).all(), f"flops N={N}: finite x")
+        flops_launch_check(3 * N // 2, n, others, f"flops N={N}")
+        one = solver.solve(params, init=init, mu0=1.0, max_iter=1)
+        check(one.status & 8 and one.iters == 2, f"flops N={N} max_iter=1: status {one.status}")
+        for k in total:
+            total[k] += n[k]
+        route = ("K8/K7" if 3 * N // 2 <= 896 else "blocked LDL^T, no kernel")
+        log(f"[flops] N={N} (KKT {3 * N // 2} rows, {route}): build {build:.2f} s; status 0, "
+            f"{sol.iters} iterations; warm solve {sol.time:.4f} s; max_iter=1 solve "
+            f"{one.time:.4f} s; J {float(sol.outputs['J']):.6f}; launches {n}; per iteration "
+            f"{per_iteration(n, sol.iters) or 'none'}")
+        if N == 300:
+            keep = (solver, params, init)
+        del solver
+    return total, keep
+
+
+def phase_flops_backends(flops, dl, others):
+    """flops N = 300 on kkt_backend='dense' (pivoted LU) and 'ldl' (the
+    blocked LDL^T): plain PyTorch, no kernel of ours."""
+    N = 300
+    for backend in ("dense", "ldl"):
+        solver, ns = flops.build_solver(N, ns=f"bfd{backend}_", dtype="float32",
+                                        kkt_backend=backend)
+        check(solver.kkt_backend_resolved == backend, f"{backend} backend")
+        params, init = flops.default_data(N, ns)
+        solver.solve(params, init=init, mu0=1.0, max_iter=60)  # warm-up
+        reset_counts(dl, *others)
+        sol = solver.solve(params, init=init, mu0=1.0, max_iter=60)
+        check(sol.status == 0, f"flops N={N} on '{backend}': {sol.describe()}")
+        check(not any(v for m in (dl, *others) for v in m.LAUNCHES.values()),
+              f"no K1-K11 on '{backend}'")
+        log(f"[flops-backends] N={N} kkt_backend='{backend}': status 0, {sol.iters} "
+            f"iterations, warm solve {sol.time:.4f} s, no kernel launch")
+
+
+def phase_flops_cross_check(flops):
+    """N = 100 and 1000 solved again by the port on the CPU."""
+    for N in (100, 1000):
+        card, ns = flops.build_solver(N, ns=f"bfl{N}_", dtype="float32")
+        cpu, _ = flops.build_solver(N, ns=f"bfl{N}_", dtype="float32", device="cpu")
+        params, init = flops.default_data(N, ns)
+        a = card.solve(params, init=init, mu0=1.0, max_iter=60)
+        r = cpu.solve(params, init=init, mu0=1.0, max_iter=60)
+        dx = np.abs(a.variables[ns + "x"] - r.variables[ns + "x"]).max()
+        dJ = abs(float(a.outputs["J"]) - float(r.outputs["J"])) / abs(float(r.outputs["J"]))
+        check(a.status == r.status and abs(a.iters - r.iters) <= 1,
+              f"flops N={N}: card status {a.status} ({a.iters} it), CPU {r.status} ({r.iters})")
+        check(dx <= U_ATOL and dJ <= J_RTOL,
+              f"flops N={N}: x within {U_ATOL} ({dx:.3e}), J within {J_RTOL} ({dJ:.3e})")
+        log(f"[flops-cross-check] N={N} on the CPU: status {r.status} on both, iterations "
+            f"card {a.iters} cpu {r.iters}, max |dx| {dx:.3e}, J rel diff {dJ:.3e}")
+
+
+def phase_mls(sls, dl, others):
+    """bench.py's bench_mls rows (N = 100, n = 8; x0 = 0.02 rand, mu0 = 1,
+    max_iter = 20): min ||A x - b||^2 / N without and with 0 <= x <= 0.05."""
+    N, n = 100, 8
+    rng = np.random.default_rng(0)
+    A, b, x0 = rng.random((N, n)), rng.random(N), 0.02 * rng.random(n)
+    total = {k: 0 for k in dl.LAUNCHES}
+    for row, build, ns in (("unconstrained", sls.build_unconstrained, "bmlu_"),
+                           ("constrained", sls.build_constrained, "bmlc_")):
+        solver = build(N=N, n=n, ns=ns, dtype="float32")
+        params = {ns + "A": A, ns + "b": b}
+        solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)  # warm-up
+        reset_counts(dl, *others)
+        sol = solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)
+        n_l = dict(dl.LAUNCHES)
+        check(sol.status == 0, f"mls {row}: {sol.describe()}")
+        check(n_l["ldl_factor_solve"] > 0 and not any(v for m in others
+                                                    for v in m.LAUNCHES.values()),
+              f"mls {row} through K8: {n_l}")
+        for k in total:
+            total[k] += n_l[k]
+        log(f"[mls] {row} (nF={solver.nF}, KKT {solver.nU + solver.nG} rows): status 0, "
+            f"{sol.iters} iterations, {sol.time:.4f} s; launches {n_l}; per iteration "
+            f"{per_iteration(n_l, sol.iters)}")
+    return total
+
+
+def phase_slseq(slseq, dl, others):
+    """The reference's slseq (N = 10000, n = 800, m = 40, float32 'auto'):
+    K8 at n = 840, held to the float64 KKT oracle and to the port on the
+    CPU.  Returns the launches, the solver and its inputs."""
+    N, n, m = SLSEQ
+    t0 = time.perf_counter()
+    solver = slseq.build_solver(N, n, m, dtype="float32")
+    build = time.perf_counter() - t0
+    check(solver.nU + solver.nG == 840 and solver.nF == 0
+          and solver.kkt_backend_resolved == "fleet", "slseq: 840 KKT rows on the fleet backend")
+    A, b, C, d = slseq.default_data(N, n, m)
+    params = {"slq_A": A, "slq_b": b, "slq_C": C, "slq_d": d}
+    init = {"slq_x": 0.01 * np.random.default_rng(1).random(n)}
+    solver.solve(params, init=init, mu0=1.0, max_iter=60)  # warm-up
+    reset_counts(dl, *others)
+    sol = solver.solve(params, init=init, mu0=1.0, max_iter=60)
+    n_l = dict(dl.LAUNCHES)
+    check(sol.status == 0, f"slseq: {sol.describe()}")
+    flops_launch_check(n + m, n_l, others, "slseq")
+    x = sol.outputs["x"]
+    xref = slseq.kkt_oracle(A, b, C, d)
+    ex = np.abs(x - xref).max()
+    eq = np.abs(C @ x - d).max()
+    # the port on the CPU in float32 lands 8.7e-6 from the oracle (|x| up
+    # to 0.049), its equality residual 1.1e-7
+    check(ex <= SLSEQ_ATOL and eq <= 1e-4,
+          f"slseq: x within {SLSEQ_ATOL} of the float64 oracle ({ex:.3e}), |Cx - d| {eq:.3e}")
+    cpu = slseq.build_solver(N, n, m, dtype="float32", device="cpu")
+    r = cpu.solve(params, init=init, mu0=1.0, max_iter=60)
+    dx = np.abs(r.outputs["x"] - x).max()
+    dJ = abs(float(r.outputs["J"]) - float(sol.outputs["J"])) / abs(float(r.outputs["J"]))
+    check(r.status == 0 and abs(r.iters - sol.iters) <= 1 and dx <= U_ATOL and dJ <= J_RTOL,
+          f"slseq on the CPU: status {r.status}, {r.iters} it, |dx| {dx:.3e}, dJ {dJ:.3e}")
+    log(f"[slseq] N={N} n={n} m={m}: build {build:.2f} s; status 0, {sol.iters} iterations, "
+        f"warm solve {sol.time:.4f} s; launches {n_l}; per iteration "
+        f"{per_iteration(n_l, sol.iters)}; max |x - oracle| {ex:.3e}, |Cx - d| {eq:.3e}; "
+        f"the CPU: {r.iters} iterations, max |dx| {dx:.3e}, J rel diff {dJ:.3e}")
+    return n_l, solver, params, init
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1404,6 +1648,21 @@ def main() -> int:
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<"),
                ("K3", r"\bfactor_kernel<")))
 
+    # the slice of problems without inequalities: K8/K7 on one instance's
+    # dense KKT up to 896 rows, the blocked LDL^T above
+    from tenscalc_tpu_torch.examples import flops, slseq
+
+    flops_launches, (fsolver, fparams, finit) = phase_flops(flops, dl, (fb, lu))
+    phase_flops_backends(flops, dl, (fb, lu))
+    phase_flops_cross_check(flops)
+    mls_launches = phase_mls(sls, dl, (fb, lu))
+    slseq_launches, qsolver, qparams, qinit = phase_slseq(slseq, dl, (fb, lu))
+    k87 = (("K8", r"\bldl_factor_solve_kernel\b"), ("K7", r"\bldl_solve_kernel\b"))
+    phase_profile("profile5", lambda: fsolver.solve(fparams, init=finit, mu0=1.0,
+                                                    max_iter=60), watch=k87)
+    phase_profile("profile6", lambda: qsolver.solve(qparams, init=qinit, mu0=1.0,
+                                                    max_iter=60), watch=k87)
+
     # launches: the count on the path that runs the kernel;
     # entry_point_launches: the count of the separate drive of a kernel
     # that no main path runs; ms: host launch overhead included, as the
@@ -1415,14 +1674,17 @@ def main() -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "device_ms": rec["device_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms")}
+                "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
+                **({"main_shapes": rec["main_shapes"]} if "main_shapes" in rec else {})}
 
     dense_launches = {
         "fleet_factor": fleet_launches["fleet_factor"],
         "fleet_solve": fleet_launches["fleet_solve"],
         "ldl_factor": pallas_launches["ldl_factor"],
-        "ldl_solve": single_launches["ldl_solve"],
-        "ldl_factor_solve": single_launches["ldl_factor_solve"],
+        # K7/K8: every one-instance path that runs them, each read alone:
+        # the sls single solves, the flops curve, mls and slseq
+        **{k: single_launches[k] + flops_launches[k] + mls_launches[k] + slseq_launches[k]
+           for k in ("ldl_solve", "ldl_factor_solve")},
     }
     # K1/K2: the flagship's counts and shapes (the min-max path's counts
     # are in its [minmax] line); K3: the min-max HessD inertia, its only

@@ -24,6 +24,7 @@ from .expr import (
     to_expr,
     variable,
 )
+from .ops.fns import norm2, tprod
 from .ops.tseries import tsIntegral
 from .ipm.options import SolverOptions
 from .ipm.status import SolverStatus, describe_status
@@ -33,7 +34,7 @@ from .parallel.batch import solve_batched
 __all__ = [
     "Constraint", "Expr", "Tconstant", "Tones", "Tvariable", "Tzeros",
     "Variable", "clear_variables", "concat", "constant", "lift",
-    "parameter", "to_expr", "variable", "tsIntegral", "SolverOptions",
+    "parameter", "to_expr", "variable", "norm2", "tprod", "tsIntegral", "SolverOptions",
     "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
     "optimize", "minmax", "equilibrium", "solve_batched",
 ]

@@ -11,8 +11,12 @@ For minimization, ``kkt_backend='auto'`` resolves the same way on every
 device, as the JAX package does with ``TENSCALC_AUTO_FLEET=1``: the
 fleet banded LDL^T (``'fleet_banded'``) when the condensed KKT has at
 least 64 rows and a worthwhile band, else the fleet dense LDL^T
-(``'fleet'``).  ``'pallas'`` factors with the single-instance dense
-LDL^T.  :func:`minmax` builds a min-max solver
+(``'fleet'``); the condensed KKT's rows count nU + nG, the large
+Newton matrix's nU + nG + nF.  ``'pallas'`` factors with the
+single-instance dense LDL^T, ``'dense'`` with the JAX package's dense
+backend (:func:`.kkt.dense.kkt_factorize`: a pivoted LU, or an LDL^T
+for inertia) and ``'ldl'`` with its blocked LDL^T
+(``kkt_factorize(force_ldl=True)``).  :func:`minmax` builds a min-max solver
 (:mod:`tenscalc_tpu_torch.ipm.minmax`) whose symmetric saddle KKT goes to
 the same fleet LDL^T backends, or with ``kkt_backend='dense'`` to an
 unpivoted dense LDL^T; :func:`equilibrium` builds a two-player Nash
@@ -31,7 +35,7 @@ import torch
 
 from .expr import Constraint, Expr, Variable
 from .ipm.options import SolverOptions
-from .ipm.solver import IPMFunctions, IPMResult, build_ipm, dense_condensed_kkt
+from .ipm.solver import IPMFunctions, IPMResult, build_ipm, dense_kkt
 from .ipm.status import describe_status
 from .pack import Packing
 
@@ -88,7 +92,9 @@ def problem_functions(objective: Expr, variables: Sequence[Variable],
         env = {**penv, **packing.unpack(u)}
         if not exprs:
             return u.new_zeros(0)
-        return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt)
+        # a copy: forward-mode AD of a 0-dim expression and a Python
+        # number gives a float64 tangent, which a cast in place would keep
+        return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt, copy=True)
 
     def f_fn(u, penv):
         env = {**penv, **packing.unpack(u)}
@@ -205,10 +211,11 @@ class OptimizeSolver(SolverBase):
         self.opts = (
             (options or SolverOptions()).replace(**option_kwargs).resolved("optimize")
         )
-        if self.opts.kkt_backend not in ("auto", "fleet_banded", "fleet", "pallas"):
+        if self.opts.kkt_backend in ("tridiag", "cyclic", "spike"):
+            item = "M11" if self.opts.kkt_backend == "tridiag" else "M16"
             raise NotImplementedError(
                 f"kkt_backend={self.opts.kkt_backend!r} is not ported yet "
-                "(ROADMAP items M4, M11 and M16)"
+                f"(ROADMAP item {item})"
             )
         self.device = resolve_device(device)
         full_precision_matmul()
@@ -273,24 +280,37 @@ class OptimizeSolver(SolverBase):
         return h_deps, fu_deps, gu_deps
 
     def _plan_structure(self) -> None:
-        """Pick the KKT backend: probe the KKT sparsity pattern on the CPU
-        and plan the RCM band; the fleet banded LDL^T where the band is
+        """Pick the KKT backend (JAX ``api.py:243-290``): ``'dense'`` and
+        ``'ldl'`` as named; else probe the KKT sparsity pattern on the CPU
+        and plan the RCM band, the fleet banded LDL^T where the band is
         worthwhile, else the fleet dense LDL^T (JAX ``api.py:334-409``,
         its ``auto_fleet`` branch)."""
         from .kkt.fleet_banded import FleetBandedFromBand
         from .kkt.structure import plan_banded, probe_pattern
 
-        if self.opts.kkt_backend == "pallas":
+        backend = self.opts.kkt_backend
+        if backend == "dense":
+            self._install_backend(None, "dense")
+            return
+        if backend == "ldl":
+            from .kkt.dense import kkt_factorize
+
+            opts = self.opts
+            self._install_backend(
+                lambda WW: kkt_factorize(WW, need_inertia=opts.useInertia,
+                                         block=opts.ldl_block, force_ldl=True),
+                "ldl",
+            )
+            return
+        if backend == "pallas":
             self._use_pallas()
             return
-        nK = self.nU + self.nG
-        if self.opts.kkt_backend == "fleet" or nK < 64:
+        nK = self.nU + self.nG + (0 if self.opts.smallerNewtonMatrix else self.nF)
+        if backend == "fleet" or nK < 64:
             self._use_fleet_dense()
             return
         dt = self.opts.torch_dtype
-        assemble_dense = dense_condensed_kkt(
-            self._fns, self.nU, self.nF, self.nG, self.opts
-        )
+        assemble_dense = dense_kkt(self._fns, self.nU, self.nF, self.nG, self.opts)
 
         def assemble(trial: int):
             rng = np.random.default_rng(trial)
@@ -319,8 +339,9 @@ class OptimizeSolver(SolverBase):
         )
 
     def _install_backend(self, kkt_solver, name: str, band_plan=None) -> None:
-        """Build the solve function around a KKT backend; the fleet
-        backends take the CG nu-initializer (JAX ``api.py:314-332``)."""
+        """Build the solve function around a KKT backend (``None``: the
+        dense ``kkt_factorize``); the fleet backends take the CG
+        nu-initializer (JAX ``api.py:314-332``)."""
         self._kkt_solver = kkt_solver
         self.kkt_backend_resolved = name
         self._solve_raw = build_ipm(

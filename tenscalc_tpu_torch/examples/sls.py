@@ -1,7 +1,9 @@
-"""Constrained least squares, min ||A x - b||^2 / N s.t. lo <= x <= hi:
-the reference's timed sls benchmark (its examples/sls.m, and the JAX
-package's ``examples/sls.py::build_constrained``), written for the
-PyTorch port.
+"""Least squares, min ||A x - b||^2 / N, in the reference's sls
+formulations (its examples/sls.m, and the JAX package's
+``examples/sls.py``) written for the PyTorch port: direct
+(``build_unconstrained``, no constraint: the full-step branch), with a
+slack variable (``build_slack``), and constrained, lo <= x <= hi
+(``build_constrained``, the reference's timed benchmark).
 
 At N = 400, n = 32 the condensed KKT has nK = 32 rows, so
 ``kkt_backend='auto'`` resolves to the fleet dense LDL^T: K8/K7 for one
@@ -18,9 +20,38 @@ from __future__ import annotations
 import numpy as np
 
 import tenscalc_tpu_torch as tc
-from tenscalc_tpu_torch.expr import lift
 
-_sum_sq = lift(lambda r: (r ** 2).sum())
+
+def build_unconstrained(N=400, n=32, ns="sls_", **options):
+    """min ||A x - b||^2 / N over x, A (N, n) and b (N,) parameters."""
+    A = tc.variable(ns + "A", (N, n))
+    b = tc.variable(ns + "b", (N,))
+    x = tc.variable(ns + "x", (n,))
+    J = tc.norm2(A @ x - b) / N
+    return tc.optimize(
+        objective=J,
+        optimizationVariables=[x],
+        parameters=[A, b],
+        outputExpressions={"J": J, "x": x},
+        **options,
+    )
+
+
+def build_slack(N=400, n=32, ns="slsv_", **options):
+    """min v s.t. v >= ||A x - b||^2 / N (sls.m:86-124)."""
+    A = tc.variable(ns + "A", (N, n))
+    b = tc.variable(ns + "b", (N,))
+    x = tc.variable(ns + "x", (n,))
+    v = tc.variable(ns + "v", ())
+    J = tc.norm2(A @ x - b) / N
+    return tc.optimize(
+        objective=v,
+        optimizationVariables=[x, v],
+        constraints=[v >= J],
+        parameters=[A, b],
+        outputExpressions={"J": J, "x": x},
+        **options,
+    )
 
 
 def build_constrained(N=400, n=32, lo=0.0, hi=0.05, ns="slsc_", **options):
@@ -30,7 +61,7 @@ def build_constrained(N=400, n=32, lo=0.0, hi=0.05, ns="slsc_", **options):
     A = tc.variable(ns + "A", (N, n))
     b = tc.variable(ns + "b", (N,))
     x = tc.variable(ns + "x", (n,))
-    J = _sum_sq(A @ x - b) / N
+    J = tc.norm2(A @ x - b) / N
     return tc.optimize(
         objective=J,
         optimizationVariables=[x],

@@ -10,24 +10,29 @@ each instance keeps (``torch.where``), and a single solve is B = 1
 through the same code.  Instances that are done, or stop at this
 iteration, are computed with the rest and discarded, as under ``vmap``.
 
-The condensed standard Newton matrix is ported in two forms, which
-share the driver (the Mehrotra predictor/corrector, the
-``addEye2Hessian`` adaptation with the relative float32 direction-error
-gate and the progress guard, both line searches, the mu schedule, the
-exit tests and the final status flags) and differ only in the KKT they
-linearize at each iterate (:class:`Linearization`):
+The Newton systems share the outer loop (the Mehrotra predictor/corrector,
+the ``addEye2Hessian`` adaptation with the relative float32
+direction-error gate and the progress guard, both line searches, the mu
+schedule, the exit tests and the final status flags) and differ only in
+the KKT they linearize at each iterate (:class:`Linearization`):
 
-* band mode ('hoisted'): iteration-invariant derivatives at a dummy
-  iterate, the KKT assembled directly into band storage (``BandKKT``)
-  for the fleet banded LDL^T;
-* the dense branch (JAX ``band_plan is None``): the dense condensed
-  matrix ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``,
-  its derivatives hoisted at the initial point where certified
-  iteration-invariant (the scaled Fu among them) and evaluated at every
-  iterate where not, for the dense LDL^T backends.
+* band mode ('hoisted', the condensed matrix with inequalities):
+  iteration-invariant derivatives at a dummy iterate, the KKT assembled
+  directly into band storage (``BandKKT``) for the fleet banded LDL^T;
+* the dense branch (JAX ``band_plan is None``): the condensed matrix
+  ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``, or the
+  large one of the standard variant ``[[H + addU I, Gu', -Fu'],
+  [Gu, -addEq I, 0], [-Fu, 0, -diag(F/lam)]]`` or of ``timesLambda``
+  (lambda scaling the Fu blocks and ``-diag(F lam)``, with the
+  multiplicative lambda step), its derivatives hoisted at the initial
+  point where certified iteration-invariant (the scaled Fu among them)
+  and evaluated at every iterate where not, for the dense backends: a
+  KKT backend given to :func:`build_ipm`, else :func:`.kkt.dense.kkt_factorize`.
 
-The nu initializer is the CG on the normal equations for the fleet
-backends and a pivoted-LU solve for the others.
+A problem without inequality constraints (nF = 0) takes the full step
+with lambda and mu frozen, and its exit test has no gap (JAX
+``solver.py:1409-1417``).  The nu initializer is the CG on the normal
+equations for the fleet backends and a pivoted-LU solve for the others.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch
 import torch.nn.functional as Fn
 from torch.func import grad, jacfwd, vmap
 
-from ..kkt.dense import hdot, hdotT, lu_solve_mixed
+from ..kkt.dense import hdot, hdotT, kkt_factorize, lu_solve_mixed
 from .options import SolverOptions
 
 STEPBACK = 0.99  # reference: stepback=.99, lib/ipmPD_CSsolver.c:174
@@ -261,6 +266,15 @@ def _band_of(W: torch.Tensor, perm: torch.Tensor, w: int) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def _rough_solve(fac, rhs: torch.Tensor) -> torch.Tensor:
+    """The Mehrotra predictor's solve: unrefined in float32 where the
+    backend has such a solve, else its own."""
+    f32 = getattr(fac, "_solve32", None)
+    if f32 is not None:
+        return f32(rhs).to(rhs.dtype)
+    return fac.solve(rhs)
+
+
 def _mvWW(WW, x: torch.Tensor) -> torch.Tensor:
     if isinstance(WW, BandKKT):
         return WW.matvec(x)
@@ -296,11 +310,34 @@ def _deferred(what: str, item: str):
     )
 
 
-def dense_condensed_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int,
-                        opts: SolverOptions):
-    """Single-instance dense condensed KKT assembly (the branch the
-    build-time structure probe reads):
-    ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``."""
+def _large_kkt(WW11, Fu, Gu, Fval, lam, addEq, times_lambda: bool):
+    """The large Newton matrix of a batch, (B, nU + nG + nF) square:
+    ``[[WW11, Gu', -Fu'], [Gu, -addEq I, 0], [-Fu, 0, -diag(F/lam)]]``, or
+    with ``times_lambda`` its multiplicative-lambda form
+    ``[[WW11, Gu', -Fu' diag(lam)], [Gu, -addEq I, 0],
+    [-diag(lam) Fu, 0, -diag(F lam)]]`` (JAX ``solver.py:555-584``)."""
+    B, nF, nG = WW11.shape[0], Fu.shape[1], Gu.shape[1]
+    if times_lambda:
+        FuT, Fb, dg = -(Fu.transpose(1, 2) * lam[:, None, :]), -(lam[:, :, None] * Fu), Fval * lam
+    else:
+        FuT, Fb, dg = -Fu.transpose(1, 2), -Fu, Fval / lam
+    eye_g = torch.eye(nG, dtype=WW11.dtype, device=WW11.device)
+    zGF = WW11.new_zeros(B, nG, nF)
+    return torch.cat(
+        [torch.cat([WW11, Gu.transpose(1, 2), FuT], dim=2),
+         torch.cat([Gu, -addEq[:, None, None] * eye_g, zGF], dim=2),
+         torch.cat([Fb, zGF.transpose(1, 2), -torch.diag_embed(dg)], dim=2)],
+        dim=1,
+    )
+
+
+def dense_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int, opts: SolverOptions):
+    """Single-instance dense KKT assembly of the options' Newton matrix
+    (the branch the build-time structure probe reads): the condensed
+    ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]`` or the
+    large matrix of the standard or ``timesLambda`` variant."""
+    small = bool(opts.smallerNewtonMatrix)
+    times_lambda = opts.variant == "timesLambda"
 
     def assemble(u, nu, lam, addU, addEq, penv, scale_ineq, scale_cost):
         dt = u.dtype
@@ -322,6 +359,11 @@ def dense_condensed_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int,
         H = jacfwd(grad(lagr, argnums=0), argnums=0)(u, nu, lam)
         H = 0.5 * (H + H.T)
         WW = H + addU * torch.eye(nU, dtype=dt)
+        if not small:
+            Fu = jacfwd(Fs)(u) if nF > 0 else u.new_zeros(0, nU)
+            Gu = jacfwd(Gs)(u) if nG > 0 else u.new_zeros(0, nU)
+            return _large_kkt(WW[None], Fu[None], Gu[None], Fs(u)[None], lam[None],
+                              torch.full((1,), addEq, dtype=dt), times_lambda)[0]
         if nF > 0:
             Fu = jacfwd(Fs)(u)
             Fval = Fs(u)
@@ -351,7 +393,8 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
 
     ``kkt_solver`` factors the KKT each direction assembles: a
     ``BandKKT`` in band mode (``band_plan`` given), else the dense
-    (B, nK, nK) matrix.  ``hoist`` = (H, Fu, Gu) iteration-invariance
+    (B, nK, nK) matrix; ``None`` means :func:`.kkt.dense.kkt_factorize`
+    (the ``'dense'`` backend).  ``hoist`` = (H, Fu, Gu) iteration-invariance
     flags from :func:`tenscalc_tpu_torch.ipm.hoist.analyze_hoistable`.
     ``fleet_init`` picks the CG nu-initializer (the fleet backends) over
     the pivoted-LU solve."""
@@ -359,13 +402,16 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
     dt = opts.torch_dtype
     f64 = dt == torch.float64
     small = bool(opts.smallerNewtonMatrix)
-    if not small:
-        raise _deferred("the large/timesLambda Newton-matrix variants", "M7")
+    times_lambda = opts.variant == "timesLambda" and not small
     if opts.profiling or opts.allowSave:
-        raise _deferred("profiling and allowSave", "M17/M7")
-    if nF == 0:
-        raise _deferred("a problem without inequality constraints", "M7")
-    nK = nU + nG
+        raise _deferred("profiling and allowSave", "M17")
+    if band_plan is not None and (nF == 0 or not small):
+        raise _deferred(
+            "a banded plan for a problem without inequalities or for the large "
+            "Newton matrix (the JAX package factors its dense KKT by "
+            "fleet_banded_kkt_factorize)", "M8",
+        )
+    nK = nU + nG + (0 if small else nF)
     band_mode = (
         band_plan is not None
         and hoist_H
@@ -379,7 +425,13 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             "are not all hoisted)", "M8",
         )
     mp_desired = float(nU)
-    mn_desired = float(nG)
+    mn_desired = float(nG if small else nF + nG)
+
+    def factor(WW):
+        if kkt_solver is not None:
+            return kkt_solver(WW)
+        return kkt_factorize(WW, need_inertia=opts.useInertia, block=opts.ldl_block,
+                             n_refine=opts.refine_for("dense"))
     adapt = opts.addEye2Hessian and opts.adjustAddEye2Hessian
     F_affine = hoist_Fu and opts.linesearch_affine_F
 
@@ -406,6 +458,8 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
 
         def full(v, dtype=dt):
             return torch.full((B,), v, dtype=dtype, device=dev)
+
+        no_rows = u0.new_zeros(B, 0, nU)  # the Jacobian of no constraint
 
         F_b = vmap(fns.F, in_dims=(0, pdims))
         f_b = vmap(fns.f, in_dims=(0, pdims))
@@ -455,7 +509,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         lam0 = mu0 / (si * F0)
         if nG > 0:
             Gu0 = Gu_at(u0)
-            Fu0 = Fu_at(u0)
+            Fu0 = Fu_at(u0) if nF > 0 else no_rows
             f_u0 = vmap(grad(lambda uu, pe, c: c * fns.f(uu, pe)),
                         in_dims=(0, pdims, 0))(u0, penv, sc)
             btop = hdotT(Fu0, lam0) - f_u0
@@ -585,27 +639,43 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             return linearize
 
         def dense_linearization():
-            """The dense condensed KKT: H, the scaled Fu and Gu hoisted at
-            (u0, nu0, lam0) where certified iteration-invariant, else
-            evaluated at each iterate."""
+            """The dense KKT (condensed or large): H, the scaled Fu and Gu
+            hoisted at (u0, nu0, lam0) where certified iteration-invariant,
+            else evaluated at each iterate."""
             H0 = H_at(u0, nu0, lam0) if hoist_H else None
-            Fu0_ = Fu_at(u0) if hoist_Fu else None
+            Fu0_ = Fu_at(u0) if (hoist_Fu and nF > 0) else None
             Gu0_ = Gu_at(u0) if (hoist_Gu and nG > 0) else None
             eye_u = torch.eye(nU, dtype=dt, device=dev)
             eye_g = torch.eye(nG, dtype=dt, device=dev)
 
             def linearize(u, nu, lam, Fval):
                 H = H0 if H0 is not None else H_at(u, nu, lam)
-                Fu = Fu0_ if Fu0_ is not None else Fu_at(u)
+                if nF == 0:
+                    Fu = no_rows
+                else:
+                    Fu = Fu0_ if Fu0_ is not None else Fu_at(u)
                 if nG > 0:
                     Gu = Gu0_ if Gu0_ is not None else Gu_at(u)
+                else:
+                    Gu = no_rows
                 Fdiv = Fval if f64 else torch.clamp(Fval, min=1e-8)
                 LPG = (lam / Fdiv)[:, :, None] * Fu
-                FtLPG = torch.bmm(Fu.transpose(1, 2), LPG)
+                lin_F = (lambda x: hdot(Fu, x), lambda y: hdotT(Fu, y),
+                         lambda x: hdot(LPG, x))
+                if not small:
+                    def assemble_large(addU, addEq):
+                        WW11 = H + addU[:, None, None] * eye_u
+                        WW = _large_kkt(WW11, Fu, Gu, Fval, lam, addEq, times_lambda)
+                        return WW, lambda x: hdot(WW11, x)
+
+                    return Linearization(*lin_F, assemble_large)
+                # the barrier block is absent without inequalities (JAX
+                # adds a scalar 0 there)
+                FtLPG = torch.bmm(Fu.transpose(1, 2), LPG) if nF > 0 else None
 
                 def assemble(addU, addEq):
                     WW11 = H + addU[:, None, None] * eye_u
-                    WW = WW11 + FtLPG
+                    WW = WW11 + FtLPG if FtLPG is not None else WW11
                     if nG > 0:
                         WW = torch.cat(
                             [torch.cat([WW, Gu.transpose(1, 2)], dim=2),
@@ -614,21 +684,21 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                         )
                     return WW, lambda x: hdot(WW11, x)
 
-                return Linearization(
-                    lambda x: hdot(Fu, x), lambda y: hdotT(Fu, y),
-                    lambda x: hdot(LPG, x), assemble,
-                )
+                return Linearization(*lin_F, assemble)
 
             return linearize
 
         linearize = band_linearization() if band_mode else dense_linearization()
 
+        inf_B = full(math.inf)
+
         def exit_metrics(st: IPMState):
             grad_u, (Fval, Gval) = lagr_grad(st.u, st.nu, st.lam, penv, si, sc)
-            return (
-                _norminf(grad_u), _norminf(Gval), _dot(st.lam, Fval),
-                Fval.amin(dim=1), st.lam.amin(dim=1), (grad_u, Fval, Gval),
-            )
+            if nF > 0:
+                gap, ineq, dual = _dot(st.lam, Fval), Fval.amin(dim=1), st.lam.amin(dim=1)
+            else:
+                gap, ineq, dual = full(0.0), inf_B, inf_B
+            return _norminf(grad_u), _norminf(Gval), gap, ineq, dual, (grad_u, Fval, Gval)
 
         def compute_direction(lin: Linearization, lam, mu, addU, addEq,
                               cached, mehrotra_mu) -> Direction:
@@ -637,31 +707,57 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             muF = mu[:, None] / Fdiv
             fu_mv, fuT_mv, lpg_mv = lin.fu_mv, lin.fuT_mv, lin.lpg_mv
             WW, ww11_mv = lin.assemble(addU, addEq)
-            fac = kkt_solver(WW)
+            fac = factor(WW)
             mu_new = mu
             sigma_fired = torch.zeros(B, dtype=torch.bool, device=dev)
-            if not opts.skipAffine:
-                # the predictor takes the unrefined float32 solve
-                b_a = torch.cat([-grad_u - fuT_mv(lam), -Gval], dim=1)
-                dx_a = fac._solve32(b_a).to(dt)
-                dU_a = dx_a[:, :nU]
-                dLambda_a = -lpg_mv(dU_a) - lam
-                use_corr = torch.ones_like(mu)
-                if mehrotra_mu is not None:
+            # the Mehrotra predictor; without inequalities it feeds
+            # nothing (the JAX package's compiler drops its solve), so
+            # its caller passes no mehrotra_mu and it is not formed
+            affine = mehrotra_mu is not None
+            if not small:
+                # the large system (JAX solver.py:680-714)
+                if times_lambda:
+                    b3 = lam * Fval - mu[:, None]
+                elif not affine:
+                    b3 = Fval - mu[:, None] / lam
+                else:
+                    b_a = torch.cat([-grad_u, -Gval, Fval], dim=1)
+                    dx_a = _rough_solve(fac, b_a)
+                    dU_a, dLambda_a = dx_a[:, :nU], dx_a[:, nU + nG:]
                     mu_new, sigma_fired = mehrotra_mu(dU_a, dLambda_a, Fval)
                     use_corr = sigma_fired.to(dt)
-                muF_c = mu_new[:, None] / Fdiv
-                Meh = use_corr[:, None] * fu_mv(dU_a) * dLambda_a / Fdiv
-                r1 = -grad_u - fuT_mv(lam - muF_c + Meh)
+                    corr = (use_corr[:, None] * fu_mv(dU_a) * dLambda_a / lam
+                            - mu_new[:, None] / lam)
+                    b3 = Fval + corr
+                b = torch.cat([-grad_u, -Gval, b3], dim=1)
+                dx = fac.solve(b)
+                dU, dNu, dLambda = dx[:, :nU], dx[:, nU: nU + nG], dx[:, nU + nG:]
             else:
-                muF_c = muF
-                r1 = -grad_u - fuT_mv(lam - muF)
-            b = torch.cat([r1, -Gval], dim=1)
-            dx = fac.solve(b)
-            dU, dNu = dx[:, :nU], dx[:, nU:]
-            dLambda = muF_c - lpg_mv(dU) - lam
-            if not opts.skipAffine:
-                dLambda = dLambda - Meh
+                if affine:
+                    # the predictor takes the unrefined float32 solve
+                    b_a = torch.cat([-grad_u - fuT_mv(lam), -Gval], dim=1)
+                    dx_a = _rough_solve(fac, b_a)
+                    dU_a = dx_a[:, :nU]
+                    dLambda_a = -lpg_mv(dU_a) - lam
+                    mu_new, sigma_fired = mehrotra_mu(dU_a, dLambda_a, Fval)
+                    use_corr = sigma_fired.to(dt)
+                    muF_c = mu_new[:, None] / Fdiv
+                    Meh = use_corr[:, None] * fu_mv(dU_a) * dLambda_a / Fdiv
+                    r1 = -grad_u - fuT_mv(lam - muF_c + Meh)
+                elif nF > 0:
+                    muF_c = muF
+                    r1 = -grad_u - fuT_mv(lam - muF)
+                else:
+                    r1 = -grad_u
+                b = torch.cat([r1, -Gval], dim=1)
+                dx = fac.solve(b)
+                dU, dNu = dx[:, :nU], dx[:, nU:]
+                if nF > 0:
+                    dLambda = muF_c - lpg_mv(dU) - lam
+                    if affine:
+                        dLambda = dLambda - Meh
+                else:
+                    dLambda = lam  # (B, 0)
             derr = _norminf(_mvWW(WW, dx) - b)
             curvature = _dot(dU, ww11_mv(dU))
             if opts.useInertia:
@@ -738,7 +834,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 )
                 return mu_c, do_sigma
 
-            meh = mehrotra_mu if not opts.skipAffine else None
+            meh = mehrotra_mu if (not opts.skipAffine and nF > 0) else None
 
             def direction(aU, aE):
                 return compute_direction(lin, lam, mu, aU, aE, cached, meh)
@@ -822,60 +918,77 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 inc_state = inc
 
             dU, dNu, dLambda = dirn.dU, dirn.dNu, dirn.dLambda
-            FdU = fu_mv(dU)
-            maxAlphaDualIneq = _clp(lam, dLambda)
-            alphaP = _clp(Fval, FdU)
-            if opts.coupledAlphas:
-                alphaP = torch.minimum(alphaP, maxAlphaDualIneq)
-            alpha_bt = torch.clamp(alphaP * STEPBACK, max=opts.alphaMax)
-            alphaPrimal, nan_fail = line_search_combined(
-                min_F(Fval, FdU, u, dU), alpha_bt, opts
-            )
-            if opts.coupledAlphas:
-                alphaDualIneq = alphaDualEq = alphaPrimal
+            if nF == 0:
+                # no inequalities: the full step, lambda and mu frozen
+                # (lib/ipmPD_CSsolver.c:550-569)
+                alphaPrimal = alphaDualEq = full(opts.alphaMax)
+                alphaDualIneq = full(0.0)
+                new_u = torch.addcmul(u, alphaPrimal[:, None], dU)
+                new_nu = torch.addcmul(nu, alphaDualEq[:, None], dNu)
+                new_lam, new_mu = lam, mu
+                nan_fail = torch.zeros_like(run)
             else:
-                alphaDualIneq = torch.minimum(maxAlphaDualIneq * STEPBACK, alpha_bt)
-                alphaDualEq = alphaDualIneq
-            new_u = torch.addcmul(u, alphaPrimal[:, None], dU)
-            new_nu = torch.addcmul(nu, alphaDualEq[:, None], dNu)
-            new_lam = torch.addcmul(lam, alphaDualIneq[:, None], dLambda)
-
-            # mu schedule (lib/ipmPD_CSsolver.c:782-859): the update with
-            # skipAffine, the fallback when the sigma update did not fire
-            th_grad = ng < max(1e-6, opts.gradTolerance)
-            th_eq = (
-                torch.ones_like(run) if nG == 0
-                else ne < max(1e-5, opts.equalTolerance)
-            )
-            aggressive = (alphaPrimal > alpha_bt / 2) & th_grad & th_eq
-            mu_aggr = torch.maximum(
-                mu * torch.clamp(torch.sqrt(mu), max=opts.muFactorAggressive), mu_min
-            )
-            tiny_alpha = alphaPrimal < 0.1
-            mu_tiny = torch.clamp(mu * 1.1, max=mu0)
-            conservative = (alphaPrimal > 0.99) & th_eq
-            mu_cons = torch.maximum(mu * opts.muFactorConservative, mu_min)
-            mu_sched = torch.where(
-                aggressive, mu_aggr,
-                torch.where(tiny_alpha, mu_tiny, torch.where(conservative, mu_cons, mu)),
-            )
-            if opts.skipAffine:
-                new_mu = mu_sched
-                new_lam = torch.where(
-                    tiny_alpha[:, None], mu_tiny[:, None] / Fs(new_u), new_lam
+                FdU = fu_mv(dU)
+                # timesLambda steps lambda multiplicatively,
+                # lam (1 + alpha dLambda) (JAX solver.py:1425-1450)
+                maxAlphaDualIneq = _clp(torch.ones_like(lam) if times_lambda else lam,
+                                        dLambda)
+                alphaP = _clp(Fval, FdU)
+                if opts.coupledAlphas:
+                    alphaP = torch.minimum(alphaP, maxAlphaDualIneq)
+                alpha_bt = torch.clamp(alphaP * STEPBACK, max=opts.alphaMax)
+                alphaPrimal, nan_fail = line_search_combined(
+                    min_F(Fval, FdU, u, dU), alpha_bt, opts
                 )
-            else:
-                new_mu = torch.where(dirn.sigma_fired, dirn.mu_new, mu_sched)
-            stalled = (
-                (alphaPrimal < opts.alphaMin)
-                & (alphaDualIneq < opts.alphaMin)
-                & (alphaDualEq < opts.alphaMin)
-            )
-            new_mu = torch.where(
-                stalled,
-                torch.maximum(new_mu / opts.muFactorConservative ** 2, mu_min),
-                new_mu,
-            )
+                if opts.coupledAlphas:
+                    alphaDualIneq = alphaDualEq = alphaPrimal
+                else:
+                    alphaDualIneq = torch.minimum(maxAlphaDualIneq * STEPBACK, alpha_bt)
+                    alphaDualEq = alphaDualIneq
+                new_u = torch.addcmul(u, alphaPrimal[:, None], dU)
+                new_nu = torch.addcmul(nu, alphaDualEq[:, None], dNu)
+                if times_lambda:
+                    new_lam = lam * torch.addcmul(torch.ones_like(lam),
+                                                  alphaDualIneq[:, None], dLambda)
+                else:
+                    new_lam = torch.addcmul(lam, alphaDualIneq[:, None], dLambda)
+
+                # mu schedule (lib/ipmPD_CSsolver.c:782-859): the update with
+                # skipAffine, the fallback when the sigma update did not fire
+                th_grad = ng < max(1e-6, opts.gradTolerance)
+                th_eq = (
+                    torch.ones_like(run) if nG == 0
+                    else ne < max(1e-5, opts.equalTolerance)
+                )
+                aggressive = (alphaPrimal > alpha_bt / 2) & th_grad & th_eq
+                mu_aggr = torch.maximum(
+                    mu * torch.clamp(torch.sqrt(mu), max=opts.muFactorAggressive), mu_min
+                )
+                tiny_alpha = alphaPrimal < 0.1
+                mu_tiny = torch.clamp(mu * 1.1, max=mu0)
+                conservative = (alphaPrimal > 0.99) & th_eq
+                mu_cons = torch.maximum(mu * opts.muFactorConservative, mu_min)
+                mu_sched = torch.where(
+                    aggressive, mu_aggr,
+                    torch.where(tiny_alpha, mu_tiny, torch.where(conservative, mu_cons, mu)),
+                )
+                if opts.skipAffine:
+                    new_mu = mu_sched
+                    new_lam = torch.where(
+                        tiny_alpha[:, None], mu_tiny[:, None] / Fs(new_u), new_lam
+                    )
+                else:
+                    new_mu = torch.where(dirn.sigma_fired, dirn.mu_new, mu_sched)
+                stalled = (
+                    (alphaPrimal < opts.alphaMin)
+                    & (alphaDualIneq < opts.alphaMin)
+                    & (alphaDualEq < opts.alphaMin)
+                )
+                new_mu = torch.where(
+                    stalled,
+                    torch.maximum(new_mu / opts.muFactorConservative ** 2, mu_min),
+                    new_mu,
+                )
             done = nan_fail
             keep = done[:, None]
             return IPMState(
@@ -908,7 +1021,9 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             status = torch.where(fail_ineq & (status == 0), 1, status)
             fail_dual = infeasible(dual)
             status = torch.where(fail_dual & (status == 0), 2, status)
-            converged = (ng <= opts.gradTolerance) & (gap <= desired_gap)
+            converged = ng <= opts.gradTolerance
+            if nF > 0:
+                converged &= gap <= desired_gap
             if nG > 0:
                 converged &= ne <= opts.equalTolerance
             if adapt:
@@ -951,15 +1066,16 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         status = add_flag(ng > opts.gradTolerance, 16, status)
         if nG > 0:
             status = add_flag(ne > opts.equalTolerance, 32, status)
-        status = add_flag(gap > desired_gap, 64, status)
-        status = add_flag(st.mu > mu_min, 128, status)
-        aP, aDI, aDE = st.alphaPrimal, st.alphaDualIneq, st.alphaDualEq
-        negl = (aP <= opts.alphaMin) & (aDI < opts.alphaMin) & (aDE < opts.alphaMin)
-        small_a = (aP <= 0.1) & (aDI < 0.1) & (aDE < 0.1)
-        med_a = (aP <= 0.5) & (aDI < 0.5) & (aDE < 0.5)
-        status = add_flag(negl, 1792, status)
-        status = add_flag(~negl & small_a, 1536, status)
-        status = add_flag(~negl & ~small_a & med_a, 1024, status)
+        if nF > 0:
+            status = add_flag(gap > desired_gap, 64, status)
+            status = add_flag(st.mu > mu_min, 128, status)
+            aP, aDI, aDE = st.alphaPrimal, st.alphaDualIneq, st.alphaDualEq
+            negl = (aP <= opts.alphaMin) & (aDI < opts.alphaMin) & (aDE < opts.alphaMin)
+            small_a = (aP <= 0.1) & (aDI < 0.1) & (aDE < 0.1)
+            med_a = (aP <= 0.5) & (aDI < 0.5) & (aDE < 0.5)
+            status = add_flag(negl, 1792, status)
+            status = add_flag(~negl & small_a, 1536, status)
+            status = add_flag(~negl & ~small_a & med_a, 1024, status)
         if adapt:
             status = add_flag(st.addU > opts.addEye2HessianUtolerance, 2048, status)
 

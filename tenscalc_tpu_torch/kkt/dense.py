@@ -1,8 +1,18 @@
-"""Dense KKT helpers (port of ``tenscalc_tpu/kkt/dense.py``): ``hdot``,
-``lu_solve_mixed``, and the unpivoted LDL^T pieces the min-max solver
-calls (``ldl_factor``, ``ldl_solve``, ``ldl_inertia`` and
-``KKTFactorization`` of kind ``'ldl'``).  The other factorization kinds
-and ``kkt_factorize`` are ROADMAP item M4.
+"""Dense KKT factorizations (port of ``tenscalc_tpu/kkt/dense.py``):
+``hdot``, the unpivoted LDL^T (``ldl_factor`` blocked,
+``ldl_factor_unblocked``, ``ldl_solve``, ``ldl_inertia``,
+``symmetric_solve``), and the IPM's dense backend ``kkt_factorize`` with
+its ``KKTFactorization`` kinds ``'lu'``, ``'lu_ir'``, ``'ldl_ir'`` and
+``'ldl'``, and ``lu_solve_mixed``.
+
+The JAX package casts an LU to float32 only on a TPU, whose LU takes
+nothing else (``_lu_needs_f32``); on the CPU and GPU it factors in the
+matrix's own dtype.  The port follows that branch everywhere: a float64
+KKT gets a float64 pivoted LU (``torch.linalg.lu_factor``, as XLA's LU
+is the JAX package's, outside any Pallas kernel), with no cast and no
+refinement; the float32 inertia path factors by LU in float32, refines
+against the matrix, and counts the inertia by a Bunch-Kaufman
+elimination (:mod:`.bunchkaufman`).
 
 Every product here runs in full precision: the solver turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, float32 matmul
@@ -44,14 +54,6 @@ def hdotT(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if A.dim() == 2:
         return y @ A
     return torch.bmm(y.unsqueeze(1), A).squeeze(1)
-
-
-def lu_solve_mixed(WW: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """One-shot pivoted-LU solve of a batch, WW (B, n, n), rhs (B, n), in
-    WW's dtype: the CPU/GPU branch of the JAX ``kkt_factorize``
-    (``dense.py:350-354``), which neither casts to float32 nor refines."""
-    LU, piv = torch.linalg.lu_factor(WW)
-    return torch.linalg.lu_solve(LU, piv, rhs.unsqueeze(-1)).squeeze(-1)
 
 
 def _trsm(A: torch.Tensor, X: torch.Tensor, left: bool, trans: bool) -> torch.Tensor:
@@ -134,11 +136,23 @@ def ldl_factor(A: torch.Tensor, block: int = 64, clamp: float = 0.0):
     return L, d
 
 
+def ldl_factor_unblocked(A: torch.Tensor):
+    """Column-by-column unpivoted LDL^T, A = L diag(d) L^T, of (..., n, n)
+    matrices: one rank-1 update of the trailing matrix a column, the
+    JAX tests' oracle.  Returns (unit lower L, d)."""
+    if A.shape[-1] == 0:
+        return torch.zeros_like(A), A.new_zeros(A.shape[:-1])
+    return _ldl_block(A)
+
+
 def ldl_solve(L: torch.Tensor, d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x with (L diag(d) L^T) x = b for a batch: L (..., n, n), d and b
-    (..., n)."""
-    y = _trsm(L, b.unsqueeze(-1), left=True, trans=False) / d.unsqueeze(-1)
-    return _trsm(L, y, left=True, trans=True).squeeze(-1)
+    """x with (L diag(d) L^T) x = b for a batch: L (..., n, n), d (..., n),
+    and b (..., n) or a block of right-hand sides (..., n, k)."""
+    vec = b.dim() == L.dim() - 1
+    bb = b.unsqueeze(-1) if vec else b
+    y = _trsm(L, bb, left=True, trans=False) / d.unsqueeze(-1)
+    x = _trsm(L, y, left=True, trans=True)
+    return x.squeeze(-1) if vec else x
 
 
 def ldl_inertia(d: torch.Tensor, tol: float = 0.0):
@@ -152,25 +166,102 @@ def ldl_inertia(d: torch.Tensor, tol: float = 0.0):
     return mp, mn
 
 
+def symmetric_solve(A: torch.Tensor, b: torch.Tensor, block: int = 64):
+    """Factor, solve and the pivots in one call: returns (x, d, L)."""
+    L, d = ldl_factor(A, block=block)
+    return ldl_solve(L, d, b), d, L
+
+
 class KKTFactorization:
-    """A factored KKT matrix of kind ``'ldl'`` (the min-max solver's dense
-    default: solve and inertia from one unpivoted factorization).  The
-    JAX package's other kinds (``'lu'``, ``'lu_ir'``, ``'ldl_ir'``,
-    Bunch-Kaufman inertia) are ROADMAP item M4."""
+    """A factored batch of KKT matrices WW (B, n, n).
 
-    __slots__ = ("kind", "a", "b")
+    ``'lu'``: the pivoted LU (a = LU, b = pivots) in WW's dtype.
+    ``'lu_ir'``: a float32 LU whose solves are refined ``n_refine`` times
+    against WW in its own dtype.  ``'ldl'``: the unpivoted LDL^T
+    (a = L, b = d).  ``'ldl_ir'``: a clamped LDL^T refined as ``'lu_ir'``.
+    Inertia: the sign counts of d for the LDL^T kinds, the Bunch-Kaufman
+    counts ``bk`` where given, else zeros (an LU carries none)."""
 
-    def __init__(self, kind: str, a: torch.Tensor, b: torch.Tensor):
-        if kind != "ldl":
-            raise NotImplementedError(
-                f"KKTFactorization of kind {kind!r} is not ported yet (ROADMAP item M4)"
-            )
+    __slots__ = ("kind", "a", "b", "WW", "n_refine", "bk")
+
+    def __init__(self, kind: str, a: torch.Tensor, b: torch.Tensor, WW=None,
+                 n_refine: int = 0, bk=None):
+        if kind not in ("lu", "lu_ir", "ldl", "ldl_ir"):
+            raise ValueError(f"unknown KKTFactorization kind {kind!r}")
         self.kind = kind
         self.a = a
         self.b = b
+        self.WW = WW
+        self.n_refine = n_refine
+        self.bk = bk
+
+    def _lu_solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.lu_solve(self.a, self.b, rhs.unsqueeze(-1)).squeeze(-1)
+
+    def _refined(self, solve_f, rhs: torch.Tensor) -> torch.Tensor:
+        dt, fdt = rhs.dtype, self.a.dtype
+
+        def solve1(r):
+            return solve_f(r.to(fdt)).to(dt)
+
+        x = solve1(rhs)
+        for _ in range(self.n_refine):
+            x = x + solve1(rhs - hdot(self.WW, x))
+        return x
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        if self.kind == "lu":
+            return self._lu_solve(rhs)
+        if self.kind == "lu_ir":
+            return self._refined(self._lu_solve, rhs)
+        if self.kind == "ldl_ir":
+            return self._refined(lambda r: ldl_solve(self.a, self.b, r), rhs)
         return ldl_solve(self.a, self.b, rhs)
 
     def inertia(self, tol: float = 0.0):
-        return ldl_inertia(self.b, tol)
+        if self.bk is not None:
+            if tol != 0.0:
+                raise ValueError(
+                    "inertia(tol != 0) is not available on the Bunch-Kaufman path: "
+                    "its counts are taken at factor time with tol = 0"
+                )
+            dt = (self.WW if self.WW is not None else self.a).dtype
+            return self.bk[0].to(dt), self.bk[1].to(dt)
+        if self.kind in ("ldl", "ldl_ir"):
+            return ldl_inertia(self.b, tol)
+        z = self.a.new_zeros(self.a.shape[:-2])
+        return z, z
+
+
+def kkt_factorize(WW: torch.Tensor, need_inertia: bool, block: int = 64,
+                  n_refine: int = 2, force_ldl: bool = False) -> KKTFactorization:
+    """The IPM's dense KKT backend for a batch WW (B, n, n), as the JAX
+    package's on the CPU and GPU: a pivoted LU in WW's dtype; with
+    ``need_inertia`` an LDL^T in float64, or in float32 an LU refined
+    against WW with Bunch-Kaufman inertia; with ``force_ldl`` (the
+    ``'ldl'`` backend) the blocked LDL^T, clamped at 1e-7 and refined at
+    least twice below float64."""
+    if force_ldl:
+        if WW.dtype != torch.float64:
+            L, d = ldl_factor(WW, block=block, clamp=1e-7)
+            return KKTFactorization("ldl_ir", L, d, WW=WW, n_refine=max(n_refine, 2))
+        L, d = ldl_factor(WW, block=block)
+        return KKTFactorization("ldl", L, d)
+    if need_inertia:
+        if WW.dtype == torch.float64:
+            L, d = ldl_factor(WW, block=block)
+            return KKTFactorization("ldl", L, d)
+        from .bunchkaufman import bk_inertia
+
+        W32 = WW.to(torch.float32)
+        LU, piv = torch.linalg.lu_factor(W32)
+        return KKTFactorization("lu_ir", LU, piv, WW=WW, n_refine=n_refine,
+                                bk=bk_inertia(W32))
+    LU, piv = torch.linalg.lu_factor(WW)
+    return KKTFactorization("lu", LU, piv)
+
+
+def lu_solve_mixed(WW: torch.Tensor, rhs: torch.Tensor, n_refine: int = 2) -> torch.Tensor:
+    """One pivoted-LU solve of a batch, WW (B, n, n), rhs (B, n), through
+    :func:`kkt_factorize`: in WW's dtype, unrefined."""
+    return kkt_factorize(WW, need_inertia=False, n_refine=n_refine).solve(rhs)

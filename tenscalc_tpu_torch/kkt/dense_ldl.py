@@ -266,18 +266,20 @@ def launch_factor_solve(A, b, Lt, d, x, clamp: float) -> None:
 # checks and the shared plain arithmetic
 # ---------------------------------------------------------------------------
 
-def check_matrix(A: torch.Tensor, max_n: int, item: str) -> None:
-    """A (B, n, n) float32 on the CPU or a CUDA device, n within the
-    kernels' range (above it the ROADMAP ``item`` owes a path)."""
+def check_matrix(A: torch.Tensor, max_n: Optional[int] = None) -> None:
+    """A (B, n, n) float32 on the CPU or a CUDA device, and n <= ``max_n``
+    where the kernels have a cap that the JAX package's kernels share
+    (K6-K8: 896)."""
     if A.dim() != 3 or A.shape[1] != A.shape[2] or min(A.shape) < 1:
         raise ValueError(f"matrix must be (B, n, n), got {tuple(A.shape)}")
     if A.dtype != torch.float32:
         raise TypeError(f"matrix must be float32, got {A.dtype}")
     if A.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {A.device}")
-    if A.shape[-1] > max_n:
-        raise NotImplementedError(
-            f"n={A.shape[-1]} above {max_n} is not ported yet (ROADMAP item {item})"
+    if max_n is not None and A.shape[-1] > max_n:
+        raise ValueError(
+            f"n={A.shape[-1]} is above the kernels' cap n <= {max_n}; "
+            "kkt.fleet takes larger matrices to the blocked LDL^T"
         )
 
 

@@ -19,17 +19,21 @@ The JAX per-instance API (``fleet_ldl_factor``/``_solve``/
 single-instance kernels, under ``vmap`` the fleet kernels.  Here it
 takes a batch and dispatches on its size: B = 1 (n <= 896) goes to the
 single-instance K6-K8 of :mod:`.pallas_ldl`, which return ``Lt`` with a
-unit diagonal; B > 1 goes to K4/K5.  The factor and its solve always
-pass through the same dispatch, so each solve reads the layout its
-factor call produced.  Above n = 160 a fleet has no kernel here (the
-JAX package falls back to XLA's dense LDL, ROADMAP item M4).
+unit diagonal; B > 1 goes to K4/K5.  Above the kernels' caps the JAX
+package's own size rule applies, as it does there: the batched entry
+points take a fleet of n > 160 (``fleet.py:54-57``), and a single
+instance of n > 896 (``fleet.py:263-320``), to the blocked LDL^T of
+:mod:`.dense` (clamp 1e-7, 64-column panels, in float32), whose factor is
+a standard unit-lower L.  The route is a function of the shape alone,
+chosen before any launch, and the factor and its solves pass through the
+same dispatch, so each solve reads the layout its factor call produced.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dense import hdot
+from .dense import hdot, ldl_factor, ldl_solve
 from .dense_ldl import (
     CLAMP,
     FLEET_MAX_N,
@@ -67,8 +71,11 @@ def fleet_ldl_solve_plain(L: torch.Tensor, d: torch.Tensor,
 
 
 def fleet_ldl_factor_batched(A: torch.Tensor, clamp: float = 0.0):
-    """LDL^T of a batch: A (B, n, n) float32 -> (L (B, n, n), d (B, n))."""
-    check_matrix(A, FLEET_MAX_N, "M4")
+    """LDL^T of a batch: A (B, n, n) float32 -> (L (B, n, n), d (B, n)).
+    Above n = 160 the blocked LDL^T, whose L is unit lower."""
+    check_matrix(A)
+    if A.shape[-1] > FLEET_MAX_N:
+        return ldl_factor(A, clamp=clamp)
     if A.device.type == "cpu":
         return fleet_ldl_factor_plain(A, clamp)
     A = A.contiguous()
@@ -79,10 +86,13 @@ def fleet_ldl_factor_batched(A: torch.Tensor, clamp: float = 0.0):
 
 def fleet_ldl_solve_batched(L: torch.Tensor, d: torch.Tensor,
                             b: torch.Tensor) -> torch.Tensor:
-    """Solve (L diag(d) L^T) x = b for a batch: (B, n, n), (B, n), (B, n)."""
-    check_matrix(L, FLEET_MAX_N, "M4")
+    """Solve (L diag(d) L^T) x = b for a batch: (B, n, n), (B, n), (B, n),
+    against :func:`fleet_ldl_factor_batched`'s factor."""
+    check_matrix(L)
     check_vector(L, d, "d")
     check_vector(L, b)
+    if L.shape[-1] > FLEET_MAX_N:
+        return ldl_solve(L, d, b)
     if L.device.type == "cpu":
         return fleet_ldl_solve_plain(L, d, b)
     x = torch.empty_like(b)
@@ -95,7 +105,9 @@ def _single_route(A: torch.Tensor) -> bool:
 
 
 def fleet_ldl_factor(A: torch.Tensor):
-    """Factor a batch, clamp 1e-7: K6 at B = 1, K4 above."""
+    """Factor a batch, clamp 1e-7: K6 at B = 1 and n <= 896, else
+    :func:`fleet_ldl_factor_batched` (K4 to n = 160, the blocked LDL^T
+    above)."""
     if _single_route(A):
         return pallas_ldl_factor(A, clamp=CLAMP)
     return fleet_ldl_factor_batched(A, clamp=CLAMP)
@@ -103,8 +115,8 @@ def fleet_ldl_factor(A: torch.Tensor):
 
 def fleet_ldl_solve(L: torch.Tensor, d: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
-    """Solve against :func:`fleet_ldl_factor`'s factor: K7 at B = 1, K5
-    above."""
+    """Solve against :func:`fleet_ldl_factor`'s factor, on its route: K7,
+    K5 or the blocked LDL^T's substitutions."""
     if _single_route(L):
         return pallas_ldl_solve(L, d, b)
     return fleet_ldl_solve_batched(L, d, b)
@@ -112,7 +124,7 @@ def fleet_ldl_solve(L: torch.Tensor, d: torch.Tensor,
 
 def fleet_ldl_factor_solve(A: torch.Tensor, b: torch.Tensor):
     """Factor and one solve, clamp 1e-7: (L, d, x).  K8 (one launch) at
-    B = 1, K4 then K5 above."""
+    B = 1 and n <= 896, else the batched factor and its solve."""
     if _single_route(A):
         return pallas_ldl_factor_solve(A, b, clamp=CLAMP)
     L, d = fleet_ldl_factor_batched(A, clamp=CLAMP)

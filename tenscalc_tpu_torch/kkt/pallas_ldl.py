@@ -75,7 +75,7 @@ def pallas_ldl_factor(A: torch.Tensor, clamp: float = 0.0):
     """LDL^T of a symmetric float32 matrix (n, n), or a batch (B, n, n):
     returns (Lt, d)."""
     single, (A,) = _batched(A)
-    check_matrix(A, SINGLE_MAX_N, "M4")
+    check_matrix(A, SINGLE_MAX_N)
     if A.device.type == "cpu":
         Lt, d = pallas_ldl_factor_plain(A, clamp)
     else:
@@ -90,7 +90,7 @@ def pallas_ldl_solve(Lt: torch.Tensor, d: torch.Tensor,
     """Solve (L diag(d) L^T) x = b against the factor of
     :func:`pallas_ldl_factor`."""
     single, (Lt, d, b) = _batched(Lt, d, b)
-    check_matrix(Lt, SINGLE_MAX_N, "M4")
+    check_matrix(Lt, SINGLE_MAX_N)
     check_vector(Lt, d, "d")
     check_vector(Lt, b)
     if Lt.device.type == "cpu":
@@ -105,7 +105,7 @@ def pallas_ldl_factor_solve(A: torch.Tensor, b: torch.Tensor,
                             clamp: float = 0.0):
     """Factor and one solve in one launch: returns (Lt, d, x)."""
     single, (A, b) = _batched(A, b)
-    check_matrix(A, SINGLE_MAX_N, "M4")
+    check_matrix(A, SINGLE_MAX_N)
     check_vector(A, b)
     if A.device.type == "cpu":
         Lt, d, x = pallas_ldl_factor_solve_plain(A, b, clamp)

@@ -72,11 +72,11 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     if kb == "tridiag":
         raise _deferred("the block-tridiagonal LU (tridiag_lu)", "M13")
     if nK < 64:
-        raise _deferred(f"a game KKT with nK={nK} < 64 (dense backend)", "M4/M13")
+        raise _deferred(f"a game KKT with nK={nK} < 64 (dense backend)", "M13")
     plan = plan_fn()
     if plan is None or not plan.worthwhile:
         raise _deferred(
-            "a game KKT without a worthwhile band (dense backend)", "M4/M13"
+            "a game KKT without a worthwhile band (dense backend)", "M13"
         )
     from .banded_lu import FleetBandedLUFromBand
 

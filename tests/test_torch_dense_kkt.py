@@ -147,9 +147,19 @@ def test_kkt_factorization_ldl_and_other_kinds():
     np.testing.assert_array_equal(fac.solve(torch.tensor(b)[None])[0].numpy(),
                                   np.asarray(facj.solve(jnp.asarray(b))))
     assert tuple(float(v[0]) for v in fac.inertia()) == tuple(float(v) for v in facj.inertia())
-    for kind in ("lu", "lu_ir", "ldl_ir"):
-        with pytest.raises(NotImplementedError, match="M4"):
-            td.KKTFactorization(kind, L, d)
+    # the other kinds, as kkt_factorize builds them, solve as the JAX
+    # package's do (tests/test_torch_kkt_factorize.py holds each branch)
+    W = torch.tensor(A)[None]
+    for kind, force in (("lu", False), ("ldl_ir", True)):
+        fac_k = td.kkt_factorize(W.float(), need_inertia=False, force_ldl=force)
+        facj_k = jd.kkt_factorize(jnp.asarray(A, jnp.float32), False, force_ldl=force)
+        assert fac_k.kind == facj_k.kind == kind
+        xk = fac_k.solve(torch.tensor(b, dtype=torch.float32)[None])[0].numpy()
+        np.testing.assert_allclose(xk, np.asarray(facj_k.solve(jnp.asarray(b, jnp.float32))),
+                                   rtol=0, atol=2e-5 * np.abs(xk).max())
+    assert td.kkt_factorize(W.float(), need_inertia=True).kind == "lu_ir"
+    with pytest.raises(ValueError, match="kind"):
+        td.KKTFactorization("cholesky", L, d)
 
 
 @pytest.mark.parametrize("w", [0, 1, 3])

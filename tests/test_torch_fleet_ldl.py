@@ -178,7 +178,9 @@ def test_wrappers_reject_bad_inputs():
         tfl.fleet_ldl_factor_batched(A[:, :, :12])
     with pytest.raises(ValueError):
         tfl.fleet_ldl_solve_batched(A, torch.ones(2, 13), torch.ones(2, 12))
-    with pytest.raises(NotImplementedError, match="M4"):
-        tfl.fleet_ldl_factor_batched(torch.eye(161).expand(2, 161, 161))
-    with pytest.raises(NotImplementedError, match="M4"):
+    # above K4's cap the JAX package's own fallback, the blocked LDL^T
+    L, d = tfl.fleet_ldl_factor_batched(torch.eye(161).expand(2, 161, 161))
+    assert torch.equal(L, torch.eye(161).expand(2, 161, 161)) and torch.equal(d, torch.ones(2, 161))
+    # K6-K8 take n <= 896, the JAX package's single-instance cap
+    with pytest.raises(ValueError, match="896"):
         tpl.pallas_ldl_factor(torch.eye(897))

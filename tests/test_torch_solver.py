@@ -165,8 +165,8 @@ def test_optimize_without_device_raises_without_cuda():
 
 def test_deferred_backends_raise():
     x = ttc.variable("tdb_x", (3,))
-    with pytest.raises(NotImplementedError, match="M4"):
-        ttc.optimize((x ** 2).sum(), [x], device="cpu", kkt_backend="dense")
+    with pytest.raises(NotImplementedError, match="M11"):
+        ttc.optimize((x ** 2).sum(), [x], device="cpu", kkt_backend="tridiag")
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
