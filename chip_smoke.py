@@ -17,7 +17,9 @@ Phases:
      above the shared-memory cap (B=64: n=12000, w=4; n=3520, w=16: the
      ring route), timed with CUDA events; at the flagship shape and
      (1000, 69, 9) at 1 to 32 instances a CTA; and the factor's reciprocal
-     against __frcp_rn at every float of magnitude 2^-60..2^60;
+     against __frcp_rn at every float of magnitude 2^-60..2^60; K1 also
+     beside torch.linalg.lu_factor_ex then lu_solve on the band expanded
+     to dense (the flagship's and the saddle KKT's);
   3. the slice: the flagship fleet (examples/mpc_dcmotor, T=30, B=1024,
      float32) through solve_many, with the kernel launch counts read
      around it, then one single solve;
@@ -27,8 +29,9 @@ Phases:
   6. kernels of slice 2: K9 (LU factor+solve), K10 (LU solve) and K11 (LU
      factor) against their plain versions, at the MPC-MHE fleet's shapes
      (B=1024, n=290, w=10; warm, with L2 cold, and through the entry
-     point; K10 beside torch.linalg.lu_solve and K11 beside
-     torch.linalg.lu_factor_ex, both with no interchanges), ragged
+     point; K10 beside torch.linalg.lu_solve, K11 beside
+     torch.linalg.lu_factor_ex and K9 beside the two, all with no
+     interchanges), ragged
      ones (B=1000: n=146, w=10; n=69, w=3 and w=1), w=12, and bands
      above the shared-memory cap (B=64: n=3000, w=12; n=16000, w=1: the
      ring route);
@@ -40,14 +43,16 @@ Phases:
   9. a profile of one MPC-MHE fleet solve;
  10. kernels of slice 3: K4/K5 (fleet dense LDL^T) at (B, n) = (1024, 32),
      (1000, 13), (1024, 80) and (256, 160), and K6/K7/K8 (single-instance
-     LDL^T) at n = 32, 200, 896 with B = 1 and at (64, 32), against their
-     plain versions (K4, K6 and K8 bitwise, also at extreme magnitudes),
-     timed with CUDA events (also by device time at every shape, with the
-     route taken: K4's registers or blocked route, the warp solve and the
-     warp factor below n = 33); K5 and K7 also beside their
-     library call,
-     torch.linalg.ldl_solve with no interchanges, and K4 and K6 at the sls
-     shapes beside torch.linalg.lu_factor_ex with no interchanges;
+     LDL^T) at n = 32, 45, 150, 200, 450, 840, 896 with B = 1 and at
+     (64, 32) and (8, 450), against their plain versions (bitwise, K4, K6
+     and K8 also at extreme magnitudes), timed with CUDA events (also by
+     device time at every shape, with the route taken: K4's registers or
+     blocked route, the warp solve and the warp factor below n = 33, the
+     tiles route above with its launches and CTAs); K5 and K7 also beside
+     their library call, torch.linalg.ldl_solve with no interchanges, K4
+     and K6 at the sls shapes and K6 at (1, 200) and (1, 896) beside
+     torch.linalg.lu_factor_ex with no interchanges, and K8 at every
+     shape beside that then torch.linalg.lu_solve;
  11. slice 3, the dense KKT path (examples/sls, constrained least squares,
      N=400, float32): one solve cold and warm (K8, K7) against the CPU; a
      fleet of 1024 with per-instance A and b (K4, K5) and its cross-check
@@ -146,7 +151,9 @@ DENSE_NAMES = {"fleet_factor": "K4 fleet_ldl_factor_batched",
 SLS_B, SLS_N, WIDE_N = 1024, 32, 80
 FLEET_SHAPES = [(SLS_B, SLS_N), (1000, 13), (SLS_B, WIDE_N), (256, 160)]
 SINGLE_SHAPES = [(1, SLS_N), (1, 45), (1, 150), (1, 200), (1, 450), (1, 840), (1, 896),
-                 (64, SLS_N)]
+                 (64, SLS_N), (8, 450)]
+# K6's library call is also timed at these single-route shapes
+K6_LIBRARY_SHAPES = [(1, 200), (1, 896)]
 # one instance's KKT on the paths without inequalities: flops at N = 30,
 # 100 and 300 (1.5 N rows) and slseq (n + m = 840); the blocked LDL^T's
 # order on the flops curve at N = 1000
@@ -236,8 +243,9 @@ def bound(kind: str, B: int, n: int, w: int):
 
 def reset_counts(*mods) -> None:
     for m in mods:
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+        for counts in (m.LAUNCHES, getattr(m, "CUDA_LAUNCHES", {})):
+            for k in counts:
+                counts[k] = 0
 
 
 def test_lu_band(B: int, n: int, w: int, seed: int):
@@ -285,10 +293,13 @@ def test_sym(B: int, n: int, seed: int):
 def dense_bound(kind: str, B: int, n: int):
     """Least time (ms) for the work of K4-K8: bytes each input read once
     and each output written once (a symmetric matrix or a factor is its
-    triangle), and the float32 operations of the elimination
-    (2m^2 + 2m for a trailing block of order m) and of the two sweeps."""
+    triangle), and the float32 operations of the elimination and of the
+    two sweeps.  A step whose trailing block has order m divides m
+    entries by the pivot and updates the block's upper triangle, a
+    product and a difference an element: m(m + 1) + m, about n^3/3 in
+    all."""
     tri = n * (n + 1) // 2
-    factor_ops = sum(2 * m * m + 2 * m for m in range(n))
+    factor_ops = sum(m * (m + 1) + m for m in range(n))
     solve_ops = 2 * n * (n - 1) + n
     if kind in ("fleet_factor", "ldl_factor"):
         nbytes, ops = 4 * B * 2 * tri, factor_ops
@@ -303,15 +314,16 @@ def dense_bound(kind: str, B: int, n: int):
 
 def dense_ptxas_report(log: Path, chunks: int) -> str:
     """Registers a thread of each kernel of csrc/dense_ldl.cu (K4 at
-    ``chunks`` = 1..5 panels; K6, K7 and K8 above n = 32; the warp factor
-    of K6 and K8; the warp solve at ``chunks`` = 1..5 entries of x a lane),
+    ``chunks`` = 1..5 panels; the tiles route's factor and solve, K6, K7
+    and K8 above n = 32; the warp factor of K6 and K8; the warp solve at
+    ``chunks`` = 1..5 entries of x a lane),
     from the ptxas report
     (-Xptxas -v) in the build log ``log``; fails on a spill."""
     import re
 
     regs, spills, name = {}, {}, None
     for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '.*?\d+((?:fleet|ldl|warp)_\w*?kernel)"
+        m = re.search(r"Compiling entry function '.*?\d+((?:fleet|ldl|warp|tile)_\w*?kernel)"
                       r"(?:ILi(\d+)E)?E", line)
         if m:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
@@ -321,7 +333,7 @@ def dense_ptxas_report(log: Path, chunks: int) -> str:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    want = {"ldl_factor_kernel", "ldl_solve_kernel", "ldl_factor_solve_kernel",
+    want = {"tile_factor_kernel", "tile_solve_kernel<7>", "tile_solve_kernel<8>",
             "ldl_warp_factor_kernel", "ldl_warp_factor_solve_kernel"}
     for c in range(1, chunks + 1):
         want |= {f"warp_solve_kernel<{c}>", f"fleet_factor_kernel<{c}>"}
@@ -368,11 +380,19 @@ def phase_dense_kernels(dl, fl, pl):
         return (f" [{plan.route} route, {plan.panels} panel(s), {plan.grid} CTAs of one "
                 f"warp, {plan.smem} B of shared memory a CTA]")
 
-    def factor_route(B, n):
+    def factor_route(B, n, solve=False):
         plan = dl.factor_plan(n, B)
         if plan.route == "warp":
             return f" [warp factor, {plan.grid} CTAs of one warp]"
-        return f" [a CTA an instance, {plan.grid} CTAs of {plan.threads} threads]"
+        tail = f"; the solve {B} CTA(s) of {plan.threads} threads" if solve else ""
+        return (f" [tiles route, {plan.launches} launches of one-warp CTAs, "
+                f"{plan.grid} in the first{tail}]")
+
+    def solve_route(B, n):
+        if n <= dl.REG_MAX_N:
+            return warp_route(B, n)
+        return (f" [tiles route's solve, {B} CTA(s) of {dl.block_threads(n)} threads, "
+                f"{2 * -(-n // 32)} block steps]")
 
     def library_factor(A, F, d, what):
         """torch.linalg.lu_factor_ex with no interchanges: on a symmetric A
@@ -392,29 +412,6 @@ def phase_dense_kernels(dl, fl, pl):
         t = cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 10)
         log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) against "
             f"{what} at B={B} n={n}: {t:.4f} ms, max abs diff from the kernel {el:.3e}")
-        return t
-
-    def library_pair(A, b, x, scale):
-        """K8's function in two PyTorch calls, torch.linalg.lu_factor_ex
-        with no interchanges then torch.linalg.lu_solve (pivots 1..n): its
-        x held to K8's at the kernels' tolerance; returns the pair's time
-        (ms)."""
-        B, n = b.shape
-        piv = torch.arange(1, n + 1, dtype=torch.int32, device=b.device).repeat(B, 1)
-
-        def pair():
-            LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
-            return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
-
-        xl = pair()
-        torch.cuda.synchronize()
-        el = (xl - x).abs().max().item()
-        check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
-              f"lu_factor_ex + lu_solve against K8 at B={B} n={n}: max abs diff {el}")
-        t = cuda_ms(pair, 10 if n <= 200 else 3)
-        log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) then "
-            f"lu_solve (two calls) against K8 at B={B} n={n}: {t:.4f} ms, max abs diff "
-            f"{el:.3e}")
         return t
 
     def library_solve(LD, b, x, scale, what):
@@ -485,18 +482,20 @@ def phase_dense_kernels(dl, fl, pl):
         p7 = cuda_ms(lambda: pl.pallas_ldl_solve_plain(pLt, pd, b), preps)
         p8 = cuda_ms(lambda: pl.pallas_ldl_factor_solve_plain(A, b, clamp), preps)
         main = (B, n) == (1, SLS_N)
-        l6 = library_factor(A, Lt, d, "K6") if main else None
-        l8 = library_pair(A, b, x8, scale) if (main or (B, n) in FLOPS_SHAPES) else None
+        l6 = (library_factor(A, Lt, d, "K6")
+              if main or (B, n) in K6_LIBRARY_SHAPES else None)
+        l8, el = library_pair(A, b, x8, scale, 10 if n <= 200 else 3)
+        log(f"[dense-kernels] library torch.linalg.lu_factor_ex(pivot=False) then "
+            f"lu_solve (two calls) against K8 at B={B} n={n}: {l8:.4f} ms, max abs diff "
+            f"{el:.3e}")
         record("ldl_factor", B, n, e6, scale,
                lambda: dl.launch_factor(A, Lt, d, clamp), reps, p6, main, l6,
                factor_route(B, n))
-        route = (warp_route(B, n) if n <= dl.REG_MAX_N
-                 else f" [a CTA an instance, {dl.block_threads(n)} threads]")
         record("ldl_solve", B, n, e7, scale,
-               lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7, route)
+               lambda: dl.launch_solve(Lt, d, b, xo), reps, p7, main, l7, solve_route(B, n))
         record("ldl_factor_solve", B, n, e8, scale,
                lambda: dl.launch_factor_solve(A, b, Lt8, d8, xo, clamp), reps, p8, main, l8,
-               route=factor_route(B, n))
+               route=factor_route(B, n, solve=True))
         if (B, n) in FLOPS_SHAPES:
             # the shapes of the paths without inequalities, beside the record
             for k, lib in (("ldl_solve", l7), ("ldl_factor_solve", l8)):
@@ -657,6 +656,22 @@ def library_check(fn, x, scale, what, reps):
     return cuda_ms(fn, reps), el
 
 
+def library_pair(A, b, x, scale, reps):
+    """The dense solve of A x = b in two PyTorch calls,
+    torch.linalg.lu_factor_ex with no interchanges then
+    torch.linalg.lu_solve (pivots 1..n), A built before the timed calls:
+    its x held to a kernel's ``x`` at the kernels' tolerance; returns its
+    time (ms, CUDA events, ``reps`` single calls) and the difference."""
+    B, n = b.shape
+    piv = torch.arange(1, n + 1, dtype=torch.int32, device=b.device).repeat(B, 1)
+
+    def pair():
+        LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
+        return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
+
+    return library_check(pair, x, scale, f"lu_factor_ex + lu_solve at B={B} n={n}", reps)
+
+
 def library_lu_factor(A, want, scale, what, lower=False):
     """torch.linalg.lu_factor_ex(A, pivot=False) on a band expanded to its
     dense matrix A (built before the timed calls): its LU held to a
@@ -753,6 +768,11 @@ def phase_lu_kernels(lu):
             log(f"[lu-kernels] library torch.linalg.lu_factor_ex(pivot=False) on the band "
                 f"as a dense matrix: {libs['lu_factor']:.4f} ms, max abs diff from K11 "
                 f"{el:.3e}")
+            # K9's function as a dense pair on the same matrix
+            libs["lu_factor_solve"], el = library_pair(Ad, rhs, x9, scale, 3)
+            log(f"[lu-kernels] library torch.linalg.lu_factor_ex(pivot=False) then "
+                f"lu_solve (two calls) on the band as a dense matrix: "
+                f"{libs['lu_factor_solve']:.4f} ms, max abs diff from K9 {el:.3e}")
             del LU, Ad
         for k, (kern, plain, entry) in runs.items():
             ms = cuda_ms(kern, reps)
@@ -884,6 +904,12 @@ def phase_kernels(fb):
             log(f"[kernels] library torch.linalg.lu_factor_ex(pivot=False) on the band "
                 f"as a dense symmetric matrix: {libs['factor']:.4f} ms, max abs diff from "
                 f"K3 {el:.3e}")
+            if (B, n, w) != MM_HESSD:
+                # K1's function as a dense pair on the same matrix
+                libs["factor_solve"], el = library_pair(Ad, rhs, x1, scale, 3)
+                log(f"[kernels] library torch.linalg.lu_factor_ex(pivot=False) then "
+                    f"lu_solve (two calls) on the band as a dense symmetric matrix: "
+                    f"{libs['factor_solve']:.4f} ms, max abs diff from K1 {el:.3e}")
             del LD, Ad
         for k, (kern, plain, entry) in runs.items():
             ms = cuda_ms(kern, reps)
@@ -1180,10 +1206,12 @@ def sls_params(ns: str, data) -> dict:
     return {ns + "A": data["A"], ns + "b": data["b"]}
 
 
-def per_iteration(launches: dict, iters: int) -> str:
+def per_iteration(launches: dict, iters: int, cuda: dict) -> str:
     """Launches per lockstep iteration (the last trip only runs the exit
-    tests)."""
-    return " ".join(f"{DENSE_NAMES[k].split()[0]} {v / (iters - 1):.2f}"
+    tests): each wrapper's calls, and in brackets the CUDA kernel launches
+    they issued (``cuda``; a tiles-route factor launches once a panel)."""
+    return " ".join(f"{DENSE_NAMES[k].split()[0]} {v / (iters - 1):.2f} "
+                    f"({cuda[k] / (iters - 1):.2f} CUDA launches)"
                     for k, v in launches.items() if v)
 
 
@@ -1203,14 +1231,14 @@ def phase_sls_single(sls, dl, others):
     solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)  # warm-up
     reset_counts(dl, *others)
     cold = solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
-    n_cold = dict(dl.LAUNCHES)
+    n_cold, c_cold = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     reset_counts(dl, *others)
     warm = solver.solve(params, init={ns + "x": cold.variables[ns + "x"]}, mu0=1.0,
                         max_iter=30)
-    n_warm = dict(dl.LAUNCHES)
+    n_warm, c_warm = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     check(not any(v for m in others for v in m.LAUNCHES.values()),
           "no banded kernel on the sls path")
-    for name, sol, n in (("cold", cold, n_cold), ("warm", warm, n_warm)):
+    for name, sol, n, c in (("cold", cold, n_cold, c_cold), ("warm", warm, n_warm, c_warm)):
         check(sol.status == 0, f"{name} solve status {sol.describe()}")
         check(n["ldl_factor_solve"] > 0 and n["ldl_solve"] > 0
               and n["fleet_factor"] == n["fleet_solve"] == n["ldl_factor"] == 0,
@@ -1218,7 +1246,7 @@ def phase_sls_single(sls, dl, others):
         check(np.isfinite(sol.variables[ns + "x"]).all(), f"{name} x finite")
         log(f"[sls-single] {name}: status 0, {sol.iters} iterations, {sol.time:.4f} s, "
             f"J {float(sol.outputs['J']):.8f}; launches {n}; per iteration "
-            f"{per_iteration(n, sol.iters)}")
+            f"{per_iteration(n, sol.iters, c)}")
     cpu = sls.build_constrained(ns=ns, dtype="float32", device="cpu")
     ref = cpu.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
     dx = np.abs(ref.variables[ns + "x"] - cold.variables[ns + "x"]).max()
@@ -1248,7 +1276,7 @@ def phase_sls_fleet(label, sls, dl, others, ns, B, n, seed, **opts):
     t0 = time.perf_counter()
     res = solve_sls_fleet(solver, ns, data)
     wall = time.perf_counter() - t0
-    launches = dict(dl.LAUNCHES)
+    launches, cuda = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     check(not any(v for m in others for v in m.LAUNCHES.values()),
           "no banded kernel on the sls path")
     status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
@@ -1258,7 +1286,7 @@ def phase_sls_fleet(label, sls, dl, others, ns, B, n, seed, **opts):
     log(f"[{label}] B={B} n={n} backend {solver.kkt_backend_resolved}: status 0 for "
         f"all; iterations max {iters.max()} mean {iters.mean():.2f}; wall {wall:.4f} s; "
         f"{B / wall:.1f} solves/s; launches {launches}; per lockstep iteration "
-        f"{per_iteration(launches, int(iters.max()))}")
+        f"{per_iteration(launches, int(iters.max()), cuda)}")
     return solver, data, res, launches
 
 
@@ -1296,17 +1324,17 @@ def phase_sls_pallas(sls, dl, others):
     solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)  # warm-up
     reset_counts(dl, *others)
     sol = solver.solve(params, init={ns + "x": data["x0"]}, mu0=1.0, max_iter=30)
-    n_one = dict(dl.LAUNCHES)
+    n_one, c_one = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     check(sol.status == 0, f"pallas single solve status {sol.describe()}")
     check(n_one["ldl_factor"] > 0 and n_one["ldl_solve"] > 0
           and n_one["fleet_factor"] == n_one["fleet_solve"] == n_one["ldl_factor_solve"] == 0,
           f"the pallas solve through K6 and K7 alone: {n_one}")
     log(f"[sls-pallas] single: status 0, {sol.iters} iterations, {sol.time:.4f} s; "
-        f"launches {n_one}; per iteration {per_iteration(n_one, sol.iters)}")
+        f"launches {n_one}; per iteration {per_iteration(n_one, sol.iters, c_one)}")
     fleet = sls.fleet_inputs(64, seed=2)
     reset_counts(dl, *others)
     res = solve_sls_fleet(solver, ns, fleet)
-    n_fleet = dict(dl.LAUNCHES)
+    n_fleet, c_fleet = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
     check(int((status == 0).sum()) == 64, f"all 64 at status 0 ({np.bincount(status)})")
     check(n_fleet["ldl_factor"] > 0 and n_fleet["ldl_solve"] > 0
@@ -1314,7 +1342,7 @@ def phase_sls_pallas(sls, dl, others):
           f"the pallas fleet through K6 and K7 alone: {n_fleet}")
     log(f"[sls-pallas] fleet B=64: status 0 for all; iterations max {iters.max()} mean "
         f"{iters.mean():.2f}; launches {n_fleet}; per lockstep iteration "
-        f"{per_iteration(n_fleet, int(iters.max()))}")
+        f"{per_iteration(n_fleet, int(iters.max()), c_fleet)}")
     return {k: n_one[k] + n_fleet[k] for k in n_one}
 
 
@@ -1450,7 +1478,7 @@ def phase_flops(flops, dl, others):
         solver.solve(params, init=init, mu0=1.0, max_iter=60)  # warm-up
         reset_counts(dl, *others)
         sol = solver.solve(params, init=init, mu0=1.0, max_iter=60)
-        n = dict(dl.LAUNCHES)
+        n, c = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
         check(sol.status == 0, f"flops N={N}: {sol.describe()}")
         check(np.isfinite(sol.variables[ns + "x"]).all(), f"flops N={N}: finite x")
         flops_launch_check(3 * N // 2, n, others, f"flops N={N}")
@@ -1462,7 +1490,7 @@ def phase_flops(flops, dl, others):
         log(f"[flops] N={N} (KKT {3 * N // 2} rows, {route}): build {build:.2f} s; status 0, "
             f"{sol.iters} iterations; warm solve {sol.time:.4f} s; max_iter=1 solve "
             f"{one.time:.4f} s; J {float(sol.outputs['J']):.6f}; launches {n}; per iteration "
-            f"{per_iteration(n, sol.iters) or 'none'}")
+            f"{per_iteration(n, sol.iters, c) or 'none'}")
         if N == 300:
             keep = (solver, params, init)
         del solver
@@ -1520,7 +1548,7 @@ def phase_mls(sls, dl, others):
         solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)  # warm-up
         reset_counts(dl, *others)
         sol = solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)
-        n_l = dict(dl.LAUNCHES)
+        n_l, c_l = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
         check(sol.status == 0, f"mls {row}: {sol.describe()}")
         check(n_l["ldl_factor_solve"] > 0 and not any(v for m in others
                                                     for v in m.LAUNCHES.values()),
@@ -1529,7 +1557,7 @@ def phase_mls(sls, dl, others):
             total[k] += n_l[k]
         log(f"[mls] {row} (nF={solver.nF}, KKT {solver.nU + solver.nG} rows): status 0, "
             f"{sol.iters} iterations, {sol.time:.4f} s; launches {n_l}; per iteration "
-            f"{per_iteration(n_l, sol.iters)}")
+            f"{per_iteration(n_l, sol.iters, c_l)}")
     return total
 
 
@@ -1549,7 +1577,7 @@ def phase_slseq(slseq, dl, others):
     solver.solve(params, init=init, mu0=1.0, max_iter=60)  # warm-up
     reset_counts(dl, *others)
     sol = solver.solve(params, init=init, mu0=1.0, max_iter=60)
-    n_l = dict(dl.LAUNCHES)
+    n_l, c_l = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
     check(sol.status == 0, f"slseq: {sol.describe()}")
     flops_launch_check(n + m, n_l, others, "slseq")
     x = sol.outputs["x"]
@@ -1568,7 +1596,7 @@ def phase_slseq(slseq, dl, others):
           f"slseq on the CPU: status {r.status}, {r.iters} it, |dx| {dx:.3e}, dJ {dJ:.3e}")
     log(f"[slseq] N={N} n={n} m={m}: build {build:.2f} s; status 0, {sol.iters} iterations, "
         f"warm solve {sol.time:.4f} s; launches {n_l}; per iteration "
-        f"{per_iteration(n_l, sol.iters)}; max |x - oracle| {ex:.3e}, |Cx - d| {eq:.3e}; "
+        f"{per_iteration(n_l, sol.iters, c_l)}; max |x - oracle| {ex:.3e}, |Cx - d| {eq:.3e}; "
         f"the CPU: {r.iters} iterations, max |dx| {dx:.3e}, J rel diff {dJ:.3e}")
     return n_l, solver, params, init
 
@@ -1657,7 +1685,10 @@ def main() -> int:
     phase_flops_cross_check(flops)
     mls_launches = phase_mls(sls, dl, (fb, lu))
     slseq_launches, qsolver, qparams, qinit = phase_slseq(slseq, dl, (fb, lu))
-    k87 = (("K8", r"\bldl_factor_solve_kernel\b"), ("K7", r"\bldl_solve_kernel\b"))
+    # the tiles route: K8's factor launches, K8's solve, K7
+    k87 = (("K8's factor (tile_factor_kernel)", r"\btile_factor_kernel\b"),
+           ("K8's solve (tile_solve_kernel<8>)", r"\btile_solve_kernel<8>"),
+           ("K7 (tile_solve_kernel<7>)", r"\btile_solve_kernel<7>"))
     phase_profile("profile5", lambda: fsolver.solve(fparams, init=finit, mu0=1.0,
                                                     max_iter=60), watch=k87)
     phase_profile("profile6", lambda: qsolver.solve(qparams, init=qinit, mu0=1.0,

@@ -98,19 +98,28 @@
 //       solve's RegFactor and K8 hands them to it without a reload; Lt and
 //       d are written by n coalesced row stores.
 //       dense_ldl_ablation.py times each of these choices undone.
-//   K6/K7/K8 above n = 32: one CTA per instance, T = min(512,
-//       32 ceil(n / 32)) threads, thread t owning columns t, t + T, ...
-//       The working matrix lives in shared memory while it fits (n <= 240,
-//       227 KB), else in place in the output Lt in global memory, where it
-//       stays L2-resident (3.2 MB at n = 896).  K8 keeps the factor where
-//       K6 left it for the substitutions.  At n = 896 one SM does ~0.5
-//       GFLOP in 896 dependent steps, each thread streaming its columns'
-//       trailing rows through L2 in groups of eight loads.
+//   K6/K7/K8 above n = 32 (the tiles route): one instance's upper triangle
+//       is spread over the SMs.  The factor is a launch a 32-column panel
+//       (28 at n = 896) of one-warp CTAs: one on the panel's diagonal
+//       block (the warp factor's steps) and one a 32 x 32 tile of the
+//       trailing upper triangle (379 CTAs in the first launch at n = 896),
+//       each redoing the diagonal block's steps and its two row blocks in
+//       its own warp rather than waiting at a barrier, so the launch
+//       boundary is the only synchronisation; the working matrix lives in a
+//       scratch W (L2-resident, 3.2 MB at n = 896), Lt is written once.  At
+//       n = 840 the ~99 M updates need ~10 us at the card's FP32 rate; what
+//       bounds the route is each launch's chain of dependent steps (the
+//       diagonal block, the row blocks, the tile's 32 updates an element).
+//       K7, and K8 after its factor, solve by a CTA of block_threads(n) an
+//       instance in 32-row blocks: a warp's chain on the diagonal block and
+//       the CTA on the rest (the forward updates; the backward sums of the
+//       later blocks, formed while the block before runs its rows), so the
+//       sweeps have one or two block barriers a block, not one or two a row.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-// The fleet's largest n, the K6-K8 block size cap and the shared memory
+// The fleet's largest n, the solve's CTA cap above n = 32 and the shared memory
 // a block can opt into are the binding's (kkt/dense_ldl.py), given on the
 // compiler's command line.
 #if !defined(TC_FLEET_MAX_N) || !defined(TC_MAX_THREADS) || !defined(TC_DENSE_SMEM_MAX)
@@ -121,13 +130,8 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFleetMaxN = TC_FLEET_MAX_N;  // K4's and the warp solve's n
-constexpr int kMaxThreads = TC_MAX_THREADS; // K6/K7/K8 (one block an SM in the
-                                            // launch bounds: without it ptxas
-                                            // caps K6 at 40 registers and spills)
+constexpr int kMaxThreads = TC_MAX_THREADS; // the tiles route's solve CTA
 constexpr size_t kSmemCap = TC_DENSE_SMEM_MAX;  // a block's opt-in cap
-constexpr int kSmemMaxN = 240;     // n (n + 1) + 32 floats within the cap
-static_assert(sizeof(float) * (kSmemMaxN * (kSmemMaxN + 1) + 32) <= kSmemCap,
-              "K6/K8's working matrix must fit the shared-memory cap");
 static_assert(sizeof(float) * kFleetMaxN * kFleetMaxN <= kSmemCap,
               "the warp solve's staged instance must fit the shared-memory cap");
 // K4's blocked route: an instance's shared memory holds L and W = d L as
@@ -143,7 +147,6 @@ __host__ __device__ constexpr size_t fleet_smem(int n) {
 }
 static_assert(fleet_smem(kFleetMaxN) <= kSmemCap,
               "K4's blocked route must fit the shared-memory cap");
-constexpr int kRowGroup = 8;       // K6/K8: trailing rows updated per batch of loads
 constexpr int kStagedUnroll = 4;  // see StepUnroll
 
 __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
@@ -154,6 +157,16 @@ __device__ __forceinline__ float clamp_pivot(float d, float clamp) {
     d = __fmul_rn(sgn, a < clamp ? clamp : a);
   }
   return d;
+}
+
+// x / d as __fdiv_rn rounds it, without its slow path for a zero x (the
+// range check sends a zero dividend there): with d finite and nonzero the
+// quotient of +-0 is the product's signed zero.  The tiles route divides
+// by it; columns past n and a KKT's zero blocks give it zeros.
+__device__ __forceinline__ float div_rn(float x, float d) {
+  const bool zero = x == 0.0f && d != 0.0f && fabsf(d) < INFINITY;
+  const float q = __fdiv_rn(zero ? 1.0f : x, d);
+  return zero ? __fmul_rn(x, d) : q;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -513,91 +526,466 @@ __device__ __forceinline__ void panel_block(float (&m)[32], float& dk,
   }
 }
 
-// Solve (L diag(d) L^T) x = b for one instance by a group of T threads (the
-// CTA).  Row c of Lr holds L[c+1.., c] at columns c+1..n-1 (its diagonal
-// and lower part are never read).  xs (shared, n floats) holds b on entry
-// and x on exit; red is shared scratch of T / 32 floats.
-__device__ __forceinline__ void ldl_solve_rows(const float* Lr, const float* d,
-                                               float* xs, float* red, int n,
-                                               int tid, int T) {
-  for (int c = 0; c < n; ++c) {
-    const float yc = xs[c];
-    for (int i = c + 1 + tid; i < n; i += T) {
-      xs[i] = __fsub_rn(xs[i], __fmul_rn(yc, Lr[(size_t)c * n + i]));
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < n; i += T) xs[i] = __fdiv_rn(xs[i], d[i]);
-  __syncthreads();
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nw = T >> 5;
-  const int span = ((n + T - 1) / T) * T;
-  for (int c = n - 1; c >= 0; --c) {
-    float acc = 0.0f;
-    for (int i = ((c + 1) / T) * T + tid; i < span; i += T) {
-      const float p = (i > c && i < n) ? __fmul_rn(Lr[(size_t)c * n + i], xs[i]) : 0.0f;
-      acc = __fadd_rn(acc, p);
-    }
+// K6/K8 above n = 32, the tiles route: one launch a 32-column panel p,
+// in order, of one-warp CTAs, tile_ctas(T) an instance (T = panels - 1 - p).
+// The working matrix M (the upper triangle, leading dimension n) is A
+// before launch 0 and the scratch W after; launch p reads only rows
+// 32 p .. 32 p + 31 of it and writes only rows below them, so its CTAs
+// need no barrier between them.
+//   CTA 0: the warp factor's steps on the panel's diagonal block (the
+//     pivots and L of steps 32 p ..), then its rows of Lt in the block's
+//     columns (0 below the diagonal, 1 on it) and d.
+//   CTA t >= 1: tile (I, K), p < I <= K (tile_of).  It redoes CTA 0's
+//     steps in its own registers (no barrier waits for them), then forms
+//     the L of row blocks I and K of the panel: each column's 32 entries
+//     take the panel's steps, a division and the updates of the rows
+//     below (the diagonal block's L and d broadcast from shared memory);
+//     then it gives tile (I, K) the panel's 32 updates in step order,
+//     M[i, k] -= d_c (L[i, c] L[k, c]) for c = 32 p .. 32 p + 31.  At
+//     I == K it also writes row block K of Lt (L[k, c] at row c) and zeros
+//     its mirror below the diagonal, the block (K, p).
+// So every upper element takes its subtractions in step order c = 0 ..
+// i - 1, as the plain version's, and every entry of Lt is written once.
+// Each phase's steps are a loop, not unrolled: a CTA runs its code once,
+// and fully unrolled (~10,000 instructions) it waited on instruction
+// fetches (dense_ldl_ablation.py's "unrolled" variants, PERF.md).
+constexpr int kFactorSmem = 4 * (3 * 32 * 32 + 32);  // Ls, ds, RI, RK
+
+__host__ __device__ constexpr int tile_ctas(int t) { return 1 + t * (t + 1) / 2; }
+
+// Tile (I, K) of CTA t >= 1 of launch p: tiles in column order, K = p + 1,
+// p + 2, ..., and I = p + 1 .. K in each.
+__device__ __forceinline__ void tile_of(int t, int p, int& I, int& K) {
+  int a = 1;
+  while (a * (a + 1) / 2 < t) ++a;
+  K = p + a;
+  I = p + t - a * (a - 1) / 2;
+}
+
+// The tiles route's steps run as loops whose bodies have no branch: slot
+// j of a lane's registers holds row c + 1 + j of its column (row c in slot
+// 0 at the step's start), every step updates the first S slots and shifts
+// them down by one, and the step's r goes to shared memory.  Row c + 1 + j
+// is past the block once j >= 31 - c, so steps 8 g .. 8 g + 7 update S =
+// 31 - 8 g slots: rows past the block in them, and a lane's rows below its
+// diagonal, hold values nothing reads.
+
+// Steps c_begin .. c_begin + 7 of the warp factor (K6's rounding order) on
+// the panel's diagonal block: the step's r to Ls[32 c + lane] (L[32 p +
+// lane, 32 p + c] for c < lane), the lane's pivot to dk, and the next
+// step's pivot, from lane c + 1's own r as in warp_factor_steps, to piv.
+template <int S>
+__device__ __forceinline__ void tile_diagonal_steps(float (&m)[32], float* Ls, float& dk,
+                                                    float& piv, int c_begin, int lane,
+                                                    float clamp) {
+#pragma unroll 1
+  for (int c = c_begin; c < c_begin + 8; ++c) {
+    const float dc = clamp_pivot(piv, clamp);
+    const float rk = div_rn(m[0], dc);
+    Ls[32 * c + lane] = rk;
+    dk = lane == c ? dc : dk;
+    piv = __shfl_sync(kFull, rank1<Rank1::kPivotTimesProduct>(m[1], dc, rk, rk),
+                      (c + 1) & 31);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
+    for (int j = 0; j < S; ++j) {
+      const float ri = __shfl_sync(kFull, rk, (c + 1 + j) & 31);
+      m[j] = rank1<Rank1::kPivotTimesProduct>(m[j + 1], dc, ri, rk);
     }
-    if (lane == 0) red[warp] = acc;
-    __syncthreads();
-    float tot = 0.0f;
-    for (int w = 0; w < nw; ++w) tot = __fadd_rn(tot, red[w]);
-    if (tid == 0) xs[c] = __fsub_rn(xs[c], tot);
-    __syncthreads();
   }
 }
 
-// K6's elimination on the working matrix M (shared or global, leading
-// dimension n) by the CTA.  On return row c of M holds Lt[c, :] (zeros
-// before c, 1 at c, L[c+1.., c] after it), also written to Lt when M is
-// not Lt itself; d holds the pivots.  r is shared scratch of n floats.
-__device__ __forceinline__ void ldl_factor_rows(float* M, float* Lt, float* d,
-                                                float* r, int n, float clamp,
-                                                int tid, int T) {
-  for (int c = 0; c < n; ++c) {
-    const float dc = clamp_pivot(M[(size_t)c * n + c], clamp);
-    for (int k = tid; k < n; k += T) {
-      r[k] = k > c ? __fdiv_rn(M[(size_t)c * n + k], dc) : 0.0f;
+// Steps c_begin .. c_begin + 7 on the panel's row blocks I and K (rI, rK:
+// a lane's column of each), the diagonal block's L and d from Ls and ds;
+// the step's L to RI[32 c + lane] and RK[32 c + lane].
+template <int S>
+__device__ __forceinline__ void tile_row_steps(float (&rI)[32], float (&rK)[32],
+                                               const float* Ls, const float* ds, float* RI,
+                                               float* RK, int c_begin, int lane) {
+#pragma unroll 1
+  for (int c = c_begin; c < c_begin + 8; ++c) {
+    const float dc = ds[c];
+    const float aI = div_rn(rI[0], dc), aK = div_rn(rK[0], dc);
+    RI[32 * c + lane] = aI;
+    RK[32 * c + lane] = aK;
+    const float* lc = Ls + 33 * c + 1;  // lc[j] = L[32 p + c + 1 + j, 32 p + c]
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const float l = lc[j];
+      rI[j] = rank1<Rank1::kPivotTimesProduct>(rI[j + 1], dc, l, aI);
+      rK[j] = rank1<Rank1::kPivotTimesProduct>(rK[j + 1], dc, l, aK);
     }
-    if (tid == 0) d[c] = dc;
-    __syncthreads();
-    for (int k = tid; k < n; k += T) {
-      const float v = k > c ? r[k] : (k == c ? 1.0f : 0.0f);
-      M[(size_t)c * n + k] = v;
-      if (Lt != M) Lt[(size_t)c * n + k] = v;
-      if (k > c) {
-        // rows in groups of kRowGroup: the loads of a group are issued
-        // before its stores, which the compiler cannot reorder itself (M
-        // and r may alias for all it knows); from global memory one row
-        // at a time would wait a full L2 latency per element
-        const float rk = r[k];
-        int i = c + 1;
-        for (; i + kRowGroup <= n; i += kRowGroup) {
-          float m[kRowGroup], ri[kRowGroup];
+  }
+}
+
+__global__ void __launch_bounds__(64)
+tile_factor_kernel(const float* __restrict__ A, float* W, float* __restrict__ Lt,
+                   float* __restrict__ d, int n, int p, int per, float clamp) {
+  extern __shared__ float smem[];
+  float* Ls = smem;          // Ls[32 c + i]: L[32 p + i, 32 p + c]
+  float* ds = smem + 1024;   // the panel's pivots
+  float* RI = smem + 1056;   // RI[32 c + l]: L[32 I + l, 32 p + c]
+  float* RK = smem + 2080;   // RK[32 c + l]: L[32 K + l, 32 p + c]
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / per, t = blockIdx.x % per;
+  const size_t nn = (size_t)n * n;
+  const float* M = (p == 0 ? A : W) + b * nn;
+  W += b * nn;
+  Lt += b * nn;
+  d += (size_t)b * n;
+  const int c0 = 32 * p;
+  float m[32], dk;
+  load_block(m, M, n, p, c0 + lane);
+  // a tile's CTA loads its row blocks (a full panel: rows c0 .. c0 + 31 <
+  // n; columns past n are 0) and its tile first, so the loads are in
+  // flight during the diagonal block's steps
+  int I = 0, K = 0;
+  float rI[32], rK[32], tv[32];
+  if (t != 0) {
+    tile_of(t, p, I, K);
+    const int kI = 32 * I + lane, kK = 32 * K + lane;
 #pragma unroll
-          for (int u = 0; u < kRowGroup; ++u) {
-            m[u] = M[(size_t)(i + u) * n + k];
-            ri[u] = r[i + u];
-          }
+    for (int c = 0; c < 32; ++c) {
+      rI[c] = kI < n ? M[(size_t)(c0 + c) * n + kI] : 0.0f;
+      rK[c] = kK < n ? M[(size_t)(c0 + c) * n + kK] : 0.0f;
+    }
+    load_block(tv, M, n, I, kK);
+  }
+  // all 32 steps, also past n in the last panel (its lanes and rows past n
+  // hold values nothing reads)
+  dk = 1.0f;
+  float piv = __shfl_sync(kFull, m[0], 0);  // M[c, c], from lane c
+  tile_diagonal_steps<31>(m, Ls, dk, piv, 0, lane, clamp);
+  tile_diagonal_steps<23>(m, Ls, dk, piv, 8, lane, clamp);
+  tile_diagonal_steps<15>(m, Ls, dk, piv, 16, lane, clamp);
+  tile_diagonal_steps<7>(m, Ls, dk, piv, 24, lane, clamp);
+  ds[lane] = dk;
+  __syncwarp();
+  if (t == 0) {
+    const int k = c0 + lane;
+    if (k >= n) return;
+#pragma unroll 1
+    for (int r = 0; r < 32 && c0 + r < n; ++r) {
+      Lt[(size_t)(c0 + r) * n + k] = r < lane ? Ls[32 * r + lane] : (r == lane ? 1.0f : 0.0f);
+    }
+    d[k] = dk;
+    return;
+  }
+  const int k = 32 * K + lane;
+  // row blocks I and K
+  tile_row_steps<31>(rI, rK, Ls, ds, RI, RK, 0, lane);
+  tile_row_steps<23>(rI, rK, Ls, ds, RI, RK, 8, lane);
+  tile_row_steps<15>(rI, rK, Ls, ds, RI, RK, 16, lane);
+  tile_row_steps<7>(rI, rK, Ls, ds, RI, RK, 24, lane);
+  __syncwarp();
+#pragma unroll 1
+  for (int c = 0; c < 32; ++c) {
+    const float dc = ds[c], lk = RK[32 * c + lane];
 #pragma unroll
-          for (int u = 0; u < kRowGroup; ++u) {
-            M[(size_t)(i + u) * n + k] =
-                __fsub_rn(m[u], __fmul_rn(dc, __fmul_rn(ri[u], rk)));
-          }
-        }
-        for (; i < n; ++i) {
-          float* m = M + (size_t)i * n + k;
-          *m = __fsub_rn(*m, __fmul_rn(dc, __fmul_rn(r[i], rk)));
-        }
+    for (int g = 0; g < 8; ++g) {
+      const float4 li = *reinterpret_cast<const float4*>(RI + 32 * c + 4 * g);
+      tv[4 * g] = rank1<Rank1::kPivotTimesProduct>(tv[4 * g], dc, li.x, lk);
+      tv[4 * g + 1] = rank1<Rank1::kPivotTimesProduct>(tv[4 * g + 1], dc, li.y, lk);
+      tv[4 * g + 2] = rank1<Rank1::kPivotTimesProduct>(tv[4 * g + 2], dc, li.z, lk);
+      tv[4 * g + 3] = rank1<Rank1::kPivotTimesProduct>(tv[4 * g + 3], dc, li.w, lk);
+    }
+  }
+  if (k < n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (32 * I + i <= k) W[(size_t)(32 * I + i) * n + k] = tv[i];
+    }
+  }
+  if (I != K) return;
+  if (k < n) {
+#pragma unroll 1
+    for (int c = 0; c < 32; ++c) Lt[(size_t)(c0 + c) * n + k] = RK[32 * c + lane];
+  }
+#pragma unroll 1
+  for (int i = 0; i < 32; ++i) {
+    if (32 * K + i < n) Lt[(size_t)(32 * K + i) * n + c0 + lane] = 0.0f;
+  }
+}
+
+// K7 above n = 32, and K8's solve: a CTA of T = blockDim.x threads an
+// instance, the threads of the backward sums' tree (n <= 2 T, so a thread
+// holds at most two terms a row), x in shared memory.  Both sweeps go by
+// 32-row blocks q.
+//   Forward: warp 0 solves the diagonal block in registers (y_c by a
+//     shuffle, its column of the block loaded before the steps), then every
+//     thread gives its rows past the block the block's 32 updates in order.
+//   Backward: thread t's slot holds the terms i = t and t + T, so of row
+//     c in block q only warp wq = q mod (T / 32) holds terms of block q
+//     itself (at one of its two indices); every other warp's terms are 0
+//     or in later blocks.  Each slot of each of the block's rows goes to
+//     shared memory (warp wq's holds its other term), and lane r of every
+//     other warp adds its warp's 32 slots of row r in the butterfly's tree
+//     (x + x^16, then ^8, ^4, ^2, ^1: the shuffles' numbers, without the
+//     160 shuffles a warp a block that bound this step).  Then warp 0 runs
+//     the block's rows in order, each a butterfly of (0 + own) + other
+//     over warp wq's slots and the warps' sums added in order to 0.
+//     While warp 0 runs block q's rows the other warps already form block
+//     q - 1's slots and sums: only warp (q mod T / 32) holds terms of block
+//     q there, and its slots take them, and its sum is formed, by warp 0
+//     before block q - 1's rows.  (0 + a) + b has the same bits as (0 +
+//     b) + a, signed zeros included, so a slot may take its terms in
+//     either order, and a sum that starts at +0 is never -0, so adding +0
+//     leaves it as it is.
+// Each step is a loop whose body has no branch (the rows of a ragged last
+// block run too, on lanes that hold no x), not unrolled code run once a
+// block.  Shared memory (two of each but x, one for the block whose rows
+// run and one for the next): the warps' sums of each row before warp wq
+// and after it (32 x 16, 0 elsewhere), the diagonal block's columns (32 x
+// 32), the L of block q's terms in the next block's slots (32 x 33), the
+// slots (32 x 33 a warp), and x (n).
+constexpr int kSlotFloats = 32 * 33;  // a warp's slots of a block, [row][lane]
+
+__host__ __device__ constexpr size_t tile_solve_smem(int n, int threads) {
+  return sizeof(float) *
+         ((size_t)n + 2 * (2 * 32 * 16 + 32 * 32 + kSlotFloats * (1 + threads / 32)));
+}
+
+static_assert(tile_solve_smem(2 * kMaxThreads, kMaxThreads) <= kSmemCap,
+              "the tiles route's solve must fit the shared-memory cap");
+
+// The slots of warp wp (its lane l: the terms at i1 = 32 wp + l and i2 =
+// i1 + T) of block base's rows r = r0, r0 + dr, ... < 32 (a row past a
+// ragged block's end repeats its last), (0 + p1) + p2 over the terms at
+// later blocks, to sl[33 r + l].  With pl given (the warp holding the
+// terms of the block whose rows run meanwhile, [pend, pend + 32)), those
+// terms count 0 here and their L entries go to pl[33 r + l] (0 where a
+// lane has none).  G rows' loads are in flight at a time, the next G's
+// while the G before are stored.
+template <int G>
+__device__ __forceinline__ void block_slots(const float* __restrict__ Lt,
+                                            const float* xs, float* sl, float* pl, int n,
+                                            int T, int base, int nb, int wp, int lane,
+                                            int pend, int r0, int dr) {
+  const int later = base + 32, i1 = 32 * wp + lane, i2 = i1 + T;
+  const bool in1 = i1 >= later && i1 < n, in2 = i2 >= later && i2 < n;
+  const bool pd1 = in1 && i1 >= pend && i1 < pend + 32;
+  const bool pd2 = in2 && i2 >= pend && i2 < pend + 32;
+  const bool t1 = in1 && !pd1, t2 = in2 && !pd2;
+  const float x1 = t1 ? xs[i1] : 0.0f, x2 = t2 ? xs[i2] : 0.0f;
+  float g1[G], g2[G];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    const float* row = Lt + (size_t)(base + min(min(r0 + dr * r, 31), nb - 1)) * n;
+    g1[r] = in1 ? row[i1] : 0.0f;
+    g2[r] = in2 ? row[i2] : 0.0f;
+  }
+#pragma unroll 1
+  for (int h = r0; h < 32; h += G * dr) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const int rr = h + dr * r;
+      const float p1 = t1 ? __fmul_rn(g1[r], x1) : 0.0f;
+      const float p2 = t2 ? __fmul_rn(g2[r], x2) : 0.0f;
+      if (rr < 32) {
+        sl[33 * rr + lane] = __fadd_rn(__fadd_rn(0.0f, p1), p2);
+        if (pl != nullptr) pl[33 * rr + lane] = pd1 ? g1[r] : (pd2 ? g2[r] : 0.0f);
       }
+      // the next group's loads (past the last row, row 31 again)
+      const float* row =
+          Lt + (size_t)(base + min(min(h + G * dr + dr * r, 31), nb - 1)) * n;
+      g1[r] = in1 ? row[i1] : 0.0f;
+      g2[r] = in2 ? row[i2] : 0.0f;
+    }
+  }
+}
+
+// Lane r: the sum of a warp's 32 slots of row r (sl[33 r + 0 .. 31]) in the
+// butterfly's tree, to pre or post at [16 r + wp] by whether warp wp comes
+// before or after the block's own warp wq (0 to both for wq itself).
+__device__ __forceinline__ void slot_sums(const float* sl, float* pre, float* post, int wp,
+                                          int wq, int lane) {
+  float a[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) a[j] = __fadd_rn(sl[33 * lane + j], sl[33 * lane + j + 16]);
+#pragma unroll
+  for (int h = 8; h > 0; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h; ++j) a[j] = __fadd_rn(a[j], a[j + h]);
+  }
+  pre[16 * lane + wp] = wp < wq ? a[0] : 0.0f;
+  post[16 * lane + wp] = wp > wq ? a[0] : 0.0f;
+}
+
+// The shared memory of one backward block.
+struct SolveBlock {
+  float* pre;    // [16 r + w]: row r's sum of warp w < wq, else 0
+  float* post;   // [16 r + w]: row r's sum of warp w > wq, else 0
+  float* ld;     // [32 r + l]: L[base + l, base + r], 0 for r >= l
+  float* pl;     // [33 r + l]: the L entries of the pending terms
+  float* slots;  // [kSlotFloats w + 33 r + l]: row r's slot of warp w lane l
+  __device__ __forceinline__ explicit SolveBlock(float* s)
+      : pre(s), post(s + 512), ld(s + 1024), pl(s + 2048), slots(s + 2048 + kSlotFloats) {}
+};
+
+// Block q's slots and sums.  By every warp before the first block's rows
+// (pend = n: nothing pending); else by warps 1 .. nw - 1 while warp 0 runs
+// the rows of block q + 1 (from pend): each its own slots and sums, warp
+// 0's slots shared out by rows, the diagonal block's columns shared out;
+// the warp holding block q + 1's terms leaves them, and its sums, and warp
+// 0's sums, to warp 0 (solve_finish).
+__device__ __forceinline__ void block_sums(const float* __restrict__ Lt, const float* xs,
+                                           const SolveBlock& sb, int n, int T, int nw, int q,
+                                           int pend, int warp, int lane, int tid) {
+  const int base = 32 * q, nb = min(32, n - base), wq = q % nw;
+  const bool ahead = pend < n;
+  const int wpend = ahead ? (pend >> 5) % nw : -1;  // the warp holding pending terms
+  const int first = ahead ? 32 : 0, stride = T - first;
+  for (int e0 = tid - first; e0 < 1024; e0 += 4 * stride) {
+    float lv[4];  // four loads in flight, then their stores
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * stride, r = e >> 5, l = e & 31;
+      lv[k] = e < 1024 && l < nb && r < l ? Lt[(size_t)(base + r) * n + base + l] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (e0 + k * stride < 1024) sb.ld[e0 + k * stride] = lv[k];
+    }
+  }
+  const bool pending = warp == wpend;
+  float* sl = sb.slots + kSlotFloats * warp;
+  block_slots<16>(Lt, xs, sl, pending ? sb.pl : nullptr, n, T, base, nb, warp, lane,
+                  ahead ? pend : n, 0, 1);
+  if (ahead) {
+    block_slots<4>(Lt, xs, sb.slots, wpend == 0 ? sb.pl : nullptr, n, T, base, nb, 0, lane,
+                   pend, warp - 1, nw - 1);
+  }
+  __syncwarp();
+  if (!pending) slot_sums(sl, sb.pre, sb.post, warp, wq, lane);
+}
+
+// K names the kernel the solve serves (7: K7; 8: K8's second half): the
+// same code under two symbols, so that a profile tells them apart.
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads)
+tile_solve_kernel(const float* __restrict__ Lt, const float* __restrict__ d,
+                  const float* __restrict__ rhs, float* __restrict__ x, int n) {
+  extern __shared__ float smem[];
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = T >> 5;
+  const int per = 2 * 32 * 16 + 32 * 32 + kSlotFloats * (1 + nw);  // one block's floats
+  float* xs = smem + 2 * per;  // x
+  const size_t vb = (size_t)blockIdx.x * n;
+  Lt += vb * n;
+  for (int e = tid; e < 1024; e += T) {  // the sums of warps past nw
+    smem[e] = 0.0f;
+    smem[per + e] = 0.0f;
+  }
+  for (int i = tid; i < n; i += T) xs[i] = rhs[vb + i];
+  __syncthreads();
+  const int blocks = (n + 31) / 32;
+  for (int q = 0; q < blocks; ++q) {
+    const int base = 32 * q, nb = min(32, n - base);
+    if (warp == 0) {
+      const bool in = lane < nb;
+      float l[32];  // L[base + lane, base + c] for c < lane
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        l[c] = in && c < lane ? Lt[(size_t)(base + c) * n + base + lane] : 0.0f;
+      }
+      float v = in ? xs[base + lane] : 0.0f;
+      // all 32 steps (past nb no lane is in): no step ends in a branch
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const float y = __shfl_sync(kFull, v, c);
+        if (in && lane > c) v = __fsub_rn(v, __fmul_rn(y, l[c]));
+      }
+      if (in) xs[base + lane] = v;
+    }
+    __syncthreads();
+    if (base + 32 >= n) break;
+    for (int i = base + 32 + tid; i < n; i += T) {
+      float v = xs[i];
+#pragma unroll
+      for (int h = 0; h < 32; h += 16) {
+        float l[16];  // sixteen of the block's rows at column i, their loads in flight
+#pragma unroll
+        for (int c = 0; c < 16; ++c) l[c] = Lt[(size_t)(base + h + c) * n + i];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) v = __fsub_rn(v, __fmul_rn(xs[base + h + c], l[c]));
+      }
+      xs[i] = v;
     }
     __syncthreads();
   }
+  for (int i = tid; i < n; i += T) xs[i] = __fdiv_rn(xs[i], d[vb + i]);
+  __syncthreads();
+  // the last block's sums, by every warp (no rows run meanwhile)
+  block_sums(Lt, xs, SolveBlock(smem + ((blocks - 1) & 1) * per), n, T, nw, blocks - 1, n,
+             warp, lane, tid);
+  __syncthreads();
+  for (int q = blocks - 1; q >= 0; --q) {
+    const SolveBlock sb(smem + (q & 1) * per);
+    const int base = 32 * q, nb = min(32, n - base), wq = q % nw;
+    if (warp == 0) {
+      const bool in = lane < nb;
+      if (q + 1 < blocks) {
+        // the slots of the warp holding block q + 1's terms take them (x of
+        // block q + 1 is final), then its sums, and warp 0's
+        const int wp = (q + 1) % nw, i = base + 32 + lane;
+        const float xp = i < n ? xs[i] : 0.0f;
+        float* sl = sb.slots + kSlotFloats * wp;
+#pragma unroll 8
+        for (int r = 0; r < 32; ++r) {
+          sl[33 * r + lane] = __fadd_rn(sl[33 * r + lane], __fmul_rn(sb.pl[33 * r + lane], xp));
+        }
+        __syncwarp();
+        slot_sums(sl, sb.pre, sb.post, wp, wq, lane);
+        if (wp != 0) slot_sums(sb.slots, sb.pre, sb.post, 0, wq, lane);
+        __syncwarp();
+      }
+      // lane r: 0 + the sums of warps 0 .. wq - 1 of row r (+0 for the others)
+      float pre = 0.0f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 s = *reinterpret_cast<const float4*>(sb.pre + 16 * lane + 4 * g);
+        pre = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(pre, s.x), s.y), s.z), s.w);
+      }
+      const float* oth = sb.slots + kSlotFloats * wq;  // warp wq's other terms
+      float v = in ? xs[base + lane] : 0.0f;
+      float vprev = v;  // x as it was before the last row's update
+      // two rows a trip, so a row's butterfly (on the old x) runs beside
+      // the chain of the row before it
+#pragma unroll 2
+      for (int r = 31; r >= 0; --r) {
+        // the butterfly of row r runs on the slots with x_{r+1} (lane r + 1)
+        // as it was before its own row: what a lane receives holds no
+        // term of its own, so lane r + 1 finishes the exact sum with its
+        // new term and the five received partials (at r = 31 no x is new)
+        const float o = oth[33 * r + lane], l = sb.ld[32 * r + lane];
+        const bool term = in && lane > r;
+        float stale = __fadd_rn(__fadd_rn(0.0f, term ? __fmul_rn(l, vprev) : 0.0f), o);
+        float own = __fadd_rn(__fadd_rn(0.0f, term ? __fmul_rn(l, v) : 0.0f), o);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float got = __shfl_xor_sync(kFull, stale, off);
+          stale = __fadd_rn(stale, got);
+          own = __fadd_rn(own, got);
+        }
+        // then the later warps' sums in order, +0 for the others
+        float tot = __fadd_rn(__shfl_sync(kFull, pre, r), own);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 s = *reinterpret_cast<const float4*>(sb.post + 16 * r + 4 * g);
+          tot = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(tot, s.x), s.y), s.z), s.w);
+        }
+        tot = __shfl_sync(kFull, tot, r == 31 ? 0 : r + 1);
+        vprev = v;
+        v = lane == r ? __fsub_rn(v, tot) : v;
+      }
+      if (in) xs[base + lane] = v;
+    } else if (q > 0) {
+      // meanwhile block q - 1's slots and sums but for the terms of block q
+      block_sums(Lt, xs, SolveBlock(smem + ((q - 1) & 1) * per), n, T, nw, q - 1, base,
+                 warp, lane, tid);
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < n; i += T) x[vb + i] = xs[i];
 }
 
 // K4: a CTA of one warp an instance; P = ceil(n / 32) panels (1: the
@@ -664,38 +1052,6 @@ warp_solve_kernel(const float* __restrict__ F, const float* __restrict__ d,
   store_x(x + vb, xv, n, lane);
 }
 
-// K6 above n = 32: one CTA per instance; the working matrix in shared
-// memory when in_smem, else in place in Lt.
-__global__ void __launch_bounds__(kMaxThreads, 1)
-ldl_factor_kernel(const float* __restrict__ A, float* Lt, float* __restrict__ d,
-                  int n, float clamp, int in_smem) {
-  extern __shared__ float smem[];
-  const size_t nn = (size_t)n * n;
-  float* Ltb = Lt + blockIdx.x * nn;
-  float* M = in_smem ? smem : Ltb;
-  float* r = in_smem ? smem + nn : smem;
-  for (size_t idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    M[idx] = A[blockIdx.x * nn + idx];
-  }
-  __syncthreads();
-  ldl_factor_rows(M, Ltb, d + (size_t)blockIdx.x * n, r, n, clamp,
-                  threadIdx.x, blockDim.x);
-}
-
-// K7 above n = 32: one CTA per instance against K6's factor Lt.
-__global__ void __launch_bounds__(kMaxThreads, 1)
-ldl_solve_kernel(const float* __restrict__ Lt, const float* __restrict__ d,
-                 const float* __restrict__ rhs, float* __restrict__ x, int n) {
-  extern __shared__ float smem[];
-  float* xs = smem;      // n
-  float* red = smem + n; // 32
-  const size_t vb = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = rhs[vb + i];
-  __syncthreads();
-  ldl_solve_rows(Lt + vb * n, d + vb, xs, red, n, threadIdx.x, blockDim.x);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[vb + i] = xs[i];
-}
-
 // K6 at n <= 32: the warp factor, a CTA of one warp an instance (the
 // launch bound of 64 threads as the warp solve's).
 __global__ void __launch_bounds__(64)
@@ -727,30 +1083,6 @@ ldl_warp_factor_solve_kernel(const float* __restrict__ A, const float* __restric
   store_x(x + vb, xv, n, lane);
 }
 
-// K8 above n = 32: K6 then K7 in one launch, the substitutions reading the
-// factor where the elimination left it (shared memory when it fits).
-__global__ void __launch_bounds__(kMaxThreads, 1)
-ldl_factor_solve_kernel(const float* __restrict__ A, const float* __restrict__ rhs,
-                        float* Lt, float* d, float* __restrict__ x,
-                        int n, float clamp, int in_smem) {
-  extern __shared__ float smem[];
-  const size_t nn = (size_t)n * n;
-  const size_t vb = (size_t)blockIdx.x * n;
-  float* Ltb = Lt + blockIdx.x * nn;
-  float* M = in_smem ? smem : Ltb;
-  float* r = in_smem ? smem + nn : smem;  // n floats, then 32 for red
-  for (size_t idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    M[idx] = A[blockIdx.x * nn + idx];
-  }
-  __syncthreads();
-  ldl_factor_rows(M, Ltb, d + vb, r, n, clamp, threadIdx.x, blockDim.x);
-  float* xs = r;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = rhs[vb + i];
-  __syncthreads();
-  ldl_solve_rows(M, d + vb, xs, r + n, n, threadIdx.x, blockDim.x);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x[vb + i] = xs[i];
-}
-
 // the warp solve's instantiations, by chunks of x a lane (kFleetMaxN = 160)
 using WarpSolveKernel = void (*)(const float*, const float*, const float*, float*, int);
 const WarpSolveKernel kWarpSolve[] = {warp_solve_kernel<1>, warp_solve_kernel<2>,
@@ -771,14 +1103,30 @@ bool valid_threads(int threads) {
   return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
 }
 
-size_t single_smem(int n, bool in_smem) {
-  return sizeof(float) * ((in_smem ? (size_t)n * n : 0) + n + 32);
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// K6 and K8 above n = 32: the tiles route's launches, one a panel, W the
+// scratch working matrix (B n x n floats, not A).
+cudaError_t launch_tile_factor(const float* A, float* W, float* Lt, float* d, int n, int B,
+                               float clamp, cudaStream_t st) {
+  const int panels = (n + 31) / 32;
+  for (int p = 0; p < panels; ++p) {
+    const int per = tile_ctas(panels - 1 - p), grid = B * per;
+    tile_factor_kernel<<<grid, 32, kFactorSmem, st>>>(A, W, Lt, d, n, p, per, clamp);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// the tiles route's solve takes a tree of `threads` (the binding's
+// block_threads) with at most two terms a thread
+bool valid_tree(int n, int threads) {
+  return valid_threads(threads) && n <= 2 * threads;
 }
 
 }  // namespace
@@ -788,10 +1136,11 @@ extern "C" {
 // Once per device, before the first launch: the opt-in to dynamic shared
 // memory above the 48 KB default, at the most each kernel can ask for.
 int tc_dense_ldl_init() {
-  cudaError_t e = allow_smem(ldl_factor_kernel, single_smem(kSmemMaxN, true));
-  if (e == cudaSuccess) {
-    e = allow_smem(ldl_factor_solve_kernel, single_smem(kSmemMaxN, true));
-  }
+  // the tiles route's solve: its slots, up to 164,096 bytes (n = 1024,
+  // 512 threads)
+  const size_t solve_smem = tile_solve_smem(2 * kMaxThreads, kMaxThreads);
+  cudaError_t e = allow_smem(tile_solve_kernel<7>, solve_smem);
+  if (e == cudaSuccess) e = allow_smem(tile_solve_kernel<8>, solve_smem);
   for (const WarpSolveKernel k : kWarpSolve) {
     if (e == cudaSuccess) e = allow_smem(k, sizeof(float) * kFleetMaxN * kFleetMaxN);
   }
@@ -841,40 +1190,44 @@ int tc_dense_ldl_warp_solve(const float* F, const float* d, const float* rhs, fl
   return cudaGetLastError();
 }
 
-// K6 and K8: the warp factor at n <= 32, a CTA of `threads` an instance
-// above (the binding's factor_plan).
-int tc_dense_ldl_factor(const float* A, float* Lt, float* d, int n, int B,
-                        int threads, float clamp, void* stream) {
-  if (n < 1 || B < 1 || !valid_threads(threads) || (n <= 32 && threads != 32)) {
-    return cudaErrorInvalidValue;
-  }
+// K6 and K8: the warp factor at n <= 32, the tiles route above (the
+// binding's factor_plan).  W: the tiles route's scratch, unused at n <= 32.
+int tc_dense_ldl_factor(const float* A, float* Lt, float* d, float* W, int n, int B,
+                        float clamp, void* stream) {
+  if (n < 1 || B < 1 || (n > 32 && W == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n <= 32) {
     ldl_warp_factor_kernel<<<B, 32, 0, st>>>(A, Lt, d, n, clamp);
     return cudaGetLastError();
   }
-  const bool in_smem = n <= kSmemMaxN;
-  const size_t smem = single_smem(n, in_smem);
-  ldl_factor_kernel<<<B, threads, smem, st>>>(A, Lt, d, n, clamp, in_smem ? 1 : 0);
-  return cudaGetLastError();
+  return launch_tile_factor(A, W, Lt, d, n, B, clamp, st);
 }
 
-// K7 above n = 32.
+// The tiles route's CTAs of launch p an instance at order n; -1 where
+// the route has no such launch.
+int tc_dense_ldl_factor_ctas(int n, int p) {
+  const int panels = (n + 31) / 32;
+  if (n <= 32 || p < 0 || p >= panels) return -1;
+  return tile_ctas(panels - 1 - p);
+}
+
+// K7 above n = 32: a CTA of `threads` an instance.
 int tc_dense_ldl_solve(const float* Lt, const float* d, const float* rhs, float* x,
                        int n, int B, int threads, void* stream) {
-  if (n < 1 || B < 1 || !valid_threads(threads)) {
-    return cudaErrorInvalidValue;
-  }
-  const size_t smem = single_smem(n, false);
+  if (n < 1 || B < 1 || !valid_tree(n, threads)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ldl_solve_kernel<<<B, threads, smem, st>>>(Lt, d, rhs, x, n);
+  tile_solve_kernel<7><<<B, threads, tile_solve_smem(n, threads), st>>>(Lt, d, rhs, x, n);
   return cudaGetLastError();
 }
 
+// K8: the warp factor and the warp solve at n <= 32 (threads 32); above,
+// the tiles route's factor, then its solve, a CTA of `threads` an
+// instance, on the factor the launches before left in L2.
 int tc_dense_ldl_factor_solve(const float* A, const float* rhs, float* Lt, float* d,
-                              float* x, int n, int B, int threads, float clamp,
+                              float* x, float* W, int n, int B, int threads, float clamp,
                               void* stream) {
-  if (n < 1 || B < 1 || !valid_threads(threads) || (n <= 32 && threads != 32)) {
+  if (n < 1 || B < 1 || (n <= 32 && threads != 32) ||
+      (n > 32 && (W == nullptr || !valid_tree(n, threads)))) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -882,10 +1235,9 @@ int tc_dense_ldl_factor_solve(const float* A, const float* rhs, float* Lt, float
     ldl_warp_factor_solve_kernel<<<B, 32, 0, st>>>(A, rhs, Lt, d, x, n, clamp);
     return cudaGetLastError();
   }
-  const bool in_smem = n <= kSmemMaxN;
-  const size_t smem = single_smem(n, in_smem);
-  ldl_factor_solve_kernel<<<B, threads, smem, st>>>(A, rhs, Lt, d, x, n, clamp,
-                                                    in_smem ? 1 : 0);
+  const cudaError_t e = launch_tile_factor(A, W, Lt, d, n, B, clamp, st);
+  if (e != cudaSuccess) return e;
+  tile_solve_kernel<8><<<B, threads, tile_solve_smem(n, threads), st>>>(Lt, d, rhs, x, n);
   return cudaGetLastError();
 }
 

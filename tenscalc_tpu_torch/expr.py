@@ -7,10 +7,11 @@ tensors) to a tensor, with a static shape.  Derivatives come from
 expressions themselves, so any operator written in plain tensor ops is
 differentiable.
 
-Python numbers stay Python numbers inside an expression, so they take
-the tensor's dtype the way JAX's weakly typed scalars do; array
-constants are materialized on the environment's device and float dtype
-when evaluated.
+Python numbers take the tensor's dtype the way JAX's weakly typed
+scalars do (a float beside a tensor of an arithmetic operator is a 0-dim
+tensor of its dtype, made when the expression is built); array constants
+are materialized on the environment's device and float dtype when
+evaluated.
 """
 
 from __future__ import annotations
@@ -333,12 +334,41 @@ def unary_op(f: Callable, a) -> Expr:
     return Expr(fn, _shape_of(fn, a.deps), a.deps)
 
 
+class _WeakFloat(float):
+    """A Python float operand of an arithmetic operator, weakly typed as
+    in JAX: beside a float32 or float64 tensor it is a 0-dim CPU tensor of
+    that dtype, made once here, so evaluating the expression allocates
+    nothing and launches nothing for it.  Kept as a number, PyTorch's
+    forward-mode AD gives a 0-dim float32 tensor minus, times or over it a
+    float64 tangent, and the Hessian comes out float64.  (A Python int
+    has no such tangent, so it stays an int.)"""
+
+    def __new__(cls, v: float):
+        self = super().__new__(cls, v)
+        self.by_dtype = {dt: torch.tensor(float(v), dtype=dt)
+                         for dt in (torch.float32, torch.float64)}
+        return self
+
+
+def _weak(x):
+    return _WeakFloat(x) if type(x) is float else x
+
+
 def binary_op(f: Callable, a, b) -> Expr:
-    a, b = _operand(a), _operand(b)
+    a, b = _weak(_operand(a)), _operand(b)
+    # a number exponent stays a number: ``x ** 2`` keeps aten.pow's scalar
+    # overload, which ipm/hoist.py reads, and has no such tangent
+    if f is not operator.pow:
+        b = _weak(b)
     deps = _deps(a, b)
 
     def fn(env, _f=f, _a=a, _b=b):
-        return _f(_value(_a, env), _value(_b, env))
+        x, y = _value(_a, env), _value(_b, env)
+        if isinstance(y, torch.Tensor) and isinstance(x, _WeakFloat):
+            x = x.by_dtype.get(y.dtype, x)
+        elif isinstance(x, torch.Tensor) and isinstance(y, _WeakFloat):
+            y = y.by_dtype.get(x.dtype, y)
+        return _f(x, y)
 
     return Expr(fn, _shape_of(fn, deps), deps)
 

@@ -789,7 +789,8 @@ def _game_functions(P1objective, P2objective, p1_vars, p2_vars, lat_vars,
             if not exprs:
                 return z.new_zeros(0)
             env = env_of(z, penv)
-            return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt)
+            # a copy, as api.py's stack: a cast in place keeps a float64 tangent
+            return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt, copy=True)
 
         return fn
 

@@ -131,6 +131,11 @@ class TaintGraph:
         out = next(n for n in self.graph.nodes if n.op == "output")
         self.outputs = pytree.tree_leaves(out.args[0])
 
+    def output_dtypes(self) -> list:
+        """Per output leaf: its dtype as traced (None for a constant)."""
+        return [o.meta["val"].dtype if isinstance(o, torch.fx.Node) else None
+                for o in self.outputs]
+
     def tainted_outputs(self, arg_indices) -> list:
         """Per output leaf: does it depend on any of ``arg_indices``?"""
         idx = set(arg_indices)
@@ -147,12 +152,28 @@ def _flat_fn(fn: Callable, example_args):
     return flat_call, flat
 
 
-def output_independent_of(fn: Callable, n_tainted: int, *example_args) -> bool:
+class DerivativeDtypeError(TypeError):
+    """A derivative of the problem comes out in another dtype than the
+    problem's: the KKT factor would fail on the mixed types."""
+
+
+def output_independent_of(fn: Callable, n_tainted: int, *example_args,
+                          dtype=None, what: str = "the output") -> bool:
     """True if every output of ``fn(*example_args)`` is independent of
-    the first ``n_tainted`` (pytree) arguments."""
+    the first ``n_tainted`` (pytree) arguments.  With ``dtype`` given,
+    raises :class:`DerivativeDtypeError` when an output is traced in
+    another dtype (``what`` names it)."""
     flat_call, flat = _flat_fn(fn, example_args)
+    graph = TaintGraph(flat_call, *flat)
+    bad = [t for t in graph.output_dtypes() if dtype is not None and t not in (None, dtype)]
+    if bad:
+        raise DerivativeDtypeError(
+            f"{what} comes out {bad[0]} in a {dtype} problem: an expression "
+            "mixes dtypes (a lifted function or a constant of another dtype); "
+            "cast it to the problem's dtype"
+        )
     k = len(pytree.tree_leaves(list(example_args[:n_tainted])))
-    return not any(TaintGraph(flat_call, *flat).tainted_outputs(range(k)))
+    return not any(graph.tainted_outputs(range(k)))
 
 
 def param_value_deps(fn: Callable, penv_example, *args) -> set:
@@ -224,18 +245,21 @@ def analyze_hoistable(fns, nU: int, nF: int, nG: int, dt, param_shapes):
     Returns ``(h_const, fu_const, gu_const)`` for the Lagrangian Hessian
     d2L/du2 (w.r.t. u, nu, lam jointly) and the constraint Jacobians
     dF/du, dG/du (w.r.t. u).  Zeros stand in for the parameter values
-    (the analysis is shape-only)."""
+    (the analysis is shape-only).  Raises :class:`DerivativeDtypeError`
+    when one of them comes out in another dtype than ``dt``."""
     penv, u, nu, lam, s_ineq, s_cost = _dummies(nU, nF, nG, dt, param_shapes)
     lagr = _lagrangian(fns, nF, nG, penv)
     jac = torch.func.jacfwd
     h_const = output_independent_of(
         jac(torch.func.grad(lagr, argnums=0), argnums=0),
-        3, u, nu, lam, s_ineq, s_cost,
+        3, u, nu, lam, s_ineq, s_cost, dtype=dt, what="the Hessian of the Lagrangian",
     )
     fu_const = nF > 0 and output_independent_of(
-        lambda uu: jac(lambda v: fns.F(v, penv))(uu), 1, u
+        lambda uu: jac(lambda v: fns.F(v, penv))(uu), 1, u,
+        dtype=dt, what="the Jacobian of the inequalities",
     )
     gu_const = nG > 0 and output_independent_of(
-        lambda uu: jac(lambda v: fns.G(v, penv))(uu), 1, u
+        lambda uu: jac(lambda v: fns.G(v, penv))(uu), 1, u,
+        dtype=dt, what="the Jacobian of the equalities",
     )
     return h_const, bool(fu_const), bool(gu_const)

@@ -906,7 +906,8 @@ def _minmax_functions(objective, min_vars, max_vars, minConstraints, maxConstrai
             if not exprs:
                 return z.new_zeros(0)
             env = env_of(z, penv)
-            return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt)
+            # a copy, as api.py's stack: a cast in place keeps a float64 tangent
+            return torch.cat([torch.ravel(e(env)) for e in exprs]).to(dt, copy=True)
 
         return fn
 

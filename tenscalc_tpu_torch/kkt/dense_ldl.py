@@ -13,8 +13,9 @@ K5, and K7 at n <= 32, run one warp solve (a CTA of one warp an
 instance, x in its lanes' registers); :func:`solve_plan` gives its route
 and grid: the
 factor's columns in registers at n <= 32, the instance's rows staged in
-shared memory above.  K7 above n = 32 keeps a CTA an instance, whose
-reduction tree spans :func:`block_threads`.
+shared memory above.  K7 above n = 32 runs the tiles route's solve, a CTA
+an instance by 32-row blocks, whose reduction tree spans
+:func:`block_threads`.
 
 K4 runs a CTA of one warp an instance: the warp factor in K4's rounding
 order at n <= 32 (the registers route), 32-row blocks of 32-column
@@ -23,8 +24,11 @@ memory); :func:`fleet_factor_plan` gives its route and grid.
 
 K6 and K8 at n <= 32 run the warp factor (a CTA of one warp an instance,
 the matrix's upper triangle in its lanes' registers; K8 hands the factor
-to the warp solve in registers); above 32 a CTA an instance of
-:func:`block_threads`.  :func:`factor_plan` gives the route and grid.
+to the warp solve in registers); above 32 the tiles route: a launch a
+32-column panel of one-warp CTAs, one on the panel's diagonal block and
+one a tile of the trailing upper triangle, over a scratch working matrix
+(K8 then runs K7's solve).  :func:`factor_plan` gives the route, the
+launches and the grid.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from .fleet_banded import NVCC_FLAGS, SMEM_MAX, _stream
 
 FLEET_MAX_N = 160    # the JAX fleet kernel's VMEM cap (fleet.py:54-61)
 SINGLE_MAX_N = 896   # the JAX single-instance cap (fleet.py:263)
-MAX_THREADS = 512    # K6-K8 block size cap
+MAX_THREADS = 512    # the solve's CTA cap above n = 32 (K7, K8)
 CLAMP = 1e-7         # the pivot clamp of the IPM's dense backends
 REG_MAX_N = 32       # the warp solve's registers route and the warp factor:
                      # a lane a column
@@ -50,6 +54,10 @@ REG_MAX_N = 32       # the warp solve's registers route and the warp factor:
 # launches its kernel and nowhere else.
 LAUNCHES = {"fleet_factor": 0, "fleet_solve": 0, "ldl_factor": 0,
             "ldl_solve": 0, "ldl_factor_solve": 0}
+# The CUDA kernel launches those calls issued: a tiles-route factor
+# (K6, K8 above n = 32) launches once a 32-column panel, and K8 then its
+# solve.
+CUDA_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _lib: Optional[ctypes.CDLL] = None
 LIB_PATH: Optional[Path] = None  # the built library, once loaded
@@ -66,15 +74,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tc_dense_ldl_fleet_factor.argtypes = [P, P, P, I, I, Fl, P]
     lib.tc_dense_ldl_warp_solve.argtypes = [P, P, P, P, I, I, P]
-    lib.tc_dense_ldl_factor.argtypes = [P, P, P, I, I, I, Fl, P]
+    lib.tc_dense_ldl_factor.argtypes = [P, P, P, P, I, I, Fl, P]
     lib.tc_dense_ldl_solve.argtypes = [P, P, P, P, I, I, I, P]
-    lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, I, I, I, Fl, P]
+    lib.tc_dense_ldl_factor_solve.argtypes = [P, P, P, P, P, P, I, I, I, Fl, P]
     lib.tc_dense_ldl_fleet_factor_smem.argtypes = [I]
+    lib.tc_dense_ldl_factor_ctas.argtypes = [I, I]
     lib.tc_dense_ldl_init.argtypes = []
     for fn in (lib.tc_dense_ldl_fleet_factor, lib.tc_dense_ldl_warp_solve,
                lib.tc_dense_ldl_factor, lib.tc_dense_ldl_solve,
                lib.tc_dense_ldl_factor_solve, lib.tc_dense_ldl_fleet_factor_smem,
-               lib.tc_dense_ldl_init):
+               lib.tc_dense_ldl_factor_ctas, lib.tc_dense_ldl_init):
         fn.restype = ctypes.c_int
     lib.tc_dense_ldl_error_string.argtypes = [I]
     lib.tc_dense_ldl_error_string.restype = ctypes.c_char_p
@@ -112,8 +121,8 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def block_threads(n: int) -> int:
-    """Threads of a K6-K8 block for order n: the reduction tree of their
-    backward sums, which the plain versions repeat."""
+    """Threads of K7's and K8's solve CTA for order n: the reduction tree
+    of their backward sums, which the plain versions repeat."""
     return min(MAX_THREADS, 32 * -(-n // 32))
 
 
@@ -164,21 +173,33 @@ def fleet_factor_plan(n: int, B: int) -> FleetFactorPlan:
 
 
 class FactorPlan(NamedTuple):
-    route: str  # "warp" (n <= 32: the warp factor) or "cta"
-    grid: int  # CTAs: one an instance
-    threads: int  # threads of a CTA: one warp, or block_threads(n)
+    route: str  # "warp" (n <= 32: the warp factor) or "tiles"
+    launches: int  # factor launches: 1 (warp), or one a 32-column panel
+    grid: int  # CTAs of one warp in the first launch: an instance (warp), or
+               # tile_ctas(panels - 1) an instance (tiles)
+    threads: int  # threads of K8's solve CTA: block_threads(n)
+
+
+def tile_ctas(t: int) -> int:
+    """CTAs an instance of a tiles-route launch with ``t`` panels after
+    it: the diagonal block's and one a tile (I, K), p < I <= K."""
+    return 1 + t * (t + 1) // 2
 
 
 def factor_plan(n: int, B: int) -> FactorPlan:
-    """K6's and K8's launch for B instances of order n, the C entries'
-    own: the warp factor at n <= REG_MAX_N, else a CTA of
-    :func:`block_threads` an instance.  Raises for shapes the kernels do
-    not take."""
+    """K6's and K8's launches for B instances of order n, the C entries'
+    own: the warp factor at n <= REG_MAX_N, else the tiles route, launch
+    p of ceil(n / 32) with tile_ctas(panels - 1 - p) CTAs an instance
+    (379 at n = 896's first).  Raises for shapes the kernels do not
+    take."""
     if not 1 <= n <= SINGLE_MAX_N:
         raise ValueError(f"K6/K8 take 1 <= n <= {SINGLE_MAX_N}, got n={n}")
     if B < 1:
         raise ValueError(f"K6/K8 need B >= 1, got B={B}")
-    return FactorPlan("warp" if n <= REG_MAX_N else "cta", B, block_threads(n))
+    if n <= REG_MAX_N:
+        return FactorPlan("warp", 1, B, block_threads(n))
+    panels = -(-n // 32)
+    return FactorPlan("tiles", panels, B * tile_ctas(panels - 1), block_threads(n))
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +217,7 @@ def launch_fleet_factor(A, L, d, clamp: float) -> None:
         )
     _check_rc(lib, rc, "dense_ldl fleet_factor")
     LAUNCHES["fleet_factor"] += 1
+    CUDA_LAUNCHES["fleet_factor"] += 1
 
 
 def _warp_solve(F, d, b, x, what: str) -> None:
@@ -214,6 +236,7 @@ def launch_fleet_solve(L, d, b, x) -> None:
     """K5: x preallocated."""
     _warp_solve(L, d, b, x, "dense_ldl fleet_solve")
     LAUNCHES["fleet_solve"] += 1
+    CUDA_LAUNCHES["fleet_solve"] += 1
 
 
 def launch_factor(A, Lt, d, clamp: float) -> None:
@@ -222,18 +245,20 @@ def launch_factor(A, Lt, d, clamp: float) -> None:
     B, n = A.shape[0], A.shape[-1]
     plan = factor_plan(n, B)
     with torch.cuda.device(A.device):
+        W = torch.empty_like(A) if plan.route == "tiles" else None
         rc = lib.tc_dense_ldl_factor(
-            A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B, plan.threads,
-            clamp, _stream(A),
+            A.data_ptr(), Lt.data_ptr(), d.data_ptr(),
+            None if W is None else W.data_ptr(), n, B, clamp, _stream(A),
         )
     _check_rc(lib, rc, "dense_ldl factor")
     LAUNCHES["ldl_factor"] += 1
+    CUDA_LAUNCHES["ldl_factor"] += plan.launches
 
 
 def launch_solve(Lt, d, b, x) -> None:
     """K7: x preallocated.  At n <= REG_MAX_N the warp solve (the tree of
-    block_threads(n) = 32 threads is one warp's), above it a CTA an
-    instance."""
+    block_threads(n) = 32 threads is one warp's), above it the tiles
+    route's solve, a CTA of block_threads(n) an instance."""
     B, n = b.shape
     if n <= REG_MAX_N:
         _warp_solve(Lt, d, b, x, "dense_ldl solve")
@@ -246,6 +271,7 @@ def launch_solve(Lt, d, b, x) -> None:
             )
         _check_rc(lib, rc, "dense_ldl solve")
     LAUNCHES["ldl_solve"] += 1
+    CUDA_LAUNCHES["ldl_solve"] += 1
 
 
 def launch_factor_solve(A, b, Lt, d, x, clamp: float) -> None:
@@ -254,12 +280,14 @@ def launch_factor_solve(A, b, Lt, d, x, clamp: float) -> None:
     B, n = b.shape
     plan = factor_plan(n, B)
     with torch.cuda.device(A.device):
+        W = torch.empty_like(A) if plan.route == "tiles" else None
         rc = lib.tc_dense_ldl_factor_solve(
-            A.data_ptr(), b.data_ptr(), Lt.data_ptr(), d.data_ptr(),
-            x.data_ptr(), n, B, plan.threads, clamp, _stream(A),
+            A.data_ptr(), b.data_ptr(), Lt.data_ptr(), d.data_ptr(), x.data_ptr(),
+            None if W is None else W.data_ptr(), n, B, plan.threads, clamp, _stream(A),
         )
     _check_rc(lib, rc, "dense_ldl factor_solve")
     LAUNCHES["ldl_factor_solve"] += 1
+    CUDA_LAUNCHES["ldl_factor_solve"] += plan.launches + (plan.route == "tiles")
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@
 column c of the unit-lower L, 1 on the diagonal); pivots are clamped
 (Cheng-Higham) ``d <- sign(d) * max(|d|, clamp)`` with sign(0) = +, and
 there is no pivoting.  Every entry point takes one matrix (n, n) or a
-batch (B, n, n), one instance per CTA, as the JAX kernels batch under
-``vmap``; at n <= 32 the CTA is one warp (K6 and K8 the warp factor, K8
-and K7 the warp solve of K5; ``dense_ldl.factor_plan``).
+batch (B, n, n), as the JAX kernels batch under ``vmap``: at n <= 32 a
+CTA of one warp an instance (K6 and K8 the warp factor, K8 and K7 the
+warp solve of K5), above it the tiles route, a launch a 32-column panel
+of one-warp CTAs over the instance's tiles, then for K8 and K7 a CTA an
+instance by 32-row blocks (``dense_ldl.factor_plan``).
 
 A CPU tensor goes to the plain PyTorch version (``*_plain``); a CUDA
 tensor goes to the hand-written kernels of ``csrc/dense_ldl.cu`` (K6

@@ -1,15 +1,17 @@
 """csrc/dense_ldl.cu's warp solve (K5, and K7 at n <= 32), its warp
-factor (K6 and K8 at n <= 32) and K4 on both its routes (the warp factor
-in K4's rounding order at n <= 32, 32-row blocks above) run on the CPU,
-held bitwise against their plain versions; and the launch plans of the
-warp solve, of K4 and of K6/K8.
+factor (K6 and K8 at n <= 32), the tiles route of K6, K7 and K8 above
+n = 32 and K4 on both its routes (the warp factor in K4's rounding order
+at n <= 32, 32-row blocks above) run on the CPU, held bitwise against
+their plain versions; and the launch plans of the warp solve, of K4 and
+of K6/K8.
 
 The CUDA source is compiled with the host's g++ against the emulation of
-``tests/test_torch_fleet_banded_host.py`` (a CTA's 32 lanes as threads,
-a shuffle an exchange through 32 slots at one warp barrier,
+``tests/test_torch_fleet_banded_host.py`` (a CTA's threads as threads,
+a shuffle an exchange through the warp's 32 slots at one warp barrier,
 ``cp.async`` an immediate copy, shared memory NaN at start, the ``_rn``
-intrinsics the host's IEEE operations with no contraction): a CTA of one
-warp, as the warp solve and the warp factor launch on the card.  The
+intrinsics the host's IEEE operations with no contraction), with the
+C entries' own launches: CTAs of one warp, and the tiles route's solve a
+CTA of block_threads(n).  The
 data hold zero right-hand sides, negative and clamped pivots, an inf in
 a right-hand side and NaN below the diagonal of every factor and matrix,
 so signed zeros, NaN propagation and the unread parts are checked.
@@ -130,11 +132,11 @@ def test_one_warp_factor_kernels_on_the_host_equal_plain_versions(lib, n):
     A, b = _sym(B, n, seed=n)
     threads = tdl.block_threads(n)
     Lt, d6 = torch.empty_like(A), torch.empty_like(b)
-    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d6.data_ptr(), n, B,
-                                   threads, clamp, None) == 0
+    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d6.data_ptr(), None, n, B,
+                                   clamp, None) == 0
     Lt8, d8, x8 = torch.empty_like(A), torch.empty_like(b), torch.empty_like(b)
     assert lib.tc_dense_ldl_factor_solve(A.data_ptr(), b.data_ptr(), Lt8.data_ptr(),
-                                         d8.data_ptr(), x8.data_ptr(), n, B, threads,
+                                         d8.data_ptr(), x8.data_ptr(), None, n, B, threads,
                                          clamp, None) == 0
     pLt, pd6, px8 = tpl.pallas_ldl_factor_solve_plain(A, b, clamp)
     assert _same_bits(Lt, pLt) and _same_bits(d6, pd6)
@@ -149,12 +151,22 @@ def test_host_launches_refuse_what_the_kernels_do_not_take(lib):
         assert lib.tc_dense_ldl_warp_solve(*args, n, B, None) != 0
         assert lib.tc_dense_ldl_fleet_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), n,
                                              B, tdl.CLAMP, None) != 0
-    # K6 and K8 at n <= 32 run the warp factor: their CTA must be one warp
-    assert lib.tc_dense_ldl_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), 32, 1, 64,
-                                   tdl.CLAMP, None) != 0
+    # K8 at n <= 32 runs the warp factor and the warp solve: its CTA must be
+    # one warp
     assert lib.tc_dense_ldl_factor_solve(F.data_ptr(), b.data_ptr(), F.data_ptr(),
-                                         d.data_ptr(), x.data_ptr(), 32, 1, 64,
+                                         d.data_ptr(), x.data_ptr(), None, 32, 1, 64,
                                          tdl.CLAMP, None) != 0
+    # above n = 32 the tiles route needs its scratch, and its solve a tree of
+    # whole warps, at most two terms a thread
+    W = torch.empty_like(F)
+    assert lib.tc_dense_ldl_factor(F.data_ptr(), F.data_ptr(), d.data_ptr(), None, 33, 1,
+                                   tdl.CLAMP, None) != 0
+    for w, n, threads in [(None, 33, 64), (W, 160, 64), (W, 160, 48), (W, 33, 1024)]:
+        assert lib.tc_dense_ldl_factor_solve(
+            F.data_ptr(), b.data_ptr(), F.data_ptr(), d.data_ptr(), x.data_ptr(),
+            None if w is None else w.data_ptr(), n, 1, threads, tdl.CLAMP, None) != 0
+    for n, threads in [(160, 64), (160, 48), (33, 1024), (0, 64)]:
+        assert lib.tc_dense_ldl_solve(*args, n, 1, threads, None) != 0
 
 
 @pytest.mark.parametrize("n,route,chunks", [
@@ -206,14 +218,78 @@ def test_k6_and_k8_warp_factor_on_the_host_equal_plain_versions(lib, n, B):
     # the NaNs below the diagonal stay unread (instance 2 overflows)
     assert not pLt[:2].isnan().any() and not pd[:2].isnan().any()
     Lt, d = torch.full_like(A, float("nan")), torch.full_like(b, float("nan"))
-    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d.data_ptr(), n, B,
-                                   plan.threads, tdl.CLAMP, None) == 0
+    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d.data_ptr(), None, n, B,
+                                   tdl.CLAMP, None) == 0
     assert _same_bits(Lt, pLt) and _same_bits(d, pd)
     Lt8, d8, x8 = (torch.full_like(t, float("nan")) for t in (A, b, b))
     assert lib.tc_dense_ldl_factor_solve(A.data_ptr(), b.data_ptr(), Lt8.data_ptr(),
-                                         d8.data_ptr(), x8.data_ptr(), n, B,
+                                         d8.data_ptr(), x8.data_ptr(), None, n, B,
                                          plan.threads, tdl.CLAMP, None) == 0
     assert _same_bits(Lt8, pLt) and _same_bits(d8, pd) and _same_bits(x8, px)
+
+
+# the tiles route: two panels (the second of one row), two full ones, and
+# a ragged last panel after three full ones
+TILE_NS = [33, 45, 64, 97]
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", TILE_NS)
+def test_k6_and_k8_tiles_route_on_the_host_equal_plain_versions(lib, n, B):
+    """K6 and K8 on the tiles route (the C entries' own launches: one a
+    panel of one-warp CTAs, then K8's solve, a CTA of block_threads(n)),
+    bit for bit: every entry of Lt (zeros below the diagonal, 1 on it,
+    written over NaN), the pivots and K8's x; with NaN below A's diagonal
+    (never read), a zero first row, at B = 3 an inf in a b and instances
+    at 1e21 and 1e-25 whose quotients overflow, and the scratch NaN."""
+    A, b = _factor_data(B, n, seed=500 + 2 * n + B)
+    plan = tdl.factor_plan(n, B)
+    assert plan.route == "tiles" and plan.launches == -(-n // 32)
+    pLt, pd, px = tpl.pallas_ldl_factor_solve_plain(A, b, tdl.CLAMP)
+    assert not pLt[:2].isnan().any() and not pd[:2].isnan().any()
+    if B > 2:
+        assert pLt[2].isinf().any() and px[1].isnan().any()
+    W = torch.full_like(A, float("nan"))
+    Lt, d = torch.full_like(A, float("nan")), torch.full_like(b, float("nan"))
+    assert lib.tc_dense_ldl_factor(A.data_ptr(), Lt.data_ptr(), d.data_ptr(), W.data_ptr(),
+                                   n, B, tdl.CLAMP, None) == 0
+    assert _same_bits(Lt, pLt) and _same_bits(d, pd)
+    W.fill_(float("nan"))
+    Lt8, d8, x8 = (torch.full_like(t, float("nan")) for t in (A, b, b))
+    assert lib.tc_dense_ldl_factor_solve(A.data_ptr(), b.data_ptr(), Lt8.data_ptr(),
+                                         d8.data_ptr(), x8.data_ptr(), W.data_ptr(), n, B,
+                                         plan.threads, tdl.CLAMP, None) == 0
+    assert _same_bits(Lt8, pLt) and _same_bits(d8, pd) and _same_bits(x8, px)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n", TILE_NS)
+def test_k7_tiles_route_on_the_host_equals_its_plain_version(lib, n, B):
+    """K7 above n = 32 (a CTA of block_threads(n) an instance, the tree of
+    the plain version) against a factor with NaN below its diagonal, pivots
+    of either sign and at the clamp, b = 0 (signed zeros) and an inf."""
+    F, d, b = _solve_data(B, n, seed=700 + 2 * n + B, diagonal="1")
+    px = tpl.pallas_ldl_solve_plain(F, d, b)
+    if B > 1:
+        assert px.isnan().any()
+    x = torch.full_like(b, float("nan"))
+    assert lib.tc_dense_ldl_solve(F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                  n, B, tdl.block_threads(n), None) == 0
+    assert _same_bits(x, px)
+
+
+def test_k7_tiles_route_takes_two_terms_a_thread(lib):
+    """At n > 512 a thread of the tree holds two terms a row (T = 512): the
+    same kernel with a tree of 64 threads at n = 97, held against the plain
+    version of that tree (the two-term slots, the own block in either of
+    them, and warps before the own one holding later terms)."""
+    n, B, threads = 97, 2, 64
+    F, d, b = _solve_data(B, n, seed=11, diagonal="1")
+    px = tdl.solve_rows_plain(F, d, b, threads)
+    x = torch.full_like(b, float("nan"))
+    assert lib.tc_dense_ldl_solve(F.data_ptr(), d.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                  n, B, threads, None) == 0
+    assert _same_bits(x, px)
 
 
 # K4's registers route at its ends and a ragged n, and the blocked
@@ -275,14 +351,32 @@ def test_fleet_factor_plan_refuses_shapes_the_kernel_does_not_take():
             tdl.fleet_factor_plan(n, B)
 
 
-@pytest.mark.parametrize("n,route", [(1, "warp"), (13, "warp"), (32, "warp"),
-                                     (33, "cta"), (896, "cta")])
+@pytest.mark.parametrize("n,route,launches,ctas", [
+    (1, "warp", 1, 1), (13, "warp", 1, 1), (32, "warp", 1, 1),
+    (33, "tiles", 2, 2), (97, "tiles", 4, 7), (896, "tiles", 28, 379),
+])
 @pytest.mark.parametrize("B", [1, 64])
-def test_factor_plan_routes_and_covers_the_batch(n, route, B):
+def test_factor_plan_routes_and_covers_the_batch(n, route, launches, ctas, B):
     plan = tdl.factor_plan(n, B)
     assert plan.route == route
-    assert plan.grid == B  # a CTA an instance
-    assert plan.threads == (32 if route == "warp" else tdl.block_threads(n))
+    assert plan.launches == launches
+    assert plan.grid == B * ctas  # the first launch's CTAs of one warp
+    assert plan.threads == tdl.block_threads(n)  # K8's solve
+    assert (plan.threads == 32) == (route == "warp")
+
+
+def test_factor_plan_is_the_c_entrys_own(lib):
+    """The tiles route's CTAs an instance at every launch and every n: the
+    diagonal block's and one a tile of the trailing upper triangle."""
+    for n in range(1, tdl.SINGLE_MAX_N + 1):
+        plan = tdl.factor_plan(n, 1)
+        if plan.route == "warp":
+            assert lib.tc_dense_ldl_factor_ctas(n, 0) == -1
+            continue
+        ctas = [lib.tc_dense_ldl_factor_ctas(n, p) for p in range(plan.launches)]
+        assert ctas[0] == plan.grid
+        assert ctas == [tdl.tile_ctas(plan.launches - 1 - p) for p in range(plan.launches)]
+        assert lib.tc_dense_ldl_factor_ctas(n, plan.launches) == -1
 
 
 def test_factor_plan_refuses_shapes_the_kernels_do_not_take():

@@ -2,12 +2,13 @@
 run on the CPU, held bitwise against their plain versions.
 
 The CUDA source is compiled with the host's g++ against a small
-emulation of the CUDA pieces it uses: a CTA's 32 lanes run as threads,
-``__syncwarp`` is a barrier, a ``cp.async`` copies at once, shared memory
-starts as NaN, the ``_rn`` intrinsics are the host's IEEE float
+emulation of the CUDA pieces it uses: a CTA's threads (whole warps) run
+as threads, ``__syncwarp`` is a barrier of the warp's 32 and
+``__syncthreads`` one of the CTA's, a ``cp.async`` copies at once, shared
+memory starts as NaN, the ``_rn`` intrinsics are the host's IEEE float
 operations (no contraction), the hardware's reciprocal estimate is the
 host's correctly rounded 1/d, and a shuffle is an exchange through one
-of two banks of 32 slots at one warp barrier.  This checks the kernels' indexing,
+of two banks of the warp's 32 slots at one warp barrier.  This checks the kernels' indexing,
 staging, ring and look-ahead logic and the reciprocal division's rounding on any
 machine; the card's own compiler, timing and registers are checked by
 chip_smoke.py.  Skipped where there is no g++."""
@@ -34,7 +35,9 @@ HOST_CUDA = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __device__
@@ -71,17 +74,19 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __frcp_rn(float a) { return 1.0f / a; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
-inline std::barrier<> warp_barrier(32);
-inline void __syncwarp() { warp_barrier.arrive_and_wait(); }
-inline void __syncthreads() { __syncwarp(); }  // a CTA is one warp here
-// a shuffle: each lane posts its value in its slot, then reads its
+constexpr int kHostMaxWarps = 32;
+inline std::unique_ptr<std::barrier<>> warp_barrier[kHostMaxWarps];  // 32 lanes each
+inline std::unique_ptr<std::barrier<>> cta_barrier;  // blockDim.x threads
+inline void __syncwarp() { warp_barrier[threadIdx.x >> 5]->arrive_and_wait(); }
+inline void __syncthreads() { cta_barrier->arrive_and_wait(); }
+// a shuffle: each lane posts its value in its warp's slot, then reads its
 // source's; the lanes alternate between two banks of slots, so one warp
 // barrier a shuffle suffices (a lane writes a bank again only after the
 // next shuffle's barrier, which every lane reaches after its read)
-inline float shfl_slot[2][32];
+inline float shfl_slot[kHostMaxWarps][2][32];
 inline thread_local unsigned shfl_bank;
 inline float __shfl_sync(unsigned, float v, int src) {
-  float* slot = shfl_slot[shfl_bank ^= 1];
+  float* slot = shfl_slot[threadIdx.x >> 5][shfl_bank ^= 1];
   slot[threadIdx.x & 31] = v;
   __syncwarp();
   return slot[src & 31];
@@ -95,19 +100,24 @@ inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); r
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
-inline float smem[HOST_SMEM_BYTES / 4];  // a CTA's shared memory
-// a launch: the CTAs one after another, a CTA's lanes as threads
+alignas(16) inline float smem[HOST_SMEM_BYTES / 4];  // a CTA's shared memory
+// a launch: the CTAs one after another, a CTA's threads (whole warps) as
+// threads
 template <typename K> struct Launch {
-  dim3 grid;
+  dim3 grid, block;
   K kernel;
   template <typename... A> void operator()(A... a) {
+    if (block.x % 32 != 0 || block.x / 32 > kHostMaxWarps) std::abort();
+    for (unsigned w = 0; w < block.x / 32; ++w) warp_barrier[w] = std::make_unique<std::barrier<>>(32);
+    cta_barrier = std::make_unique<std::barrier<>>(block.x);
     for (unsigned b = 0; b < grid.x; ++b) {
       std::fill(smem, smem + HOST_SMEM_BYTES / 4, NAN);
       std::vector<std::thread> lanes;
-      for (unsigned t = 0; t < 32; ++t)
+      for (unsigned t = 0; t < block.x; ++t)
         lanes.emplace_back([=, this] {
           blockIdx = dim3(b);
           threadIdx = dim3(t);
+          blockDim = block;
           gridDim = grid;
           kernel(a...);
         });
@@ -115,7 +125,9 @@ template <typename K> struct Launch {
     }
   }
 };
-template <typename K> Launch<K> launch(dim3 grid, K kernel) { return {grid, kernel}; }
+template <typename K> Launch<K> launch(dim3 grid, dim3 block, K kernel) {
+  return {grid, block, kernel};
+}
 """
 
 
@@ -125,7 +137,7 @@ def host_source(src: str, extra=()) -> str:
     each rewrite must apply."""
     rewrites = [
         *extra,
-        (r"(\w+(?:<[\w, ]+>)?)<<<(\w+),[^>]*>>>\(", r"launch(\2, \1)("),
+        (r"(\w+(?:<[\w, ]+>)?)<<<(\w+), *(\w+)[^>]*>>>\(", r"launch(\2, \3, \1)("),
         (r"(void cp_async4\(float\* dst, const float\* src\) \{).*?\n\}",
          r"\1 *dst = *src; }"),
         (r"asm volatile\(.*?\);", ";"),
