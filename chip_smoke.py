@@ -8,7 +8,7 @@ Phases:
      plain PyTorch versions on the card, bitwise, with each shape's launch
      plan, at the main paths' shapes (the flagship's B=1024, n=149, w=4;
      the min-max saddle KKT's B=1024, n=480, w=6 and HessD's B=1024,
-     n=240, w=1; warm, with L2 cold,
+     n=240, w=1; the unicycle fleet's B=512, n=439, w=9; warm, with L2 cold,
      and through the entry point; K2 beside its library call,
      torch.linalg.ldl_solve with no interchanges on K1's factor expanded
      to dense, and K3 beside torch.linalg.lu_factor_ex with no
@@ -76,7 +76,19 @@ Phases:
      KKT oracle and against the CPU; profiles of the N = 300 and the slseq
      solves.  [dense-kernels] also holds K8/K7 at these paths' shapes
      (1, 45), (1, 150), (1, 450) and (1, 840) and times the blocked LDL^T
-     at (1, 1500).
+     at (1, 1500);
+ 14. the per-iteration band mode: bench.py's nonlinear unicycle fleet
+     (examples/mpc_unicycle, B=512, T=40, float32, 'auto', mu0 = 0.1,
+     max_iter = 200: nK = 439, RCM w = 9, the band assembled from H and
+     Gu at every iterate) through solve_many, with its build time and
+     plan, every instance at status 0, the iterations, the launch counts
+     read around it (K1, K2 and no K3: the inertia reads K1's factor) and
+     the warm solve's wall time; eight instances again on the CPU (status
+     equal, u within 2e-3, objective within 1e-3); a profile of one fleet
+     solve ([profile7]: device time, idle share, host and device ms a
+     lockstep iteration).  [kernels] also holds K1-K3 at its band
+     (512, 439, 10) and times them beside their bounds and the library
+     calls on the band expanded to dense.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -168,6 +180,11 @@ SLSEQ_ATOL = 1e-4
 # (m = 240, w = 1)
 MM_B, MM_N = 1024, 80
 MM_SADDLE, MM_HESSD = (MM_B, 480, 6), (MM_B, 240, 1)
+# the nonlinear unicycle fleet (bench.py:669-741): B = 512, T = 40; its
+# condensed KKT (nU = 239, nG = 200: nK = 439, RCM w = 9) assembled into
+# the band at every iterate ('periter')
+UNI_B, UNI_T = 512, 40
+UNI_BAND = (UNI_B, 439, 9)
 
 
 def log(msg: str) -> None:
@@ -647,13 +664,14 @@ def ldl_dense(f):
 
 def library_check(fn, x, scale, what, reps):
     """Holds one PyTorch call's x to a kernel's at the kernels' tolerance
-    and returns its time (ms, CUDA events, ``reps`` single calls)."""
+    and returns its time (ms, CUDA events, ``reps`` single calls after
+    that call, which warms it up)."""
     xl = fn()
     torch.cuda.synchronize()
     el = (xl - x).abs().max().item()
     check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
           f"{what}: max abs diff from the kernel {el}")
-    return cuda_ms(fn, reps), el
+    return statistics.median(timed_call(fn) for _ in range(reps)), el
 
 
 def library_pair(A, b, x, scale, reps):
@@ -797,18 +815,19 @@ def phase_lu_kernels(lu):
     return recs
 
 
-# (B, n, w): the flagship fleet's band; a fleet at w = 9 and one whose
+# (B, n, w): the flagship fleet's band; the min-max saddle and HessD
+# bands; the nonlinear unicycle fleet's; a fleet at w = 9 and one whose
 # last CTA holds one instance (B = 1001 at w = 1); the widest band; and
 # bands above the shared-memory cap (the ring route), one with n a whole
 # number of chunks
 FB_SHAPE = (FLEET_B, 149, 4)
-FB_SHAPES = [FB_SHAPE, MM_SADDLE, MM_HESSD, (1000, 69, 9), (1001, 37, 1),
+FB_SHAPES = [FB_SHAPE, MM_SADDLE, MM_HESSD, UNI_BAND, (1000, 69, 9), (1001, 37, 1),
              (FLEET_B, 149, 16), (64, 12000, 4), (64, 3520, 16)]
 # the main paths' shapes, timed in full (device time alone, L2 cold, the
 # entry point, the library call); the shape each kernel's record (the
 # kernels line) comes from: K1/K2 the flagship's, K3 the min-max HessD
 # inertia's, its only main-path caller
-FB_MAIN_SHAPES = (FB_SHAPE, MM_SADDLE, MM_HESSD)
+FB_MAIN_SHAPES = (FB_SHAPE, MM_SADDLE, MM_HESSD, UNI_BAND)
 FB_RECORDED = {"factor_solve": FB_SHAPE, "solve": FB_SHAPE, "factor": MM_HESSD}
 # fleets whose instances reach far outside the usual magnitudes, at a
 # width that divides through the pivot's reciprocal and one that does not
@@ -880,9 +899,10 @@ def phase_kernels(fb):
                 lambda: fb.fleet_banded_factor_batched(band, w, clamp)),
         }
         libs = {}
-        if main:
+        if main and (B, n, w) != UNI_BAND:
             # K2's library call: ldl_solve with no interchanges (pivots
-            # 1..n) on K1's factor expanded to dense (not timed)
+            # 1..n) on K1's factor expanded to dense (not timed); 3.6-5.1 s
+            # a call at the unicycle's band on an H100, so not repeated there
             LD = ldl_dense(f1)
             piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
             libs["solve"], el = library_check(
@@ -891,6 +911,7 @@ def phase_kernels(fb):
             log(f"[kernels] library torch.linalg.ldl_solve (pivots 1..n) on K1's "
                 f"factor as dense LDL^T: {libs['solve']:.4f} ms, max abs diff from K2 "
                 f"{el:.3e}")
+        if main:
             # K3's library call: lu_factor_ex with no interchanges on the
             # band expanded to its dense symmetric matrix (not timed); no
             # clamp fires on these data, so L below U's diagonal and d on it
@@ -968,6 +989,9 @@ class _BandOnly:
     def __init__(self, band, perm):
         self.band = band
         self.perm = perm
+
+    def matvec(self, x):
+        raise NotImplementedError("an inertia query solves nothing")
 
 
 def phase_slice(mpc, fb, lu):
@@ -1057,15 +1081,19 @@ def phase_cross_check(mpc, params, inits, res):
         f"cpu {r.iters.numpy().tolist()}")
 
 
-def phase_profile(label: str, run_fleet, watch=()):
+def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
     """One solve (a fleet's or one instance's) under the profiler: the device's busy and idle
     shares, the top ten kernels, and the kernels whose names ``watch``'s
-    patterns find, with their share of the device time."""
+    patterns find, with their share of the device time.  ``host_ops=False``
+    traces the device alone (a long solve's host operators take minutes
+    to collect).  Returns the profiled wall time and the device kernel
+    time (s)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_fleet()
         torch.cuda.synchronize()
@@ -1087,6 +1115,7 @@ def phase_profile(label: str, run_fleet, watch=()):
         check(us > 0, f"the profiler saw {name}")
         log(f"[{label}] {name}: {us / 1e3:.3f} ms, {us / 1e6 / busy:.4f} of the "
             f"device kernel time")
+    return wall, busy
 
 
 def phase_mpcmhe(mm, fb, lu):
@@ -1447,6 +1476,164 @@ def phase_minmax_cross_check(ttc, params, inits, res):
         f"{df:.3e}")
 
 
+def phase_unicycle(tm, fb, others):
+    """The nonlinear unicycle fleet (bench.py:669-741: B = 512, T = 40,
+    float32, 'auto', mu0 = 0.1, max_iter = 200) on the card: the
+    per-iteration band mode through K1/K2, the inertia read from K1's
+    factor (no K3), no other kernel."""
+    ns = "buni_"
+    t0 = time.perf_counter()
+    solver = tm.build_solver(T=UNI_T, ns=ns, dtype="float32")
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    check(solver.device.type == "cuda", "the default device is the card")
+    check((solver.nU, solver.nG, solver.nF) == (239, 200, 78), "unicycle sizes")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode == "periter"
+          and (plan.n, plan.bandwidth) == UNI_BAND[1:]
+          and tuple(solver._hoist) == (False, True, False),
+          "fleet banded, per-iteration band (439, w=9), hoist flags (H, Fu, Gu) = "
+          "(False, True, False)")
+    log(f"[unicycle] solver built in {build:.1f} s: nU {solver.nU} nG {solver.nG} "
+        f"nF {solver.nF}; nK {plan.n}, RCM w {plan.bandwidth}; hoist (H, Fu, Gu) "
+        f"{tuple(solver._hoist)}; band mode {solver._solve_raw.band_mode}; backend "
+        f"{solver.kkt_backend_resolved}; K1-K3 launch plan "
+        f"{fb.launch_plan(plan.n, plan.bandwidth, UNI_B, torch.cuda.get_device_properties(0).multi_processor_count)}")
+    params, inits = tm.fleet_inputs(UNI_T, UNI_B, ns, seed=0)
+
+    def run(max_iter=200):
+        res = solver.solve_many(params, inits=inits, mu0=1e-1, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)  # warm-up (first-call allocations)
+    reset_counts(fb, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the unicycle path: {[m.LAUNCHES for m in others]}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (UNI_B, solver.nU) and bool(torch.isfinite(res.u).all()),
+          "finite u of the expected shape")
+    n_ok = int((status == 0).sum())
+    check(n_ok == UNI_B, f"all {UNI_B} instances at status 0 (got {np.bincount(status)})")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0,
+          f"K1 and K2 ran on the unicycle path: {launches}")
+    check(launches["factor"] == 0, f"the inertia reads K1's factor, no K3: {launches}")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    k1 = launches["factor_solve"]
+    log(f"[unicycle] fleet B={UNI_B} T={UNI_T} f32: status 0 for {n_ok} of {UNI_B}; iters "
+        f"max {iters.max()} mean {iters.mean():.2f}; warm solve wall {wall:.4f} s, "
+        f"{UNI_B / wall:.1f} solves/s, host {1e3 * wall / lockstep:.1f} ms a lockstep "
+        f"iteration ({card_line()}); launches {launches}; per lockstep iteration "
+        f"K1 {k1 / lockstep:.2f} K2 {launches['solve'] / lockstep:.2f} "
+        f"K3 {launches['factor'] / lockstep:.2f}; adaptation trips beyond one a lockstep "
+        f"iteration: {k1 - lockstep}")
+    return solver, params, inits, res, launches, wall, lockstep
+
+
+# the unicycle's init moved by this much: a float32 solve on the CPU that
+# then lands elsewhere (beyond U_ATOL) started on a rounding's edge
+# between two local minima
+UNI_NUDGE = 1e-6
+
+
+def minimize_exit_metrics(solver, params, res):
+    """The exit tests' metrics of a minimization fleet's result ``res``,
+    evaluated again on ``solver``'s device from its final (u, nu, lam) and
+    scales: stationarity of the scaled Lagrangian ``g``, equality ``eq``,
+    ``gap`` = lam . s F, ``min_F`` (of s F) and ``min_lam``."""
+    from torch.func import grad, vmap
+
+    from tenscalc_tpu_torch.interop import params_from_numpy
+
+    fns, dev, dt = solver._fns, solver.device, solver.opts.torch_dtype
+    penv, shared, _ = params_from_numpy(solver, params, dev, dt)
+    pdims = {k: (None if k in shared else 0) for k in penv}
+    u, nu, lam, si, sc = (t.to(dev, dt) for t in (res.u, res.nu, res.lam, res.scale_ineq,
+                                                    res.scale_cost))
+
+    def lagr(uu, nn, ll, pe, s_i, s_c):
+        return s_c * fns.f(uu, pe) - ll @ (s_i * fns.F(uu, pe)) + nn @ fns.G(uu, pe)
+
+    g = vmap(grad(lagr), in_dims=(0, 0, 0, pdims, 0, 0))(u, nu, lam, penv, si, sc)
+    Fs = si * vmap(fns.F, in_dims=(0, pdims))(u, penv)
+    G = vmap(fns.G, in_dims=(0, pdims))(u, penv)
+    return {"g": g.abs().amax(1), "eq": G.abs().amax(1), "gap": (lam * Fs).sum(1),
+            "min_F": Fs.amin(1), "min_lam": lam.amin(1)}
+
+
+def phase_unicycle_cross_check(tm, params, inits, res):
+    """Eight of the unicycle fleet's instances solved again by the port on
+    the CPU (float32, plain versions of K1/K2).
+
+    The problem is nonconvex (the pursuer may turn either way) and some
+    instances start on a rounding's edge between two local minima: the
+    CPU alone, from an init moved by UNI_NUDGE, lands up to 4.0 away in u
+    (the bounds are +-2).  So what is held of every instance is status 0
+    on both sides and the card's answer passing the exit tests evaluated
+    again on the CPU (stationarity, equality, gap, interior); an instance
+    whose two CPU solves agree within U_ATOL is also held to u within
+    U_ATOL and the objective within F_RTOL of the card; the others are
+    printed."""
+    ns = "buni_"
+    idx = np.arange(0, UNI_B, UNI_B // 8)
+    cpu = tm.build_solver(T=UNI_T, ns=ns, dtype="float32", device="cpu")
+    opts = cpu.opts
+    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
+    sub_i = {k: v[idx] for k, v in inits.items()}
+    nudge = np.random.default_rng(1)
+    sub_n = {k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
+    # both solves in one fleet of 16: an instance's iterates do not depend
+    # on the others in its fleet
+    both = cpu.solve_many(
+        {k: (np.concatenate([v, v]) if np.ndim(v) == 3 else v) for k, v in sub_p.items()},
+        inits={k: np.concatenate([sub_i[k], sub_n[k]]) for k in sub_i},
+        mu0=1e-1, max_iter=200)
+    r = type(both)(*(v[:8] for v in both))
+    rn = type(both)(*(v[8:] for v in both))
+    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    m = {k: v.numpy() for k, v in minimize_exit_metrics(cpu, sub_p, card).items()}
+    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
+    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
+    nu = UNI_T - 1  # u leads the packed primal vector
+    u_c, u_n, u_g = r.u.numpy()[:, :nu], rn.u.numpy()[:, :nu], card.u.cpu().numpy()[:, :nu]
+    du = np.abs(u_c - u_g).max(axis=1)
+    stable = np.abs(u_c - u_n).max(axis=1) <= U_ATOL
+    f_c, f_g = r.f.numpy(), card.f.cpu().numpy()
+    df = np.abs(f_c - f_g) / np.abs(f_c)
+    check((st_c == 0).all() and (st_g == 0).all() and (rn.status.numpy() == 0).all(),
+          f"status 0 on card and CPU ({st_g}, {st_c}, nudged {rn.status.numpy()})")
+    check(bool(np.isfinite(m["g"]).all() and (m["g"] <= opts.gradTolerance).all()),
+          f"card answers stationary on the CPU (max g {m['g'].max():.3e})")
+    check(bool((m["eq"] <= opts.equalTolerance).all()),
+          f"card answers feasible on the CPU (max |G| {m['eq'].max():.3e})")
+    check(bool((m["min_F"] >= -1e-6).all() and (m["min_lam"] > 0).all()),
+          "card answers inside the bounds with positive multipliers on the CPU")
+    # gap = lam . sF is a sum of nF positive float32 products, each
+    # evaluation within (nF + 2) * 2^-24 of the exact value relative to it
+    gap_tol = opts.desiredDualityGap * (1 + 2 * (cpu.nF + 2) * 2.0**-24)
+    check(bool((m["gap"] <= gap_tol).all()),
+          f"card answers within the gap on the CPU (max {m['gap'].max():.6e})")
+    check(bool((du[stable] <= U_ATOL).all()),
+          f"u within {U_ATOL} where the CPU's own solves agree ({du[stable]})")
+    check(bool((df[stable] <= F_RTOL).all()),
+          f"objective within {F_RTOL} relative where the CPU's own solves agree "
+          f"({df[stable]})")
+    log(f"[unicycle-cross-check] 8 instances on the CPU: status 0 on both; iterations card "
+        f"{it_g.tolist()} cpu {it_c.tolist()} (init moved by {UNI_NUDGE}: "
+        f"{rn.iters.numpy().tolist()}); the card's answers on the CPU: max g "
+        f"{m['g'].max():.3e} (tol {opts.gradTolerance}), max |G| {m['eq'].max():.3e}, max gap "
+        f"{m['gap'].max():.6e} (tol {opts.desiredDualityGap}); the CPU's two solves agree on "
+        f"{int(stable.sum())} of 8: there max |du| {du[stable].max(initial=0):.3e}, objective "
+        f"max rel diff {df[stable].max(initial=0):.3e}; on the others max |du| "
+        f"{du[~stable].max(initial=0):.3e} (the nudged CPU solve "
+        f"{np.abs(u_c - u_n).max(axis=1)[~stable].round(4).tolist()}), objectives card "
+        f"{f_g[~stable].round(5).tolist()} cpu {f_c[~stable].round(5).tolist()}")
+
+
 def flops_launch_check(rows, n_launch, others, where):
     """K8 and K7 alone up to 896 KKT rows, no kernel above."""
     check(not any(v for m in others for v in m.LAUNCHES.values()),
@@ -1620,7 +1807,11 @@ def main() -> int:
 
     card = card_line()
     log(f"[setup] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"[time] {time.perf_counter() - t_start:.1f} s from the start to {what}")
+
     with ThreadPoolExecutor(max_workers=4) as pool:
         for f in [pool.submit(fb._load), pool.submit(lu._load),
                   pool.submit(dl._load), pool.submit(native._load)]:
@@ -1635,6 +1826,7 @@ def main() -> int:
     dense_regs = dense_ptxas_report(build_log(dl.LIB_PATH), -(-dl.FLEET_MAX_N // 32))
     log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: {dense_regs}")
 
+    elapsed("the kernels")
     recs = phase_kernels(fb)
     solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
@@ -1643,6 +1835,7 @@ def main() -> int:
         params, inits=inits, mu0=1e-3, max_iter=100),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")))
 
+    elapsed("slice 2")
     lu_recs = phase_lu_kernels(lu)
     msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the MPC-MHE path")
@@ -1651,6 +1844,7 @@ def main() -> int:
         mparams, mu0=1e-3, max_iter=100))
 
     # slice 3: the dense KKT path (sls constrained least squares)
+    elapsed("slice 3")
     dense_recs = phase_dense_kernels(dl, fl, pl)
     single_launches = phase_sls_single(sls, dl, (fb, lu))
     ssolver, sdata, sres, fleet_launches = phase_sls_fleet(
@@ -1669,6 +1863,7 @@ def main() -> int:
     phase_profile("profile3", lambda: solve_sls_fleet(ssolver, "slsf_", sdata))
 
     # the min-max slice: K1/K2 on the saddle KKT, K3 on the HessD inertia
+    elapsed("the min-max slice")
     mmsolver, mmparams, mminits, mmres, mm_launches = phase_minmax(ttc, fb, (lu, dl))
     phase_minmax_cross_check(ttc, mmparams, mminits, mmres)
     phase_profile("profile4", lambda: mmsolver.solve_many(
@@ -1676,10 +1871,27 @@ def main() -> int:
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<"),
                ("K3", r"\bfactor_kernel<")))
 
+    # the nonlinear unicycle fleet: the per-iteration band mode, K1/K2
+    from tenscalc_tpu_torch.examples import mpc_unicycle
+
+    elapsed("the unicycle slice")
+    usolver, uparams, uinits, ures, uni_launches, uwall, ulock = phase_unicycle(
+        mpc_unicycle, fb, (lu, dl))
+    elapsed("the unicycle's cross-check")
+    phase_unicycle_cross_check(mpc_unicycle, uparams, uinits, ures)
+    elapsed("[profile7]")
+    pwall, pbusy = phase_profile("profile7", lambda: usolver.solve_many(
+        uparams, inits=uinits, mu0=1e-1, max_iter=200),
+        watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")), host_ops=False)
+    log(f"[profile7] the unicycle fleet: device kernel time {pbusy:.4f} s a solve, "
+        f"{1e3 * pbusy / ulock:.2f} ms a lockstep iteration; host {1e3 * uwall / ulock:.1f} "
+        f"ms a lockstep iteration unprofiled ({1e3 * pwall / ulock:.1f} profiled)")
+
     # the slice of problems without inequalities: K8/K7 on one instance's
     # dense KKT up to 896 rows, the blocked LDL^T above
     from tenscalc_tpu_torch.examples import flops, slseq
 
+    elapsed("the slice without inequalities")
     flops_launches, (fsolver, fparams, finit) = phase_flops(flops, dl, (fb, lu))
     phase_flops_backends(flops, dl, (fb, lu))
     phase_flops_cross_check(flops)
@@ -1721,8 +1933,10 @@ def main() -> int:
     # are in its [minmax] line); K3: the min-max HessD inertia, its only
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
+    fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches}
     kernels = [
-        entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k])
+        {**entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k]),
+         "launches_by_path": {p: c[k] for p, c in fb_paths.items()}}
         for k in ("factor_solve", "solve", "factor")
     ] + [
         entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,
@@ -1733,6 +1947,7 @@ def main() -> int:
               lu_entry_launches.get(k), lu_recs[k])
         for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
+    elapsed("the end")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -285,7 +285,8 @@ class OptimizeSolver(SolverBase):
         and plan the RCM band, the fleet banded LDL^T where the band is
         worthwhile, else the fleet dense LDL^T (JAX ``api.py:334-409``,
         its ``auto_fleet`` branch)."""
-        from .kkt.fleet_banded import FleetBandedFromBand
+        from .ipm.solver import BandKKT
+        from .kkt.fleet_banded import FleetBandedFromBand, fleet_banded_kkt_factorize
         from .kkt.structure import plan_banded, probe_pattern
 
         backend = self.opts.kkt_backend
@@ -333,10 +334,16 @@ class OptimizeSolver(SolverBase):
             return
         self.kkt_plan = plan
         n_ref = self.opts.refine_for("fleet_banded")
-        self._install_backend(
-            lambda WW: FleetBandedFromBand(WW, plan, n_refine=n_ref),
-            "fleet_banded", band_plan=plan,
-        )
+
+        def kkt(WW):
+            # the band modes hand over the band they assembled; the
+            # problems without inequalities and the large Newton matrix
+            # their dense KKT (JAX api.py:419-424)
+            if isinstance(WW, BandKKT):
+                return FleetBandedFromBand(WW, plan, n_refine=n_ref)
+            return fleet_banded_kkt_factorize(WW, plan, n_refine=n_ref)
+
+        self._install_backend(kkt, "fleet_banded", band_plan=plan)
 
     def _install_backend(self, kkt_solver, name: str, band_plan=None) -> None:
         """Build the solve function around a KKT backend (``None``: the

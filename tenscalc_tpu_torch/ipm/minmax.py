@@ -27,8 +27,10 @@ Two assemblies share the iteration loop:
   global diagonal, factored by the fleet banded LDL^T (K1, K2), with
   the HessD inertia from its own banded plan (K3);
 * the dense branch: the (B, nK, nK) saddle matrix for the solver's
-  unpivoted LDL^T (``kkt_backend='dense'``) or the fleet dense LDL^T
-  (``'fleet'``, or nK < 64), the HessD inertia from the dense LDL^T.
+  unpivoted LDL^T (``kkt_backend='dense'``), the fleet dense LDL^T
+  (``'fleet'``, or nK < 64) or, on a worthwhile band outside band mode,
+  the fleet banded LDL^T of the dense matrix (K1, K2); the HessD
+  inertia from the dense LDL^T.
 """
 
 from __future__ import annotations
@@ -57,10 +59,6 @@ ADD_MIN = 1e-20
 MAX_DIRECTION_ERROR = 1e-7
 MAX_DIRECTION_ERROR_F32 = 1e-6
 MAX_ADAPT_STEPS = 30
-
-
-def _deferred(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
 
 class MinMaxState(NamedTuple):
@@ -341,12 +339,8 @@ def build_minmax_ipm(fns: _MinMaxFns, dims, opts: SolverOptions, kkt_solver=None
     adapt = opts.addEye2Hessian and opts.adjustAddEye2Hessian
     want_band = band_plan is not None and kkt_solver is not None
     cert = minmax_certificates(fns, dims, opts, param_shapes or {}, want_band)
+    # outside band mode a banded backend takes the dense saddle KKT
     band_mode = want_band and cert["band_ok"]
-    if want_band and not band_mode:
-        raise _deferred(
-            "a min-max problem outside hoisted band mode on the fleet banded "
-            "LDL^T (FleetBandedFactorization of a dense KKT)", "M8",
-        )
     hessd_banded = bool(band_mode and hessd_plan is not None and hessd_plan.worthwhile)
     F_affine = nF > 0 and cert["hoist_Fz"] and opts.linesearch_affine_F
     # desired inertias (ipmPDminmax_CSsolver.m:68-69): the saddle KKT has

@@ -16,10 +16,14 @@ direction-error gate and the progress guard, both line searches, the mu
 schedule, the exit tests and the final status flags) and differ only in
 the KKT they linearize at each iterate (:class:`Linearization`):
 
-* band mode ('hoisted', the condensed matrix with inequalities):
-  iteration-invariant derivatives at a dummy iterate, the KKT assembled
-  directly into band storage (``BandKKT``) for the fleet banded LDL^T;
-* the dense branch (JAX ``band_plan is None``): the condensed matrix
+* the band modes (a banded plan, the condensed matrix with
+  inequalities): the KKT assembled directly into band storage
+  (``BandKKT``) for the fleet banded LDL^T, from iteration-invariant
+  derivatives at a dummy iterate ('hoisted') or, when the certificate
+  does not hoist them all, from H and Gu at every iterate ('periter');
+* the dense branch (JAX ``band_plan is None``, or a banded plan without
+  inequalities or on the large matrix, whose backend takes the dense
+  KKT): the condensed matrix
   ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]``, or the
   large one of the standard variant ``[[H + addU I, Gu', -Fu'],
   [Gu, -addEq I, 0], [-Fu, 0, -diag(F/lam)]]`` or of ``timesLambda``
@@ -256,14 +260,69 @@ class BandKKT:
         return m
 
 
-def _band_of(W: torch.Tensor, perm: torch.Tensor, w: int) -> torch.Tensor:
-    """Lower band (..., n, w+1) of W[perm][:, perm]."""
-    Wp = W[..., perm, :][..., :, perm]
-    cols = [
-        Fn.pad(torch.diagonal(Wp, offset=-i, dim1=-2, dim2=-1), (0, i))
-        for i in range(w + 1)
-    ]
-    return torch.stack(cols, dim=-1)
+class _BandIndex(NamedTuple):
+    """Where each entry of the lower band of P [[H, Gu'], [Gu, 0]] P' lies
+    in H and Gu: band[c, i] = H.flatten(-2)[h[c, i]] where ``in_h``,
+    Gu.flatten(-2)[g[c, i]] where ``in_g``, else 0 (the zero block, and
+    the slots past the last row)."""
+
+    h: torch.Tensor
+    g: torch.Tensor
+    in_h: torch.Tensor
+    in_g: torch.Tensor
+
+
+def _band_index(perm: np.ndarray, nU: int, w: int, dev) -> _BandIndex:
+    """The flat positions of band[c, i] = Wp[c+i, c], Wp = P W P' with W
+    = [[H, Gu'], [Gu, 0]], in H (nU, nU) and Gu (nG, nU): each (nK, w+1)."""
+    nK = len(perm)
+    c, i = np.arange(nK)[:, None], np.arange(w + 1)[None, :]
+    inside = c + i < nK
+    r = perm[np.minimum(c + i, nK - 1)]
+    s = np.broadcast_to(perm[:, None], r.shape)
+    in_h = inside & (r < nU) & (s < nU)
+    below = inside & (r >= nU) & (s < nU)   # Gu[r - nU, s]
+    above = inside & (r < nU) & (s >= nU)   # Gu'[r, s - nU] = Gu[s - nU, r]
+    h = np.where(in_h, r * nU + s, 0)
+    g = np.where(below, (r - nU) * nU + s, np.where(above, (s - nU) * nU + r, 0))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return _BandIndex(t(h), t(g), t(in_h), t(below | above))
+
+
+def _band_gather(H: torch.Tensor, Gu: torch.Tensor, idx: _BandIndex) -> torch.Tensor:
+    """Lower band (..., nK, w+1) of P [[H, Gu'], [Gu, 0]] P', read from H
+    (..., nU, nU) and Gu (..., nG, nU) by index: the values of the JAX
+    package's one-hot permutation products, without forming the matrix."""
+    band = torch.where(idx.in_h, H.flatten(-2)[..., idx.h], 0.0)
+    if Gu.shape[-2] > 0:
+        band = torch.where(idx.in_g, Gu.flatten(-2)[..., idx.g], band)
+    return band
+
+
+def _pair_products(Fu: torch.Tensor, perm: torch.Tensor, nG: int, w: int) -> torch.Tensor:
+    """(..., nF, (w+1) nK) pair products of the permuted Jacobian FuP =
+    [Fu, 0] P' (nG zero columns): column i nK + c of row k holds
+    FuP[k, c+i] FuP[k, c] (zero past the edge)."""
+    FuP = torch.cat([Fu, Fu.new_zeros(Fu.shape[:-1] + (nG,))], dim=-1)[..., perm]
+    nK = FuP.shape[-1]
+    FuPP = torch.stack(
+        [Fn.pad(FuP[..., i:] * FuP[..., : nK - i], (0, i)) for i in range(w + 1)],
+        dim=-2,
+    )  # (..., nF, w+1, nK)
+    return FuPP.flatten(-2)
+
+
+def _barrier_band(ds: torch.Tensor, FuPP: torch.Tensor, w: int) -> torch.Tensor:
+    """The barrier's band (B, nK, w+1) of Fu' diag(ds) Fu:
+    band[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]."""
+    if FuPP.dim() == 2:
+        flat = ds @ FuPP
+    else:
+        flat = torch.bmm(ds.unsqueeze(1), FuPP).squeeze(1)
+    return flat.view(ds.shape[0], w + 1, -1).transpose(1, 2)
 
 
 def _rough_solve(fac, rhs: torch.Tensor) -> torch.Tensor:
@@ -405,25 +464,22 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
     times_lambda = opts.variant == "timesLambda" and not small
     if opts.profiling or opts.allowSave:
         raise _deferred("profiling and allowSave", "M17")
-    if band_plan is not None and (nF == 0 or not small):
-        raise _deferred(
-            "a banded plan for a problem without inequalities or for the large "
-            "Newton matrix (the JAX package factors its dense KKT by "
-            "fleet_banded_kkt_factorize)", "M8",
-        )
     nK = nU + nG + (0 if small else nF)
+    # the band's own assembly needs the condensed matrix with
+    # inequalities and a banded backend; otherwise a banded plan's
+    # backend takes the dense KKT (FleetBandedFactorization)
+    band_any = band_plan is not None and small and nF > 0 and kkt_solver is not None
     band_mode = (
-        band_plan is not None
+        band_any
         and hoist_H
         and hoist_Fu
         and (nG == 0 or hoist_Gu)
         and (hoist_scale_free or not (opts.scaleInequalities or opts.scaleCost > 0))
     )
-    if band_plan is not None and not band_mode:
-        raise _deferred(
-            "per-iteration band assembly (a banded problem whose derivatives "
-            "are not all hoisted)", "M8",
-        )
+    # per-iteration band mode: the plan's band structure holds at every
+    # iterate, and the scales fold into the barrier weights, so it needs
+    # no scale-free certificate
+    band_periter = band_any and not band_mode
     mp_desired = float(nU)
     mn_desired = float(nG if small else nF + nG)
 
@@ -544,14 +600,16 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
         else:
             nu0 = u0.new_zeros(B, 0)
 
-        def band_linearization():
-            """Band mode: the hoisted derivatives at a dummy iterate with
-            unit scales and the value-irrelevant parameters masked to
-            zeros (with every remaining dependency shared they are
-            computed once, unbatched), the constant band of
-            P [[H, Gu'], [Gu, 0]] P' and the per-diagonal pair products of
-            the permuted UNSCALED Jacobian:
-            band_F[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]."""
+        def Fu_raw_at(u):
+            """The unscaled Jacobian of F at batched iterates."""
+            return vmap(lambda uu, pe: jacfwd(lambda v: fns.F(v, pe))(uu),
+                        in_dims=(0, pdims))(u, penv)
+
+        def hoisted_at_dummy():
+            """Band mode's iteration-invariant H, unscaled Fu and Gu at a
+            dummy iterate with unit scales and the value-irrelevant
+            parameters masked to zeros: with every remaining dependency
+            shared they are computed once, unbatched."""
             h_deps, fu_deps, gu_deps = (
                 hoist_param_deps if hoist_param_deps is not None else (None,) * 3
             )
@@ -589,50 +647,57 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 Gu = hoisted(lambda env: jacfwd(lambda uu: fns.G(uu, env))(u_d), gu_deps)
             else:
                 Gu = torch.zeros(0, nU, dtype=dt, device=dev)
+            return H, Fu, Gu
 
+        def band_linearization():
+            """The condensed KKT assembled straight into the permuted band
+            of the plan, for the fleet banded LDL^T.  Band mode
+            ('hoisted'): H, Fu and Gu iteration-invariant, taken at a dummy
+            iterate, their band gathered once a solve.  Per-iteration band
+            mode ('periter'): H and Gu at every iterate where the
+            certificate does not hoist them (hoisted ones at u0), their
+            band gathered at each iterate.  The barrier's band comes from
+            the pair products of the permuted UNSCALED Jacobian, formed once
+            a solve where Fu is hoisted, weighted by
+            ds = lam / F * scale_ineq^2 (the scale folds into the weights):
+            band_F[c, i] = sum_k ds_k FuP[k, c+i] FuP[k, c]."""
+            if band_mode:
+                H, Fu, Gu = hoisted_at_dummy()
+            else:
+                H = H_at(u0, nu0, lam0) if hoist_H else None
+                Fu = Fu_raw_at(u0) if hoist_Fu else None
+                Gu = no_rows if nG == 0 else (Gu_at(u0) if hoist_Gu else None)
             w_band = int(band_plan.bandwidth)
-            perm = torch.as_tensor(np.asarray(band_plan.perm), device=dev)
-            lead = torch.broadcast_shapes(H.shape[:-2], Gu.shape[:-2])
-            Hb = H.expand(lead + H.shape[-2:])
-            Gb = Gu.expand(lead + Gu.shape[-2:])
-            Wconst = torch.cat(
-                [torch.cat([Hb, Gb.transpose(-1, -2)], dim=-1),
-                 torch.cat([Gb, Gb.new_zeros(lead + (nG, nG))], dim=-1)],
-                dim=-2,
-            )
-            band_const = _band_of(Wconst, perm, w_band)
-            FuP = torch.cat([Fu, Fu.new_zeros(Fu.shape[:-1] + (nG,))], dim=-1)[..., perm]
-            FuPP = torch.stack(
-                [Fn.pad(FuP[..., i:] * FuP[..., : nK - i], (0, i))
-                 for i in range(w_band + 1)],
-                dim=-2,
-            )  # (..., nF, w+1, nK)
-            FuPP_flat = FuPP.reshape(FuPP.shape[:-2] + ((w_band + 1) * nK,))
+            perm_np = np.asarray(band_plan.perm)
+            perm = torch.as_tensor(perm_np, device=dev)
+            idx = _band_index(perm_np, nU, w_band, dev)
+            band_HG = _band_gather(H, Gu, idx) if H is not None and Gu is not None else None
+            FuPP = _pair_products(Fu, perm, nG, w_band) if Fu is not None else None
             bmask_u = (perm < nU).to(dt)
             bmask_g = (perm >= nU).to(dt)
 
-            def barrier_band(ds):
-                if FuPP_flat.dim() == 2:
-                    flat = ds @ FuPP_flat
-                else:
-                    flat = torch.bmm(ds.unsqueeze(1), FuPP_flat).squeeze(1)
-                return flat.view(B, w_band + 1, nK).transpose(1, 2)
-
-            def fu_mv(x):
-                return si * hdot(Fu, x)
-
-            def fuT_mv(y):
-                return hdotT(Fu, si * y)
-
             def linearize(u, nu, lam, Fval):
+                H_ = H if H is not None else H_at(u, nu, lam)
+                Gu_ = Gu if Gu is not None else Gu_at(u)
+                Fu_ = Fu if Fu is not None else Fu_raw_at(u)
+                bandHG = band_HG if band_HG is not None else _band_gather(H_, Gu_, idx)
+                FuPP_ = FuPP if FuPP is not None else _pair_products(Fu_, perm, nG, w_band)
                 dF = lam / (Fval if f64 else torch.clamp(Fval, min=1e-8))
                 ds = dF * si * si
+                base = bandHG + _barrier_band(ds, FuPP_, w_band)
 
+                def fu_mv(x):
+                    return si * hdot(Fu_, x)
+
+                def fuT_mv(y):
+                    return hdotT(Fu_, si * y)
+
+                # the adaptation trips share the band and re-add its diagonal
                 def assemble(addU, addEq):
-                    bandv = band_const + barrier_band(ds)
+                    bandv = base.clone()
                     bandv[:, :, 0] += addU[:, None] * bmask_u - addEq[:, None] * bmask_g
-                    WW = BandKKT(bandv, perm, H, Fu, Gu, ds, addU, addEq, nU, nG)
-                    return WW, lambda x: hdot(H, x) + addU[:, None] * x
+                    WW = BandKKT(bandv, perm, H_, Fu_, Gu_, ds, addU, addEq, nU, nG)
+                    return WW, lambda x: hdot(H_, x) + addU[:, None] * x
 
                 return Linearization(fu_mv, fuT_mv, lambda x: dF * fu_mv(x), assemble)
 
@@ -688,7 +753,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
 
             return linearize
 
-        linearize = band_linearization() if band_mode else dense_linearization()
+        linearize = band_linearization() if band_any else dense_linearization()
 
         inf_B = full(math.inf)
 
@@ -1086,5 +1151,5 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             scale_ineq=scale_ineq, scale_cost=scale_cost,
         )
 
-    solve.band_mode = "hoisted" if band_mode else None
+    solve.band_mode = "hoisted" if band_mode else ("periter" if band_periter else None)
     return solve

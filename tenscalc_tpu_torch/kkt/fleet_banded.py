@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as Fn
 
 from .._build import build_shared_library, find_tool
+from .dense import hdot
 from .structure import BandedPlan
 
 MAX_W = 16  # widths the kernels are instantiated for (csrc/fleet_banded.cu)
@@ -400,32 +401,36 @@ def _sym_equilibration(band: torch.Tensor, n: int, w: int) -> torch.Tensor:
     return torch.rsqrt(torch.clamp(rn, min=1e-30))
 
 
-class FleetBandedFromBand:
-    """KKT-backend adapter over a directly assembled permuted band
-    (:class:`tenscalc_tpu_torch.ipm.solver.BandKKT`), for a batch.
+def _scaled_band(band: torch.Tensor, n: int, w: int):
+    """(s, s_c s_{c+i} band): the symmetric equilibration of a float32
+    band (B, n, w+1) and the band it scales."""
+    s = _sym_equilibration(band, n, w)
+    s_pad = Fn.pad(s, (0, w))
+    s_shift = torch.stack([s_pad[:, i: i + n] for i in range(w + 1)], dim=2)
+    return s, band * s[:, :, None] * s_shift
 
-    The band is equilibrated symmetrically, factored lazily (the first
-    solve runs K1, every later solve K2), and each solve is refined
-    ``n_refine`` times against the exact structured matvec.  Permuting
-    by index gives the values of the JAX package's one-hot products."""
 
-    def __init__(self, op, plan: BandedPlan, n_refine: int = 1,
-                 clamp: float = 1e-7):
-        self.op = op
+class _FleetBandedAdapter:
+    """The KKT-backend contract over a permuted lower band (B, n, w+1):
+    the band equilibrated symmetrically, factored lazily (the first solve
+    runs K1, every later solve K2), each solve refined ``n_refine`` times
+    against the matrix's own product ``matvec``, a matrix right-hand side
+    (B, n, k) solved a column at a time, and ``inertia()`` read from the
+    factor's d (K3 only when no solve came first).  Permuting by index
+    gives the values of the JAX package's one-hot products."""
+
+    def __init__(self, band, perm, matvec, plan: BandedPlan, n_refine: int,
+                 clamp: float, dtype: torch.dtype):
         self.plan = plan
         self.n_refine = n_refine
         self.clamp = clamp
-        n, w = plan.n, plan.bandwidth
-        self.w = w
-        band = op.band.to(torch.float32)
-        s = _sym_equilibration(band, n, w)
-        self.s = s
-        s_pad = Fn.pad(s, (0, w))
-        s_shift = torch.stack([s_pad[:, i: i + n] for i in range(w + 1)], dim=2)
-        self._band_scaled = band * s[:, :, None] * s_shift
+        self.w = plan.bandwidth
+        self.s, self._band_scaled = _scaled_band(band.to(torch.float32), plan.n, self.w)
         self.fband = None  # lazy: the first solve fuses factor + solve
-        self.perm = op.perm
-        self.iperm = torch.argsort(op.perm)
+        self.perm = perm
+        self.iperm = torch.argsort(perm)
+        self._matvec = matvec
+        self._dtype = dtype
 
     def _solve32(self, rhs: torch.Tensor) -> torch.Tensor:
         bp = self.s * rhs.to(torch.float32)[:, self.perm]
@@ -438,10 +443,13 @@ class FleetBandedFromBand:
         return (self.s * xp)[:, self.iperm]
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        if rhs.dim() == 3:
+            return torch.stack([self.solve(rhs[:, :, k]) for k in range(rhs.shape[2])],
+                               dim=2)
         dt = rhs.dtype
         x = self._solve32(rhs).to(dt)
         for _ in range(self.n_refine):
-            x = x + self._solve32(rhs - self.op.matvec(x)).to(dt)
+            x = x + self._solve32(rhs - self._matvec(x)).to(dt)
         return x
 
     def inertia(self, tol: float = 0.0):
@@ -449,6 +457,50 @@ class FleetBandedFromBand:
             self.fband = fleet_banded_factor_batched(
                 self._band_scaled, self.w, self.clamp
             )
-        rt = self.op.band.dtype
         d = self.fband[:, :, 0]
+        rt = self._dtype
         return (d > tol).sum(dim=1).to(rt), (d < -tol).sum(dim=1).to(rt)
+
+
+class FleetBandedFromBand(_FleetBandedAdapter):
+    """KKT-backend adapter over a directly assembled permuted band
+    (:class:`tenscalc_tpu_torch.ipm.solver.BandKKT` or a game's
+    ``BandedOperator``), for a batch: the dense matrix is never formed,
+    and refinement uses the operator's structured matvec."""
+
+    def __init__(self, op, plan: BandedPlan, n_refine: int = 1,
+                 clamp: float = 1e-7):
+        self.op = op
+        super().__init__(op.band, op.perm, op.matvec, plan, n_refine, clamp,
+                         op.band.dtype)
+
+
+def band_of_dense(WW: torch.Tensor, plan: BandedPlan) -> torch.Tensor:
+    """The lower band (B, n, w+1) of P WW P' for a dense batch (B, n, n),
+    band[:, c, i] = WW[:, perm[c+i], perm[c]] read by index (zero past
+    the last row)."""
+    n, w, dev = plan.n, plan.bandwidth, WW.device
+    perm = torch.as_tensor(plan.perm, dtype=torch.int64, device=dev)
+    c = torch.arange(n, device=dev)[:, None]
+    ci = c + torch.arange(w + 1, device=dev)[None, :]
+    idx = perm[torch.clamp(ci, max=n - 1)] * n + perm[c]
+    return torch.where(ci < n, WW.flatten(-2)[:, idx], 0.0)
+
+
+class FleetBandedFactorization(_FleetBandedAdapter):
+    """KKT-backend adapter over a dense batch WW (B, n, n) whose
+    permuted pattern lies in the plan's band: the band taken by index
+    (never the permuted matrix), the same pipeline as
+    :class:`FleetBandedFromBand`, refined against WW itself."""
+
+    def __init__(self, WW: torch.Tensor, plan: BandedPlan, n_refine: int = 2,
+                 clamp: float = 1e-7):
+        self.WW = WW
+        perm = torch.as_tensor(plan.perm, dtype=torch.int64, device=WW.device)
+        super().__init__(band_of_dense(WW, plan), perm, lambda x: hdot(WW, x), plan,
+                         n_refine, clamp, WW.dtype)
+
+
+def fleet_banded_kkt_factorize(WW: torch.Tensor, plan: BandedPlan, n_refine: int = 2,
+                               clamp: float = 1e-7) -> FleetBandedFactorization:
+    return FleetBandedFactorization(WW, plan, n_refine=n_refine, clamp=clamp)

@@ -87,8 +87,8 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
 
 def _select_symmetric(opts, nK, plan_fn):
     """The min-max branch: the fleet dense LDL^T below nK = 64 or without
-    a worthwhile band, else the fleet banded LDL^T on the directly
-    assembled band."""
+    a worthwhile band, else the fleet banded LDL^T, on the directly
+    assembled band in band mode and on the dense saddle KKT outside it."""
     if opts.kkt_backend == "tridiag":
         raise _deferred("the block-tridiagonal LDL^T (tridiag_factorize)", "M11")
     if opts.kkt_backend == "fleet" or nK < 64:
@@ -97,16 +97,15 @@ def _select_symmetric(opts, nK, plan_fn):
     if plan is None or not plan.worthwhile:
         return _fleet_dense(opts), "fleet", None
     from .band_assemble import BandedOperator
-    from .fleet_banded import FleetBandedFromBand
+    from .fleet_banded import FleetBandedFromBand, fleet_banded_kkt_factorize
 
     n_ref = opts.refine_for("fleet_banded")
 
     def kkt_sym(op):
-        if not isinstance(op, BandedOperator):
-            raise _deferred(
-                "the fleet banded LDL^T of a dense KKT (FleetBandedFactorization)", "M8"
-            )
-        return FleetBandedFromBand(op, plan, n_refine=n_ref)
+        # band mode hands over its band, the dense branch its saddle KKT
+        if isinstance(op, BandedOperator):
+            return FleetBandedFromBand(op, plan, n_refine=n_ref)
+        return fleet_banded_kkt_factorize(op, plan, n_refine=n_ref)
 
     return kkt_sym, "fleet_banded", plan
 

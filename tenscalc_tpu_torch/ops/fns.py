@@ -1,8 +1,9 @@
 """Functions of TensCalc's operator set (port of ``tenscalc_tpu/ops/fns.py``).
 
-Only ``norm2`` and ``tprod`` are ported; the rest of the module (the
-other norms, the factorization expressions, the interpolation
-functions) is ROADMAP item M15.  Each function takes plain tensors or
+Only ``norm2``, ``tprod``, ``sin`` and ``cos`` are ported; the rest of
+the module (the other norms, the elementwise functions, the
+factorization expressions, the interpolation functions) is ROADMAP item
+M15.  Each function takes plain tensors or
 :class:`~tenscalc_tpu_torch.expr.Expr` objects.
 """
 
@@ -21,6 +22,16 @@ def norm2(x, S=None):
     if S is None:
         return (x * x).sum()
     return torch.vdot(x.reshape(-1), (S @ x).reshape(-1))
+
+
+@lift
+def sin(x):
+    return torch.sin(x)
+
+
+@lift
+def cos(x):
+    return torch.cos(x)
 
 
 def tprod(*args):

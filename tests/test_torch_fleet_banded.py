@@ -159,6 +159,7 @@ def test_launches_reject_bad_operands_before_cuda(monkeypatch):
 # fit the shared-memory cap staged take the ring
 PLANS = [
     ((149, 4, 1024), (False, 2)),
+    ((439, 9, 512), (False, 1)),  # the nonlinear unicycle fleet
     ((69, 9, 1000), (False, 2)),
     ((69, 9, 1003), (False, 2)),
     ((37, 1, 64), (False, 1)),

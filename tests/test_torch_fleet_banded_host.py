@@ -207,10 +207,14 @@ def _band(B, n, w, seed, extreme):
 
 
 # (B, n, w, group, ring route, extreme magnitudes): the flagship width,
-# ragged groups, one row, the widest band, the group cap, and the ring
-# (forced at small n) with n a whole number of chunks or not
+# the nonlinear unicycle fleet's band (n = 439, w = 9: staged, an
+# instance a CTA), ragged groups, one row, the widest band, the group
+# cap, and the ring (forced at small n) with n a whole number of chunks
+# or not
 CASES = [
     (5, 37, 4, 2, False, False),
+    (3, 439, 9, 1, False, False),
+    (2, 439, 9, 1, False, True),
     (7, 149, 4, 2, False, True),
     (3, 69, 9, 2, False, True),
     (3, 37, 1, 2, False, True),

@@ -190,19 +190,29 @@ def _chain(mod, n=80, **kw):
 
 
 def test_banded_problem_without_inequalities_raises_m8():
-    """The JAX package hands such a KKT, dense, to
-    fleet_banded_kkt_factorize (ROADMAP item M8 in the port); on 'dense'
-    the same problem solves."""
-    with pytest.raises(NotImplementedError, match="M8"):
-        _chain(ttc)
-    ttc.clear_variables()
-    with pytest.raises(NotImplementedError, match="M8"):
-        p, x = ttc.variable("lv_p", (80,)), ttc.variable("lv_x", (80,))
-        ttc.optimize(ttc.norm2(x - p) + ttc.norm2(x[1:] - x[:-1]), [x],
-                     constraints=[x >= -1.0], parameters=[p], smallerNewtonMatrix=False,
-                     device="cpu")
-    ttc.clear_variables()
-    s = _chain(ttc, kkt_backend="dense")
+    """A banded plan without inequalities, or on the large Newton matrix,
+    no longer raises (it did before the port took its dense KKT to the
+    fleet banded LDL^T): on 'auto' the dense KKT goes to
+    FleetBandedFactorization (K1/K2's plain versions on the CPU) and the
+    solve equals 'dense' (test_torch_banded_dense_kkt.py holds it
+    against the JAX package)."""
     p = np.linspace(0.0, 1.0, 80)
-    sol = s.solve({"ch_p": p}, init={"ch_x": np.zeros(80)})
-    assert sol.ok and sol.iters == 2 and abs(sol.variables["ch_x"][0]) < 1e-9
+    sols = {}
+    for backend in ("auto", "dense"):
+        ttc.clear_variables()
+        s = _chain(ttc, kkt_backend=backend)
+        assert s.kkt_backend_resolved == ("fleet_banded" if backend == "auto" else "dense")
+        assert s._solve_raw.band_mode is None
+        sols[backend] = s.solve({"ch_p": p}, init={"ch_x": np.zeros(80)})
+        assert sols[backend].ok and sols[backend].iters == 2
+        assert abs(sols[backend].variables["ch_x"][0]) < 1e-9
+    np.testing.assert_allclose(sols["auto"].variables["ch_x"], sols["dense"].variables["ch_x"],
+                               rtol=0, atol=X_JAX)
+    ttc.clear_variables()
+    pv, x = ttc.variable("lv_p", (80,)), ttc.variable("lv_x", (80,))
+    s = ttc.optimize(ttc.norm2(x - pv) + ttc.norm2(x[1:] - x[:-1]), [x],
+                     constraints=[x >= -1.0], parameters=[pv], smallerNewtonMatrix=False,
+                     device="cpu")
+    assert s.kkt_backend_resolved == "fleet_banded" and s.kkt_plan.n == 160
+    sol = s.solve({"lv_p": p}, init={"lv_x": np.zeros(80)})
+    assert sol.ok and sol.iters == 8
