@@ -34,7 +34,7 @@ Phases:
      interchanges), ragged
      ones (B=1000: n=146, w=10; n=69, w=3 and w=1), w=12, and bands
      above the shared-memory cap (B=64: n=3000, w=12; n=16000, w=1: the
-     ring route);
+     ring route); phase 15 adds its shapes;
   7. slice 2: the MPC-MHE equilibrium fleet (examples/mpcmhe_dcmotor,
      T=12, L=16, B=1024, float32) through solve_many, with the launch
      counts read around it, then one single solve;
@@ -88,7 +88,22 @@ Phases:
      solve ([profile7]: device time, idle share, host and device ms a
      lockstep iteration).  [kernels] also holds K1-K3 at its band
      (512, 439, 10) and times them beside their bounds and the library
-     calls on the band expanded to dense.
+     calls on the band expanded to dense;
+ 15. the nonlinear MPC-MHE pursuit game (examples/mpcmhe_unicycle, B=512,
+     T=20, L=10, float32, 'auto', mu0 = 0.1, max_iter = 300: nK = 585, RCM
+     w = 22, no Jacobian iteration-invariant, so the KKT is assembled
+     densely at every iterate, band mode None) through solve_many, with
+     its build time and plan, every instance at status 0, the iterations,
+     the launch counts read around it (K9 and K10 alone) and the warm
+     solve's wall time; eight instances again on the CPU (the card's
+     answers pass the exit tests there, status equal, iterations within
+     one, uFuture within 2e-3 and J within 1e-3 where the CPU's own
+     solves from the init and from it moved by 1e-6 agree); a profile of
+     one fleet solve ([profile8]).  [lu-kernels] also holds K9-K11 at its
+     band (512, 585, 22) and times them beside their bounds and the
+     library calls on the band expanded to dense, and holds them at
+     w = 13, 15, 16 and 31 (B = 1000) and on the ring route at w = 13,
+     16, 22 and 31.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -185,6 +200,11 @@ MM_SADDLE, MM_HESSD = (MM_B, 480, 6), (MM_B, 240, 1)
 # the band at every iterate ('periter')
 UNI_B, UNI_T = 512, 40
 UNI_BAND = (UNI_B, 439, 9)
+# the nonlinear MPC-MHE pursuit fleet (examples/mpcmhe_unicycle at the
+# example's own T = 20, L = 10): its stacked KKT (nK = 585, RCM w = 22)
+# assembled densely at every iterate into K9/K10
+PUR_B, PUR_T, PUR_L = 512, 20, 10
+PURSUIT_BAND = (PUR_B, 585, 22)
 
 
 def log(msg: str) -> None:
@@ -708,12 +728,20 @@ def library_lu_factor(A, want, scale, what, lower=False):
     return cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 5), el
 
 
-# (B, n, w): the MPC-MHE fleet; ragged batches (B not a multiple of the
-# group) at the T = 6 game's width and a narrow band; the width range's
-# ends; and bands above the shared-memory cap (the ring route), one with
-# n a whole number of chunks
-LU_SHAPES = [LU_SHAPE, (1000, 146, 10), (1000, 69, 3), (1000, 69, 1), (1024, 290, 12),
-             (64, 3000, 12), (64, 16000, 1)]
+# (B, n, w): the MPC-MHE fleet and the pursuit fleet; ragged batches (B
+# not a multiple of the group) at the T = 6 game's width, a narrow band
+# and the widths past w = 12 (13 and 15 on the two-lanes-a-row map of the
+# factor, 16 and 31 on the one-lane map); w = 12; and bands above the
+# shared-memory cap (the ring route) at w = 1, 12, 13, 16, 22 and 31, one
+# with n a whole number of chunks
+LU_SHAPES = [LU_SHAPE, PURSUIT_BAND, (1000, 146, 10), (1000, 69, 3), (1000, 69, 1),
+             (1000, 100, 13), (1000, 100, 15), (1000, 100, 16), (1000, 77, 31),
+             (1024, 290, 12), (64, 3000, 12), (64, 16000, 1), (64, 2100, 13),
+             (64, 1700, 16), (64, 1300, 22), (64, 900, 31)]
+# the main paths' shapes, timed in full (device time alone, L2 cold, the
+# entry point, the library calls); the kernels line's record is the
+# MPC-MHE fleet's, the pursuit fleet's is in its main_shapes
+LU_MAIN_SHAPES = (LU_SHAPE, PURSUIT_BAND)
 
 
 def phase_lu_kernels(lu):
@@ -722,7 +750,7 @@ def phase_lu_kernels(lu):
     clamp = 1e-4
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, n, w in LU_SHAPES:
-        main = (B, n, w) == LU_SHAPE
+        main = (B, n, w) in LU_MAIN_SHAPES
         plan = lu.launch_plan(n, w, B, sms)
         band, rhs = test_lu_band(B, n, w, seed=n + w)
         f9, x9 = lu.fleet_banded_lu_factor_solve_batched(band, rhs, w, clamp)
@@ -747,8 +775,10 @@ def phase_lu_kernels(lu):
             f"(a warp each) a CTA, {-(-B // plan.group)} CTAs, "
             f"{plan.smem} bytes of shared memory a CTA")
         fb, xo = torch.empty_like(band), torch.empty_like(rhs)
-        reps = 50 if n <= 290 else 5
-        preps = 20 if main else (3 if n <= 290 else 0)
+        reps = 50 if main or n <= 290 else 5
+        preps = (20 if n <= 290 else 3) if main else (3 if n <= 290 else 0)
+        if plan.ring:
+            check(n > lu.RING_ROWS, f"a ring band longer than the ring at B={B} n={n} w={w}")
         runs = {
             "lu_factor_solve": (
                 lambda: lu.launch_factor_solve(band, rhs, fb, xo, w, clamp),
@@ -808,9 +838,14 @@ def phase_lu_kernels(lu):
             log(f"[lu-kernels] {LU_NAMES[k]} B={B} n={n} w={w}: max_abs_err "
                 f"{errs[k]:.3e}  kernel {ms:.4f} ms{extra}  plain {plain_s}{lib}  "
                 f"bound {bms:.5f} ms ({by})")
-            if main:
+            if (B, n, w) == LU_SHAPE:
                 recs[k].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
                                bound_by=by, library_ms=libs.get(k))
+            elif main:
+                recs[k].setdefault("main_shapes", []).append(
+                    {"B": B, "n": n, "w": w, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": libs.get(k), "max_abs_err": errs[k]})
         del band, rhs, f9, x9, x10, f11, pf, px, px10, fb, xo
     return recs
 
@@ -1634,6 +1669,127 @@ def phase_unicycle_cross_check(tm, params, inits, res):
         f"{f_g[~stable].round(5).tolist()} cpu {f_c[~stable].round(5).tolist()}")
 
 
+def phase_pursuit(tm, lu, others):
+    """The nonlinear MPC-MHE pursuit fleet (examples/mpcmhe_unicycle,
+    B = 512, T = 20, L = 10, float32, 'auto', mu0 = 0.1, max_iter = 300)
+    on the card: its KKT (nK = 585, RCM w = 22) assembled densely at every
+    iterate (band mode None) and factored by K9/K10 alone."""
+    ns = "pur_"
+    t0 = time.perf_counter()
+    solver = tm.build_solver(T=PUR_T, L=PUR_L, ns=ns, dtype="float32")
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(solver.kkt_backend_resolved == "fleet_banded_lu"
+          and solver._solve_raw.band_mode is None
+          and (plan.n, plan.bandwidth) == PURSUIT_BAND[1:],
+          "fleet banded LU, no band mode, n=585, w=22")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[pursuit] solver built in {build:.1f} s: dims {solver._ipm_dims}; nK {plan.n}, RCM "
+        f"w {plan.bandwidth}; band mode {solver._solve_raw.band_mode}; backend "
+        f"{solver.kkt_backend_resolved}; certificates hoist_S "
+        f"{solver.certificates['hoist_S']} hoist_Gz {solver.certificates['hoist_Gz']} "
+        f"hoist_Fz {solver.certificates['hoist_Fz']}; K9/K10 launch plan "
+        f"{lu.launch_plan(plan.n, plan.bandwidth, PUR_B, sms)}")
+    params, inits = tm.fleet_inputs(PUR_T, PUR_L, PUR_B, ns, seed=0)
+
+    def run(max_iter=300):
+        res = solver.solve_many(params, inits=inits, mu0=1e-1, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)  # warm-up (first-call allocations)
+    reset_counts(lu, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(lu.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K1-K8 on the pursuit path: {[m.LAUNCHES for m in others]}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (PUR_B, sum(solver._ipm_dims[:3]))
+          and bool(torch.isfinite(res.u).all()), "finite z of the expected shape")
+    n_ok = int((status == 0).sum())
+    check(n_ok == PUR_B, f"all {PUR_B} instances at status 0 (got {np.bincount(status)})")
+    check(launches["lu_factor_solve"] > 0 and launches["lu_solve"] > 0
+          and launches["lu_factor"] == 0, f"K9 and K10 alone on the pursuit path: {launches}")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    k9 = launches["lu_factor_solve"]
+    log(f"[pursuit] fleet B={PUR_B} T={PUR_T} L={PUR_L} f32: status 0 for {n_ok} of {PUR_B}; "
+        f"iters max {iters.max()} mean {iters.mean():.2f}; warm solve wall {wall:.4f} s, "
+        f"{PUR_B / wall:.1f} solves/s, host {1e3 * wall / lockstep:.1f} ms a lockstep "
+        f"iteration ({card_line()}); launches {launches}; per lockstep iteration K9 "
+        f"{k9 / lockstep:.2f} K10 {launches['lu_solve'] / lockstep:.2f} K11 "
+        f"{launches['lu_factor'] / lockstep:.2f}; K10 a direction {launches['lu_solve'] / k9:.2f}; "
+        f"adaptation trips beyond one a lockstep iteration: {k9 - lockstep}")
+    return solver, params, inits, res, launches, wall, lockstep
+
+
+def phase_pursuit_cross_check(tm, params, inits, res):
+    """Eight of the pursuit fleet's instances solved again by the port on
+    the CPU (float32, plain versions of K9/K10).
+
+    The card's answers must pass the exit tests evaluated again on the CPU
+    (stationarity, equality, gap, interior), at the same status and within
+    one iteration; the game is nonconvex, so uFuture (within U_ATOL) and
+    the objective J (within F_RTOL relative) are held where the CPU's own
+    solves from the init and from the init moved by UNI_NUDGE agree
+    (the unicycle's rule); the others are printed."""
+    ns = "pur_"
+    idx = np.arange(0, PUR_B, PUR_B // 8)
+    cpu = tm.build_solver(T=PUR_T, L=PUR_L, ns=ns, dtype="float32", device="cpu")
+    opts = cpu.opts
+    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
+    sub_i = {k: v[idx] for k, v in inits.items()}
+    nudge = np.random.default_rng(1)
+    sub_n = {k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
+    # both solves in one fleet of 16: an instance's iterates do not depend
+    # on the others in its fleet
+    both = cpu.solve_many(
+        {k: (np.concatenate([v, v]) if np.ndim(v) == 3 else v) for k, v in sub_p.items()},
+        inits={k: np.concatenate([sub_i[k], sub_n[k]]) for k in sub_i},
+        mu0=1e-1, max_iter=300)
+    r = type(both)(*(v[:8] for v in both))
+    rn = type(both)(*(v[8:] for v in both))
+    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    m = {k: v.numpy() for k, v in cpu.exit_metrics(sub_p, card).items()}
+    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
+    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
+    u_c, u_n, u_g = (x[:, :PUR_T] for x in (r.u.numpy(), rn.u.numpy(), card.u.cpu().numpy()))
+    du = np.abs(u_c - u_g).max(axis=1)
+    stable = np.abs(u_c - u_n).max(axis=1) <= U_ATOL
+    f_c, f_g = r.f.numpy(), card.f.cpu().numpy()
+    df = np.abs(f_c - f_g) / np.abs(f_c)
+    check((st_g == st_c).all() and (st_g == 0).all(),
+          f"status 0 on card and CPU ({st_g}, {st_c})")
+    check((np.abs(it_g - it_c) <= 1).all(), f"iterations within one ({it_g}, {it_c})")
+    check(bool(np.isfinite(m["g"]).all() and (m["g"] <= opts.gradTolerance).all()),
+          f"card answers stationary on the CPU (max g {m['g'].max():.3e})")
+    check(bool((m["eq"] <= opts.equalTolerance).all()),
+          f"card answers feasible on the CPU (max |G| {m['eq'].max():.3e})")
+    check(bool((m["min_F"] > 0).all() and (m["min_lam"] > 0).all()),
+          "card answers strictly interior on the CPU")
+    # gap = lam . F is a sum of nF positive float32 products, each
+    # evaluation within (nF + 2) * 2^-24 of the exact value relative to it
+    nF = card.lam.shape[1]
+    gap_tol = opts.desiredDualityGap * (1 + 2 * (nF + 2) * 2.0**-24)
+    check(bool((m["gap"] <= gap_tol).all()),
+          f"card answers within the gap on the CPU (max {m['gap'].max():.6e})")
+    check(bool((du[stable] <= U_ATOL).all()),
+          f"uFuture within {U_ATOL} where the CPU's own solves agree ({du[stable]})")
+    check(bool((df[stable] <= F_RTOL).all()),
+          f"J within {F_RTOL} relative where the CPU's own solves agree ({df[stable]})")
+    log(f"[pursuit-cross-check] 8 instances on the CPU: status 0 on both; iterations card "
+        f"{it_g.tolist()} cpu {it_c.tolist()} (init moved by {UNI_NUDGE}: "
+        f"{rn.iters.numpy().tolist()}); the card's answers on the CPU: max g "
+        f"{m['g'].max():.3e} (tol {opts.gradTolerance}), max |G| {m['eq'].max():.3e}, max gap "
+        f"{m['gap'].max():.6e} (tol {opts.desiredDualityGap}); the CPU's two solves agree on "
+        f"{int(stable.sum())} of 8: there max |duFuture| {du[stable].max(initial=0):.3e}, J "
+        f"max rel diff {df[stable].max(initial=0):.3e}; on the others max |duFuture| "
+        f"{du[~stable].max(initial=0):.3e}, J card {f_g[~stable].round(5).tolist()} cpu "
+        f"{f_c[~stable].round(5).tolist()}")
+
+
 def flops_launch_check(rows, n_launch, others, where):
     """K8 and K7 alone up to 896 KKT rows, no kernel above."""
     check(not any(v for m in others for v in m.LAUNCHES.values()),
@@ -1822,7 +1978,9 @@ def main() -> int:
         f"at w=16: {ptxas_report(fb, 16, ('staged', 'ring'))}")
     log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W} on either "
         f"route; registers a thread at w=10: "
-        f"{ptxas_report(lu, 10, ('staged', 'ring'))}")
+        f"{ptxas_report(lu, 10, ('staged', 'ring'))}; at w=22: "
+        f"{ptxas_report(lu, 22, ('staged', 'ring'))}; at w=31: "
+        f"{ptxas_report(lu, 31, ('staged', 'ring'))}")
     dense_regs = dense_ptxas_report(build_log(dl.LIB_PATH), -(-dl.FLEET_MAX_N // 32))
     log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: {dense_regs}")
 
@@ -1887,6 +2045,24 @@ def main() -> int:
         f"{1e3 * pbusy / ulock:.2f} ms a lockstep iteration; host {1e3 * uwall / ulock:.1f} "
         f"ms a lockstep iteration unprofiled ({1e3 * pwall / ulock:.1f} profiled)")
 
+    # the nonlinear MPC-MHE pursuit fleet: its KKT assembled densely at
+    # every iterate, K9/K10
+    from tenscalc_tpu_torch.examples import mpcmhe_unicycle
+
+    elapsed("the pursuit slice")
+    psolver, pparams, pinits, pres, pur_launches, pur_wall, plock = phase_pursuit(
+        mpcmhe_unicycle, lu, (fb, dl))
+    elapsed("the pursuit's cross-check")
+    phase_pursuit_cross_check(mpcmhe_unicycle, pparams, pinits, pres)
+    elapsed("[profile8]")
+    qwall, qbusy = phase_profile("profile8", lambda: psolver.solve_many(
+        pparams, inits=pinits, mu0=1e-1, max_iter=300),
+        watch=(("K9", r"\blu_factor_solve_kernel<"), ("K10", r"\blu_solve_kernel<")),
+        host_ops=False)
+    log(f"[profile8] the pursuit fleet: device kernel time {qbusy:.4f} s a solve, "
+        f"{1e3 * qbusy / plock:.2f} ms a lockstep iteration; host {1e3 * pur_wall / plock:.1f} "
+        f"ms a lockstep iteration unprofiled ({1e3 * qwall / plock:.1f} profiled)")
+
     # the slice of problems without inequalities: K8/K7 on one instance's
     # dense KKT up to 896 rows, the blocked LDL^T above
     from tenscalc_tpu_torch.examples import flops, slseq
@@ -1943,8 +2119,9 @@ def main() -> int:
               dense_recs[k])
         for k in DENSE_REPLACES
     ] + [
-        entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
-              lu_entry_launches.get(k), lu_recs[k])
+        {**entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
+                 lu_entry_launches.get(k), lu_recs[k]),
+         "launches_by_path": {"mpcmhe": lu_launches[k], "pursuit": pur_launches[k]}}
         for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
     elapsed("the end")

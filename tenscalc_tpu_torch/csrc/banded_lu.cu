@@ -25,7 +25,9 @@
 // What bounds it.  At the MPC-MHE fleet's shapes (B = 1024, n = 290,
 // W = 10) K9 moves about 52.3 MB (band and rhs in, factor and x out),
 // about 15.6 us at the card's 3.35 TB/s; K10 about 27.3 MB (8.2 us);
-// K11 about 49.9 MB (14.9 us).  Each instance is a chain of n dependent
+// K11 about 49.9 MB (14.9 us); at the pursuit fleet's (B = 512, n = 585,
+// W = 22) K9 about 110.2 MB (32.9 us) and K10 about 56.3 MB (16.8 us).
+// Each instance is a chain of n dependent
 // steps, and the backward sweep's sequential sum is a chain of about
 // n (W + 3) dependent float32 operations (~20k cycles, ~12 us at
 // n = 290, W = 10).
@@ -60,9 +62,10 @@
 //   stages the factor once for both sweeps: each entry of the band is
 //   read from device memory once.  x stays in shared memory between the
 //   sweeps.
-// - A factor step (factor_rows): lanes i and 16 + i own row i of the
-//   trailing square and update it with their own l_i; the next pivot and
-//   numerators pass by shuffles; one __syncwarp a step.
+// - A factor step (factor_rows): lanes i and 16 + i (W <= 15), or lane i
+//   alone (W = 16..31), own row i of the trailing square and update it
+//   with their own l_i; the next pivot and numerators pass by shuffles;
+//   one __syncwarp a step.
 // - The forward sweep (forward_rows) keeps y of rows c..c+W in lanes
 //   0..W: a shuffle, a product and a subtraction a row.  The backward
 //   sweep runs on one lane, its row loads one row ahead of the chain.
@@ -99,7 +102,7 @@
 
 namespace {
 
-constexpr int kMaxW = 12;
+constexpr int kMaxW = 31;  // y of rows c..c+W in a warp's lanes
 constexpr int kTeam = 32;                       // lanes an instance: a warp
 constexpr int kMaxGroup = TC_LU_MAX_GROUP;      // instances a CTA
 constexpr int kChunk = TC_LU_CHUNK_ROWS;        // rows a copy group
@@ -172,7 +175,7 @@ __device__ __forceinline__ void store_rows(const float* sx, float* gx, int r0,
 }
 
 // Factor rows 0..n-1 in shared memory and write the factored band to gf
-// chunk by chunk.  Lanes i and 16 + i (i = 1..W) own row i of the
+// chunk by chunk, for W <= 15.  Lanes i and 16 + i (i = 1..W) own row i of the
 // trailing square: both form l_i and together update A[c+i, c+j] -=
 // l_i u_j for j = 1..W, an entry of band row c+j (j <= i, below the
 // diagonal) or c+i (j > i, above).  Lane i's entry j = 1 is the next
@@ -186,7 +189,7 @@ __device__ __forceinline__ void store_rows(const float* sx, float* gx, int r0,
 // y ends in sx for the backward sweep (the ring route stores each chunk
 // of y to gy as it stores the factor's).
 template <int W, bool SOLVE, bool RING>
-__device__ __forceinline__ void factor_rows(float* sb, float* sx,
+__device__ __forceinline__ void factor_rows_two_lanes(float* sb, float* sx,
                                             const float* gb, const float* gr,
                                             float* gf, float* gy, int n,
                                             float clamp, int lane) {
@@ -274,6 +277,116 @@ __device__ __forceinline__ void factor_rows(float* sb, float* sx,
     const int cnt = (c1 - c0) * R;
     for (int e = lane; e < cnt; e += kTeam) dst[e] = src[e];
     if (SOLVE && RING) store_rows<RING>(sx, gy, c0, c1, lane);
+  }
+}
+
+// The same factor for W = 16..31, where a row of the trailing square has
+// more entries than two lanes can share.  The lane map is written for
+// kParts lanes a row (lanes i + kRowLanes * part, part < kParts, own row
+// i); above W = 15 it is one lane a row: lane i (i = 1..W) forms l_i and
+// updates its W entries, the next pivot and numerators passing by
+// shuffles as above.  An entry's place is formed from (c, i, j) when it
+// is loaded and again when it is stored, so a lane keeps only l, its u_j
+// and its entries in registers (ptxas spills nothing at W = 31).  W <= 15
+// keeps factor_rows_two_lanes, whose offsets and step targets stay in
+// registers: on this function K9 at the MPC-MHE fleet's W = 10 took
+// 11.6% longer (banded_lu_ablation.py; PERF.md).
+template <int W, bool SOLVE, bool RING>
+__device__ __forceinline__ void factor_rows_one_lane(float* sb, float* sx,
+                                            const float* gb, const float* gr,
+                                            float* gf, float* gy, int n,
+                                            float clamp, int lane) {
+  constexpr int R = 2 * W + 1;
+  constexpr int kRowLanes = W <= 15 ? 16 : kTeam;  // rows the lanes cover
+  constexpr int kParts = kTeam / kRowLanes;        // lanes a row
+  constexpr int H = (W + kParts - 1) / kParts;     // entries a lane
+  // lane i + kRowLanes * part (part < kParts) takes j = part*H+1 .. and
+  // forms l_i
+  const int i = lane & (kRowLanes - 1), part = lane / kRowLanes;
+  const bool owner = i >= 1 && i <= W;
+  const int jn = owner ? min(H, W - part * H) : 0;  // entries of this lane
+  // entry e (j = part*H + e + 1) of row i at step c
+  auto entry = [&](int c, int e) -> float* {
+    const int j = part * H + e + 1;
+    return j <= i ? sb + srow<RING>(c + j) * R + (i - j)
+                  : sb + srow<RING>(c + i) * R + (W + j - i);
+  };
+  const int K = (n + kChunk - 1) / kChunk;
+  for (int k = 0; k < kDepth; ++k) {
+    start_chunk<W, RING>(sb, sx, gb, SOLVE ? gr : nullptr, k, n, lane);
+    cp_async_commit();
+  }
+  float piv = 0.0f, num = 0.0f;  // raw A[c, c] and A[c+i, c]
+  for (int k = 0; k < K; ++k) {
+    __syncwarp();  // chunk k-1's write-back has read its ring rows
+    start_chunk<W, RING>(sb, sx, gb, SOLVE ? gr : nullptr, k + kDepth, n, lane);
+    cp_async_commit();
+    cp_async_wait<kDepth - 1>();  // chunks k and k+1 have landed
+    __syncwarp();
+    if (k == 0) {
+      piv = sb[0];
+      num = owner ? sb[i] : 0.0f;
+    }
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    for (int c = c0; c < c1; ++c) {
+      float* row = sb + srow<RING>(c) * R;
+      // every load before any store: the compiler may not reorder them
+      float u[H], a[H];
+#pragma unroll
+      for (int e = 0; e < H; ++e) {
+        u[e] = a[e] = 0.0f;
+        if (e < jn) {
+          u[e] = row[W + 1 + part * H + e];
+          a[e] = *entry(c, e);
+        }
+      }
+      // A[c+1+W, c+1] is untouched by this step: lane W's next numerator
+      const float tail = i == W ? sb[srow<RING>(c + 1) * R + W] : 0.0f;
+      float yi = 0.0f, yc = 0.0f;
+      if (SOLVE && owner && part == 0) {
+        yi = sx[srow<RING>(c + i)];
+        yc = sx[srow<RING>(c)];
+      }
+      const float d = clamp_pivot(piv, clamp);
+      const float l = owner ? __fdiv_rn(num, d) : 0.0f;
+#pragma unroll
+      for (int e = 0; e < H; ++e) a[e] = __fsub_rn(a[e], __fmul_rn(l, u[e]));
+      piv = __shfl_sync(0xffffffffu, a[0], 1);
+      const float next = __shfl_sync(0xffffffffu, a[0], (i + 1) & (kRowLanes - 1));
+      num = i == W ? tail : next;
+#pragma unroll
+      for (int e = 0; e < H; ++e) {
+        if (e < jn) *entry(c, e) = a[e];
+      }
+      if (SOLVE && owner && part == 0) {
+        sx[srow<RING>(c + i)] = __fsub_rn(yi, __fmul_rn(l, yc));
+      }
+      __syncwarp();
+      // row c is final: its pivot and multipliers replace A[c, c] and
+      // A[c+i, c], which no later step reads
+      if (lane == 0) row[0] = d;
+      if (owner && part == 0) row[i] = l;
+    }
+    __syncwarp();
+    // rows c0..c1-1 (and their y) are final: store them while the next
+    // chunk runs
+    const float* src = sb + srow<RING>(c0) * R;
+    float* dst = gf + (size_t)c0 * R;
+    const int cnt = (c1 - c0) * R;
+    for (int e = lane; e < cnt; e += kTeam) dst[e] = src[e];
+    if (SOLVE && RING) store_rows<RING>(sx, gy, c0, c1, lane);
+  }
+}
+
+// The factor of rows 0..n-1 on its lane map.
+template <int W, bool SOLVE, bool RING>
+__device__ __forceinline__ void factor_rows(float* sb, float* sx, const float* gb,
+                                            const float* gr, float* gf, float* gy, int n,
+                                            float clamp, int lane) {
+  if constexpr (W <= 15) {
+    factor_rows_two_lanes<W, SOLVE, RING>(sb, sx, gb, gr, gf, gy, n, clamp, lane);
+  } else {
+    factor_rows_one_lane<W, SOLVE, RING>(sb, sx, gb, gr, gf, gy, n, clamp, lane);
   }
 }
 
@@ -522,8 +635,10 @@ bool launch_config(int n, int w, int B, int G, int rows, dim3& grid, dim3& block
 
 }  // namespace
 
-#define TC_FOR_EACH_W(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
+#define TC_FOR_EACH_W(X)                                                      \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14)  \
+  X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26)     \
+  X(27) X(28) X(29) X(30) X(31)
 
 extern "C" {
 

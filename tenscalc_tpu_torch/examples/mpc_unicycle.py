@@ -107,3 +107,49 @@ def fleet_inputs(T, B, ns="uni_", seed=0):
         init_x[:, 3:5, k] = init_x[:, 3:5, k - 1] + Ts * params[ns + "d"][:, :, 0]
     inits = {ns + "x": init_x, ns + "u": np.zeros((B, 1, T - 1))}
     return params, inits
+
+
+def run_closed_loop(solver, n_steps=40, mu0=1e-1, max_iter=200, seed=0):
+    """The receding-horizon pursuit: each step solves from the shifted
+    previous solution (the ``xWarm``/``uWarm`` outputs) and applies the
+    first control to the true plant, a trapezoidal step matching the
+    model.  Returns the history (t, x, u, dist, status, iters) as numpy
+    arrays; it stops at the first solve not at status 0."""
+    T, ns = solver.T, solver.ns
+    base = default_params(ns)
+    Ts, v, dval = base[ns + "Ts"], base[ns + "v"], base[ns + "d"]
+    rng = np.random.default_rng(seed)
+
+    xinit = np.array([0.0, 0.0, 0.5, 2.0, 1.0])[:, None]
+    xWarm = np.tile(xinit, (1, T)) + 0.01 * rng.random((5, T))
+    uWarm = 0.01 * rng.random((1, T - 1))
+    hist = {"t": [], "x": [], "u": [], "dist": [], "status": [], "iters": []}
+    t = 0.0
+    for _ in range(n_steps):
+        params = dict(base)
+        params[ns + "xinit"] = xinit
+        sol = solver.solve(params, init={ns + "x": xWarm, ns + "u": uWarm},
+                           mu0=mu0, max_iter=max_iter)
+        hist["status"].append(sol.status)
+        if sol.status != 0:
+            break
+        u0 = np.asarray(sol.outputs["u"])[:, 0:1]
+        hist["t"].append(t)
+        hist["x"].append(xinit[:, 0].copy())
+        hist["u"].append(u0[:, 0].copy())
+        hist["dist"].append(
+            float(np.hypot(xinit[0, 0] - xinit[3, 0], xinit[1, 0] - xinit[4, 0])))
+        hist["iters"].append(sol.iters)
+        th = xinit[2, 0]
+        th_new = th + Ts * u0[0, 0]
+        xinit = xinit + Ts * np.array([
+            [v * (np.cos(th) + np.cos(th_new)) / 2],
+            [v * (np.sin(th) + np.sin(th_new)) / 2],
+            [u0[0, 0]],
+            [dval[0, 0]],
+            [dval[1, 0]],
+        ])
+        xWarm = np.asarray(sol.outputs["xWarm"])
+        uWarm = np.asarray(sol.outputs["uWarm"])
+        t += Ts
+    return {k: np.asarray(v_) for k, v_ in hist.items()}

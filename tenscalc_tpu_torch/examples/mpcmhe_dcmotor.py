@@ -7,9 +7,7 @@ controller solves a Nash game: the controller (P1) picks future controls
 minimizing J; the adversary (P2) picks the initial state and the
 disturbance trajectory maximizing J (P2objective = -J); the full state
 trajectory is a latent variable pinned by forward-Euler dynamics.
-
-The receding-horizon loop (``run_closed_loop`` in the JAX package) is
-ROADMAP item M14.
+``run_closed_loop`` drives the receding-horizon loop.
 """
 
 from __future__ import annotations
@@ -128,3 +126,89 @@ def fleet_inputs(T, L, B, ns="mmhe_", seed=0):
         [reference_signal(t0 + t)[None, :] for t0 in np.linspace(0.0, 4.0, B)]
     )
     return params
+
+
+def run_closed_loop(solver, n_steps=30, mu0=1e-3, max_iter=100, seed=0,
+                    true_disturbance=None, noise_level=0.0,
+                    param_overrides=None):
+    """The receding-horizon MPC-MHE loop: the real plant evolves under the
+    applied control and a true disturbance; only noisy position
+    measurements reach the solver, with a one-step delay.  Until L
+    measurements accumulate zero control is applied; afterwards each step
+    solves the game warm started from the shifted previous solution.
+    Returns the history (t, x, u, xEst, status, iters) as numpy arrays.
+
+    The game has a saddle only when the measurement window dominates the
+    future-error pressure (lambda_n times the past window's sensitivity
+    above the horizon's along every state direction); for short windows
+    raise lambda_n or L."""
+    T, L, nX, nU, nD, nY = solver.dims
+    ns = solver.ns
+    base = default_params(ns)
+    base.update({ns + k_: v for k_, v in (param_overrides or {}).items()})
+    Ts = base[ns + "Ts"]
+    p, k = base[ns + "p"], base[ns + "k"]
+    A = np.array([[0.0, 1.0], [0.0, p]])
+    Bm = np.array([[0.0], [k]])
+    rng = np.random.default_rng(seed)
+    if true_disturbance is None:
+        def true_disturbance(t):
+            return 0.2 * np.sin(2.0 * t)
+
+    xinit = np.array([[0.2], [0.2]])
+    warm = {
+        "x0": 0.01 * rng.random((nX, 1)),
+        "x1": 0.01 * rng.random((nX, T + L)),
+        "uFuture": 0.01 * rng.random((nU, T)),
+        "d": 0.01 * rng.random((nD, T + L)),
+    }
+
+    t = 0.0
+    uPast = np.zeros((nU, 0))
+    yPast = np.zeros((nY, 0))
+    hist = {"t": [], "x": [], "u": [], "xEst": [], "status": [], "iters": []}
+    for _ in range(n_steps):
+        y = xinit[0:1, :] + noise_level * rng.standard_normal((nY, 1))
+        if yPast.shape[1] < L:
+            u_apply = np.zeros((nU, 1))
+            status, iters, xEst = 0, 0, np.full((nX, 1), np.nan)
+        else:
+            params = dict(base)
+            params[ns + "ref"] = reference_signal(t + np.arange(T) * Ts)[None, :]
+            params[ns + "uPast"] = uPast[:, -L:]
+            params[ns + "yPast"] = yPast[:, -L:]
+            sol = solver.solve(params, init={ns + k_: v_ for k_, v_ in warm.items()},
+                               mu0=mu0, max_iter=max_iter)
+            status, iters = sol.status, sol.iters
+            if status != 0:
+                hist["status"].append(status)
+                break
+            out = sol.outputs
+            u_apply = np.asarray(out["uFuture"])[:, 0:1]
+            xEst = np.asarray(out["xEst"])
+            # shift the warm start
+            xfull = np.asarray(out["x"])
+            warm = {
+                "x0": xfull[:, 1:2],
+                "x1": np.concatenate([xfull[:, 2:], xfull[:, -1:]], axis=1),
+                "uFuture": np.clip(
+                    np.concatenate([out["uFuture"][:, 1:], np.zeros((nU, 1))], axis=1),
+                    -0.95 * 5.0, 0.95 * 5.0),
+                "d": np.clip(
+                    np.concatenate([out["d"][:, 1:], np.zeros((nD, 1))], axis=1),
+                    -0.95 * 10.0, 0.95 * 10.0),
+            }
+
+        hist["t"].append(t)
+        hist["x"].append(xinit[:, 0].copy())
+        hist["u"].append(u_apply[:, 0].copy())
+        hist["xEst"].append(xEst[:, 0].copy())
+        hist["status"].append(status)
+        hist["iters"].append(iters)
+
+        # the true plant: forward Euler with the real disturbance
+        xinit = xinit + Ts * (A @ xinit + Bm * (u_apply[0, 0] + true_disturbance(t)))
+        uPast = np.concatenate([uPast, u_apply], axis=1)
+        yPast = np.concatenate([yPast, y], axis=1)  # one-step output delay
+        t += Ts
+    return {k_: np.asarray(v) for k_, v in hist.items()}

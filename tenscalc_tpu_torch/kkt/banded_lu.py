@@ -1,6 +1,6 @@
 """Fleet banded LU: a batch of unpivoted unsymmetric banded
-factorizations (port of the fleet half of ``tenscalc_tpu/kkt/banded_lu.py``;
-its pure-XLA ``tridiag_lu_factorize`` is ROADMAP item M13).
+factorizations, and the block-tridiagonal LU (port of
+``tenscalc_tpu/kkt/banded_lu.py``).
 
 The two-player equilibrium KKT stacks two Lagrangians' rows, so it is
 unsymmetric; for horizon games it is still banded in the stage index.
@@ -49,7 +49,7 @@ from .dense import hdot
 from .fleet_banded import NVCC_FLAGS, _clamp_pivot, _device_kind, _stream
 from .structure import BandedPlan
 
-MAX_W = 12  # widths the kernels are instantiated for (csrc/banded_lu.cu)
+MAX_W = 31  # widths the kernels are instantiated for (csrc/banded_lu.cu)
 # compile-time parameters of csrc/banded_lu.cu (nvcc defines)
 MAX_GROUP = 4  # instances a CTA, a warp each
 CHUNK_ROWS = 32  # rows a copy into shared memory moves
@@ -98,31 +98,40 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132) -> LaunchPlan:
     return LaunchPlan(ring, group, instance_rows(n, w, ring), group * per)
 
 
+# the compile-time parameters above as the CUDA source's nvcc defines
+DEFINES = [f"-DTC_LU_CHUNK_ROWS={CHUNK_ROWS}", f"-DTC_LU_RING_ROWS={RING_ROWS}",
+           f"-DTC_LU_MAX_GROUP={MAX_GROUP}", f"-DTC_LU_SMEM_MAX={SMEM_MAX}"]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the library's C entry points."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tc_banded_lu_factor_solve.argtypes = [I, I, I, I, P, P, P, P, I, I, Fl, P]
+    lib.tc_banded_lu_solve.argtypes = [I, I, I, I, P, P, P, I, I, P]
+    lib.tc_banded_lu_factor.argtypes = [I, I, I, I, P, P, I, I, Fl, P]
+    lib.tc_banded_lu_init.argtypes = []
+    for fn in (lib.tc_banded_lu_factor_solve, lib.tc_banded_lu_solve,
+               lib.tc_banded_lu_factor, lib.tc_banded_lu_init,
+               lib.tc_banded_lu_max_w):
+        fn.restype = ctypes.c_int
+    lib.tc_banded_lu_error_string.argtypes = [ctypes.c_int]
+    lib.tc_banded_lu_error_string.restype = ctypes.c_char_p
+    if lib.tc_banded_lu_max_w() != MAX_W:
+        raise RuntimeError(f"{lib._name}: unexpected kernel width range")
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     """Build (at first use) and bind the CUDA library; the constants above
     are its compile-time parameters."""
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        flags = [*NVCC_FLAGS, f"-DTC_LU_CHUNK_ROWS={CHUNK_ROWS}",
-                 f"-DTC_LU_RING_ROWS={RING_ROWS}", f"-DTC_LU_MAX_GROUP={MAX_GROUP}",
-                 f"-DTC_LU_SMEM_MAX={SMEM_MAX}"]
-        path = LIB_PATH = build_shared_library("banded_lu.cu", nvcc, flags)
-        lib = ctypes.CDLL(str(path))
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_banded_lu_factor_solve.argtypes = [I, I, I, I, P, P, P, P, I, I, Fl, P]
-        lib.tc_banded_lu_solve.argtypes = [I, I, I, I, P, P, P, I, I, P]
-        lib.tc_banded_lu_factor.argtypes = [I, I, I, I, P, P, I, I, Fl, P]
-        lib.tc_banded_lu_init.argtypes = []
-        for fn in (lib.tc_banded_lu_factor_solve, lib.tc_banded_lu_solve,
-                   lib.tc_banded_lu_factor, lib.tc_banded_lu_init,
-                   lib.tc_banded_lu_max_w):
-            fn.restype = ctypes.c_int
-        lib.tc_banded_lu_error_string.argtypes = [ctypes.c_int]
-        lib.tc_banded_lu_error_string.restype = ctypes.c_char_p
-        if lib.tc_banded_lu_max_w() != MAX_W:
-            raise RuntimeError(f"{path}: unexpected kernel width range")
-        _lib = lib
+        # 186 kernels (31 widths, two routes, three entry points): their
+        # optimization runs on four threads
+        path = LIB_PATH = build_shared_library(
+            "banded_lu.cu", nvcc, [*NVCC_FLAGS, "-split-compile=4", *DEFINES])
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib
 
 
@@ -222,11 +231,27 @@ def _check_rhs(band: torch.Tensor, b: torch.Tensor) -> None:
 # plain versions: the kernels' arithmetic, one row at a time
 # ---------------------------------------------------------------------------
 
+def _trailing_offsets(w: int) -> torch.Tensor:
+    """Where entry A[c+i, c+j] (i, j = 1..w) of step c's trailing square
+    lies in band storage, as an offset from row c's first entry: band row
+    c+j at column i-j (j <= i), band row c+i at column w+j-i (j > i).
+    (w, w), row-major in (i, j)."""
+    i = torch.arange(1, w + 1)[:, None]
+    j = torch.arange(1, w + 1)[None, :]
+    row = torch.minimum(i, j)
+    col = torch.where(j <= i, i - j, w + j - i)
+    return row * (2 * w + 1) + col
+
+
 def fleet_banded_lu_factor_plain(band: torch.Tensor, w: int,
                                  clamp: float = 0.0) -> torch.Tensor:
-    """Plain version of K11: factored band (B, n, 2w+1)."""
+    """Plain version of K11: factored band (B, n, 2w+1).  Each step
+    updates every entry of its trailing square once, A[c+i, c+j] minus
+    the product l_i u_j rounded first."""
     B, n, R = band.shape
     work = torch.cat([band, band.new_zeros(B, w, R)], dim=1)
+    flat = work.view(B, -1)
+    off = _trailing_offsets(w).flatten().to(band.device)
     fband = torch.empty_like(band)
     for c in range(n):
         d = _clamp_pivot(work[:, c, 0], clamp)
@@ -235,11 +260,8 @@ def fleet_banded_lu_factor_plain(band: torch.Tensor, w: int,
         fband[:, c, 0] = d
         fband[:, c, 1: w + 1] = l
         fband[:, c, w + 1:] = u
-        for m in range(1, w + 1):
-            # row c+m: sub/diagonal entries p = 0..w-m get l_{m+p} u_m,
-            # super entries q = 1..w-m get u_{m+q} l_m
-            work[:, c + m, : w - m + 1] -= l[:, m - 1:] * u[:, m - 1: m]
-            work[:, c + m, w + 1: 2 * w + 1 - m] -= u[:, m:] * l[:, m - 1: m]
+        idx = off + c * R
+        flat[:, idx] = flat[:, idx] - (l[:, :, None] * u[:, None, :]).flatten(1)
     return fband
 
 
@@ -254,12 +276,14 @@ def _forward_plain(fband: torch.Tensor, b: torch.Tensor, w: int) -> torch.Tensor
 
 
 def _backward_plain(fband: torch.Tensor, x: torch.Tensor, w: int) -> torch.Tensor:
-    """U x = y in place on the padded y; returns the first n rows."""
+    """U x = y in place on the padded y; returns the first n rows.  Row
+    c's products u_q x_{c+q} are summed in the order q = 1..w."""
     n = fband.shape[1]
     for c in range(n - 1, -1, -1):
+        prods = fband[:, c, w + 1:] * x[:, c + 1: c + w + 1]
         acc = torch.zeros_like(x[:, c])
-        for q in range(1, w + 1):
-            acc = acc + fband[:, c, w + q] * x[:, c + q]
+        for q in range(w):
+            acc = acc + prods[:, q]
         x[:, c] = (x[:, c] - acc) / fband[:, c, 0]
     return x[:, :n]
 
@@ -427,3 +451,95 @@ class FleetBandedLUFactorization(_LUAdapterBase):
 
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         return hdot(self.WW, x)
+
+
+# ---------------------------------------------------------------------------
+# block-tridiagonal LU (pure PyTorch, no kernel): the JAX package's CPU path
+# ---------------------------------------------------------------------------
+
+def _to_blocks_lu(Wp: torch.Tensor, plan: BandedPlan):
+    """Diagonal blocks A_i, subdiagonal B_i (block (i, i-1)) and
+    superdiagonal C_i (block (i-1, i)) of a batch of permuted matrices
+    (B, n, n), padded to whole blocks with identity rows; B_0 = C_0 = 0.
+    Each (B, n_blocks, s, s)."""
+    s, nb, n = plan.block, plan.n_blocks, plan.n
+    npad = nb * s
+    Bn = Wp.shape[0]
+    W = torch.eye(npad, dtype=Wp.dtype, device=Wp.device).repeat(Bn, 1, 1)
+    W[:, :n, :n] = Wp
+    blocks = W.view(Bn, nb, s, nb, s).transpose(2, 3)  # [:, i, k] = block (i, k)
+    idx = torch.arange(nb, device=Wp.device)
+    A = blocks[:, idx, idx]
+    Bs, C = torch.zeros_like(A), torch.zeros_like(A)
+    Bs[:, 1:] = blocks[:, idx[1:], idx[:-1]]
+    C[:, 1:] = blocks[:, idx[:-1], idx[1:]]
+    return A, Bs, C
+
+
+class TridiagLUFactorization:
+    """Block-tridiagonal LU of a batch: D_0 = A_0, L_i = B_i D_{i-1}^{-1},
+    D_i = A_i - L_i C_i, each D_i by a pivoted LU; solves in the factor's
+    dtype and ``n_refine`` refinements against WW (the mixed-precision
+    contract of :mod:`tenscalc_tpu_torch.kkt.dense`)."""
+
+    def __init__(self, Ls, Cs, lus, pivs, plan: BandedPlan, WW, n_refine: int = 2):
+        self.Ls, self.Cs, self.lus, self.pivs = Ls, Cs, lus, pivs
+        self.plan = plan
+        self.WW = WW
+        self.n_refine = n_refine
+        self.perm = torch.as_tensor(plan.perm, device=WW.device)
+        self.iperm = torch.as_tensor(plan.iperm, device=WW.device)
+
+    def _solve32(self, b: torch.Tensor) -> torch.Tensor:
+        s, nb, n = self.plan.block, self.plan.n_blocks, self.plan.n
+        Bn = b.shape[0]
+        bp = b[:, self.perm].to(self.Ls.dtype)
+        bb = torch.cat([bp, bp.new_zeros(Bn, nb * s - n)], dim=1).view(Bn, nb, s)
+        ys = []
+        y = bb.new_zeros(Bn, s)
+        for i in range(nb):
+            y = bb[:, i] - hdot(self.Ls[:, i], y)
+            ys.append(y)
+        # backward: D_i x_i = y_i - C_{i+1} x_{i+1}
+        xs = [None] * nb
+        x = bb.new_zeros(Bn, s)
+        for i in range(nb - 1, -1, -1):
+            rhs = ys[i] if i == nb - 1 else ys[i] - hdot(self.Cs[:, i + 1], x)
+            x = torch.linalg.lu_solve(self.lus[:, i], self.pivs[:, i], rhs[..., None])[..., 0]
+            xs[i] = x
+        return torch.cat(xs, dim=1)[:, :n][:, self.iperm]
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        dt = rhs.dtype
+        x = self._solve32(rhs).to(dt)
+        for _ in range(self.n_refine):
+            x = x + self._solve32(rhs - hdot(self.WW, x)).to(dt)
+        return x
+
+    def inertia(self, tol: float = 0.0):
+        """The unsymmetric system has no inertia: (0, 0)."""
+        z = self.WW.new_zeros(self.WW.shape[0])
+        return z, z
+
+
+def tridiag_lu_factorize(WW: torch.Tensor, plan: BandedPlan,
+                         n_refine: int = 2) -> TridiagLUFactorization:
+    """Block-tridiagonal LU of a batch WW (B, n, n) in original order, in
+    WW's own dtype (the JAX package's choice off the TPU).  A singular
+    diagonal block is factored anyway (no error check), so its zero pivot
+    turns the solve into infinities and NaN, as LAPACK's getrf/getrs do
+    in the JAX package."""
+    perm = torch.as_tensor(plan.perm, device=WW.device)
+    A, Bs, C = _to_blocks_lu(WW[:, perm][:, :, perm], plan)
+    nb = plan.n_blocks
+    lu, piv = torch.linalg.lu_factor_ex(A[:, 0])[:2]
+    Ls, lus, pivs = [torch.zeros_like(A[:, 0])], [lu], [piv]
+    for i in range(1, nb):
+        # L_i = B_i D_{i-1}^{-1}  <=>  D_{i-1}^T L_i^T = B_i^T
+        L = torch.linalg.lu_solve(lu, piv, Bs[:, i].mT, adjoint=True).mT
+        lu, piv = torch.linalg.lu_factor_ex(A[:, i] - torch.matmul(L, C[:, i]))[:2]
+        Ls.append(L)
+        lus.append(lu)
+        pivs.append(piv)
+    return TridiagLUFactorization(torch.stack(Ls, 1), C, torch.stack(lus, 1),
+                                  torch.stack(pivs, 1), plan, WW, n_refine=n_refine)

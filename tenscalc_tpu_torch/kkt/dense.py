@@ -254,10 +254,12 @@ def kkt_factorize(WW: torch.Tensor, need_inertia: bool, block: int = 64,
         from .bunchkaufman import bk_inertia
 
         W32 = WW.to(torch.float32)
-        LU, piv = torch.linalg.lu_factor(W32)
+        LU, piv = torch.linalg.lu_factor_ex(W32)[:2]
         return KKTFactorization("lu_ir", LU, piv, WW=WW, n_refine=n_refine,
                                 bk=bk_inertia(W32))
-    LU, piv = torch.linalg.lu_factor(WW)
+    # no error check: a singular WW gives a solve of infinities and NaN,
+    # as LAPACK's getrf/getrs do in the JAX package
+    LU, piv = torch.linalg.lu_factor_ex(WW)[:2]
     return KKTFactorization("lu", LU, piv)
 
 

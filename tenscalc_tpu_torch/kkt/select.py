@@ -8,11 +8,14 @@ worthwhile band goes to the fleet banded LDL^T
 the fleet dense LDL^T (:mod:`tenscalc_tpu_torch.kkt.fleet`), and
 ``'dense'``/``'ldl'`` to the solver's own unpivoted LDL^T.  The
 equilibrium KKT stacks two Lagrangians' rows, so it is unsymmetric and
-routes to the banded LU (:mod:`tenscalc_tpu_torch.kkt.banded_lu`).
-``kkt_backend='auto'`` resolves to the fleet backends on the CPU and on
-the card alike (the plain versions of the kernels run on the CPU); the
-JAX package picks its pure-XLA block-tridiagonal factorizations on the
-CPU instead (ROADMAP items M11 and M13).
+routes to the banded LU (:mod:`tenscalc_tpu_torch.kkt.banded_lu`): the
+fleet banded LU of a worthwhile band, the block-tridiagonal LU for
+``'tridiag'``, and the solver's dense pivoted LU below nK = 64, without a
+worthwhile band or for ``'dense'``/``'ldl'``.  ``kkt_backend='auto'``
+resolves to the fleet backends on the CPU and on the card alike (the
+plain versions of the kernels run on the CPU); the JAX package picks its
+pure-XLA block-tridiagonal factorizations on the CPU instead (the
+symmetric one is ROADMAP item M11).
 """
 
 from __future__ import annotations
@@ -46,15 +49,14 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     """Return ``(kkt_solver, resolved_name, plan)`` for a game solver.
 
     ``plan_fn``: lazy () -> BandedPlan | None.  ``kkt_solver`` is None for
-    the min-max solver's dense LDL^T; else it maps the KKT of a direction
+    the solver's own dense factorization (the min-max solver's LDL^T, the
+    equilibrium solver's pivoted LU); else it maps the KKT of a direction
     to a factorization with ``solve`` and ``inertia``: the band-mode
-    :class:`~tenscalc_tpu_torch.kkt.band_assemble.BandedOperator` on the
-    banded backends, the dense (B, nK, nK) matrix on ``'fleet'``."""
+    :class:`~tenscalc_tpu_torch.kkt.band_assemble.BandedOperator` or the
+    dense (B, nK, nK) matrix."""
     kb = opts.kkt_backend
     if kb in ("dense", "ldl"):
-        if symmetric:
-            return None, "dense", None
-        raise _deferred(f"kkt_backend={kb!r} for the equilibrium solver", "M13")
+        return None, "dense", None
     allowed = ("auto", "tridiag", "fleet", "fleet_banded")
     if kb not in allowed:
         raise ValueError(
@@ -69,20 +71,35 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
             "symmetric KKT; the equilibrium system is unsymmetric — "
             "use 'fleet_banded' (banded LU) or 'dense'"
         )
-    if kb == "tridiag":
-        raise _deferred("the block-tridiagonal LU (tridiag_lu)", "M13")
-    if nK < 64:
-        raise _deferred(f"a game KKT with nK={nK} < 64 (dense backend)", "M13")
+    if nK < 64:  # too small for a structured path to matter
+        return None, "dense", None
     plan = plan_fn()
     if plan is None or not plan.worthwhile:
-        raise _deferred(
-            "a game KKT without a worthwhile band (dense backend)", "M13"
-        )
-    from .banded_lu import FleetBandedLUFromBand
+        if kb == "tridiag":
+            raise ValueError(
+                "kkt_backend='tridiag' requested but the probed KKT "
+                "pattern has no worthwhile band structure"
+            )
+        return None, "dense", None
+    from .banded_lu import (
+        FleetBandedLUFactorization,
+        FleetBandedLUFromBand,
+        tridiag_lu_factorize,
+    )
+
+    if kb == "tridiag":
+        return (lambda WW: tridiag_lu_factorize(WW, plan), "tridiag_lu", plan)
+    from .band_assemble import BandedOperator
 
     n_ref = opts.refine_for("fleet_banded_lu")
-    return (lambda op: FleetBandedLUFromBand(op, plan, n_refine=n_ref),
-            "fleet_banded_lu", plan)
+
+    def kkt_lu(op):
+        # band mode hands over its band, the dense branch its KKT
+        if isinstance(op, BandedOperator):
+            return FleetBandedLUFromBand(op, plan, n_refine=n_ref)
+        return FleetBandedLUFactorization(op, plan, n_refine=n_ref)
+
+    return kkt_lu, "fleet_banded_lu", plan
 
 
 def _select_symmetric(opts, nK, plan_fn):

@@ -30,9 +30,10 @@ torch.set_num_threads(1)
 # roundings, not bitwise
 RTOL = ATOL = 1e-5
 CLAMP = 1e-4  # the adapters' pivot clamp
-# (n, w, B): tests/test_banded_lu.py's shapes, and the T = 6, L = 8
-# MPC-MHE game's plan width (n = 146, w = 10)
-SHAPES = [(24, 3, 3), (50, 5, 3), (40, 1, 3), (146, 10, 5)]
+# (n, w, B): tests/test_banded_lu.py's shapes, the T = 6, L = 8
+# MPC-MHE game's plan width (n = 146, w = 10), and the pursuit game's
+# (w = 22), past the kernels' former cap
+SHAPES = [(24, 3, 3), (50, 5, 3), (40, 1, 3), (146, 10, 5), (70, 22, 2)]
 
 
 @pytest.fixture(autouse=True)
@@ -140,8 +141,8 @@ def test_wrappers_reject_bad_inputs():
         tlu.fleet_banded_lu_factor_batched(tb.double(), 2)
     with pytest.raises(ValueError):
         tlu.fleet_banded_lu_solve_batched(tb, tr[:, :5], 2)
-    with pytest.raises(ValueError, match="outside 1..12"):
-        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 27), 13)
+    with pytest.raises(ValueError, match="outside 1..31"):
+        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 65), 32)
 
 
 # (n, w, B) -> (ring route, instances a CTA): the MPC-MHE fleet fills the
@@ -180,7 +181,7 @@ def test_launch_plan_staged_bytes_and_cap():
     assert tlu.instance_bytes(290, 10, False) == 4 * (300 * 21 + 300)
     assert tlu.instance_bytes(290, 10, True) == 4 * (tlu.RING_ROWS * 21 + tlu.RING_ROWS)
     assert tlu.SMEM_MAX == 232_448
-    for w in range(1, tlu.MAX_W + 1):
+    for w in (*range(1, 13), 13, 16, 22, tlu.MAX_W):
         # the largest n staged whole at this width
         n_max = tlu.SMEM_MAX // (4 * (2 * w + 2)) - w
         assert not tlu.launch_plan(n_max, w, 8).ring

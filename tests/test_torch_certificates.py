@@ -1,7 +1,8 @@
 """The equilibrium solver's build-time certificates are not vacuous: a
 game whose latent dynamics are nonlinear is refused band mode by both
-the port and the JAX package (the certificates themselves, on MPC-MHE,
-are held against JAX in tests/test_torch_equilibrium.py)."""
+the port and the JAX package, and the port's solver assembles its KKT at
+every iterate instead (the certificates themselves, on MPC-MHE, are held
+against JAX in tests/test_torch_equilibrium.py)."""
 
 import inspect
 import sys
@@ -75,7 +76,7 @@ def _nonlinear_game(tc, ns, T_=3, L_=4):
 def test_nonlinear_latent_dynamics_is_not_certified():
     """The certificate is not vacuous: a game whose latent dynamics are
     nonlinear gets hoist_S False in both packages, and the port's solver
-    refuses it (the per-iteration path is not ported)."""
+    builds it outside band mode, its KKT assembled at every iterate."""
     jtc.expr.clear_variables()
     kw_j = _nonlinear_game(jtc, "tn_")
     sj = jtc.equilibrium(**kw_j, dtype="float32", kkt_backend="dense")
@@ -94,5 +95,6 @@ def test_nonlinear_latent_dynamics_is_not_certified():
     assert cj["hoist_S"] is False and ct["hoist_S"] is False
     assert {k: ct[k] for k in CERT_KEYS} == cj
     assert ct["hoist_Gz"] is False and not ct["band_ok"]
-    with pytest.raises(NotImplementedError, match="M13"):
-        ttc.equilibrium(**kw_t, dtype="float32", device="cpu")
+    st = ttc.equilibrium(**kw_t, dtype="float32", device="cpu", kkt_backend="dense")
+    assert st._solve_raw.band_mode is None and sj._solve_raw._band_mode is None
+    assert st.certificates == ct

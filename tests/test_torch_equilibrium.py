@@ -110,10 +110,19 @@ def test_equilibrium_without_device_raises_without_cuda():
         tmm.build_solver(T=T, L=L, ns="td_", dtype="float32")
 
 
-@pytest.mark.parametrize("opt", [
-    {"smallerNewtonMatrix": True}, {"skipAffine": False},
-    {"kkt_backend": "dense"}, {"kkt_backend": "tridiag"},
-])
-def test_deferred_branches_raise(opt):
-    with pytest.raises(NotImplementedError, match="M13"):
-        tmm.build_solver(T=T, L=L, ns="tdb_", dtype="float32", device="cpu", **opt)
+@pytest.mark.parametrize("opt,backend,band_mode", [
+    ({"smallerNewtonMatrix": True}, "dense", None),
+    ({"skipAffine": False}, "fleet_banded_lu", "hoisted"),
+    ({"kkt_backend": "dense"}, "dense", None),
+    ({"kkt_backend": "tridiag"}, "tridiag_lu", None),
+], ids=["opt0", "opt1", "opt2", "opt3"])
+def test_deferred_branches_raise(opt, backend, band_mode):
+    """The branches that once raised at build time (the condensed matrix,
+    Mehrotra's step, the dense and block-tridiagonal backends) now build
+    (on the T = 3, L = 4 game) and resolve as the JAX package does: the
+    condensed matrix and the tridiagonal LU outside band mode, Mehrotra's
+    step in it; tests/test_torch_equilibrium_dense.py and
+    tests/test_torch_mpcmhe_unicycle.py hold their solves against it."""
+    st = tmm.build_solver(T=3, L=4, ns="tdb_", dtype="float32", device="cpu", **opt)
+    assert st.kkt_backend_resolved == backend
+    assert st._solve_raw.band_mode == band_mode

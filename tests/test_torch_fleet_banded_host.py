@@ -94,6 +94,10 @@ inline float __shfl_sync(unsigned, float v, int src) {
 inline float __shfl_xor_sync(unsigned mask, float v, int off) {
   return __shfl_sync(mask, v, (threadIdx.x & 31) ^ off);
 }
+inline float __shfl_down_sync(unsigned mask, float v, unsigned delta) {
+  const unsigned l = threadIdx.x & 31;
+  return __shfl_sync(mask, v, l + delta < 32 ? l + delta : l);
+}
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
