@@ -39,7 +39,7 @@ SOURCE = ROOT / "tenscalc_tpu_torch" / "csrc" / "banded_lu.cu"
 SHAPES = [(1024, 290, 10), (512, 585, 22), (1000, 77, 31)]
 WIDTHS = sorted({w for _, _, w in SHAPES})
 CLAMP = 1e-4
-PARENT_MAX_W = 12
+PARENT_MAX_W = 31  # the widest width the parent's source instantiates
 
 # name -> edits of the source; each edit (old, new) must apply
 VARIANTS = {
@@ -85,7 +85,7 @@ def ptxas_summary(log: str) -> str:
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*\d(?:lu_)?((?:factor_solve|solve|factor)"
-                      r"_kernel)ILi(\d+)ELb([01])E", line)
+                      r"(?:_wide)?_kernel)ILi(\d+)ELb([01])E", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)},{'ring' if m.group(3) == '1' else 'staged'}>"
         m = re.search(r"Used (\d+) registers", line)
@@ -126,7 +126,7 @@ def main() -> int:
     design = SOURCE.read_text()
     texts = {name: variant_source(design, edits) for name, edits in VARIANTS.items()}
     if args.parent is not None:
-        # the parent's kernels may stop at w = 12 (PR 12's did)
+        # the parent's kernels may stop short of the design's widths
         texts["parent"] = variant_source(args.parent.read_text(), [],
                                          [w for w in WIDTHS if w <= PARENT_MAX_W])
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(texts)) as pool:

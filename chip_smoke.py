@@ -205,6 +205,23 @@ UNI_BAND = (UNI_B, 439, 9)
 # assembled densely at every iterate into K9/K10
 PUR_B, PUR_T, PUR_L = 512, 20, 10
 PURSUIT_BAND = (PUR_B, 585, 22)
+# the quadcopter fleet (examples/mpc_quadcopter at T = 20 with the large
+# Newton matrix): its KKT (14 T + 6 = 286 rows, RCM w = 30) assembled
+# densely at every iterate into K1/K2 on the wide route
+QUAD_B, QUAD_T = 512, 20
+QUAD_BAND = (QUAD_B, 286, 30)
+# [profile9] traces the fleet's first iterations (the whole solve's
+# lockstep iterations look alike, and the trace of ~300 takes a minute)
+PROFILE9_ITERS = 60
+# K1-K3's wide route (a warp an instance) at the quadcopter's fleet and n
+# and at each capacity's edges, staged; the same widths on the ring; K9-K11
+# at two rows a lane, staged and on the ring
+FB_WIDE_WIDTHS = (17, 24, 30, 31, 32, 48, 63)
+FB_WIDE_SHAPES = ([(QUAD_B, 286, w) for w in FB_WIDE_WIDTHS]
+                  + [(16, 232_448 // (4 * (w + 2)) - w + 99, w) for w in FB_WIDE_WIDTHS])
+LU_WIDE_WIDTHS = (32, 48, 63)
+LU_WIDE_SHAPES = ([(512, 286, w) for w in LU_WIDE_WIDTHS]
+                  + [(16, 1200, w) for w in LU_WIDE_WIDTHS])
 
 
 def log(msg: str) -> None:
@@ -619,9 +636,10 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def ptxas_report(mod, w: int, routes=("",)) -> str:
     """Registers a thread of a kernel library's three kernels at width
-    ``w`` on each route (csrc/banded_lu.cu's second template argument:
-    ``routes`` = ("staged", "ring")), from the ptxas report (-Xptxas -v)
-    in its build log; fails on a spill at any width and route."""
+    ``w`` (on the wide routes, the capacity ``w`` is instantiated at) on
+    each route (the kernels' second template argument: ``routes`` =
+    ("staged", "ring")), from the ptxas report (-Xptxas -v) in its build
+    log; fails on a spill at any width and route."""
     import re
 
     from tenscalc_tpu_torch._build import build_log
@@ -629,7 +647,7 @@ def ptxas_report(mod, w: int, routes=("",)) -> str:
     regs, spills, name = {}, {}, None
     for line in build_log(mod.LIB_PATH).read_text().splitlines():
         m = re.search(r"Compiling entry function '.*\d((?:lu_)?(?:factor_solve|solve|factor)"
-                      r"_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
+                      r"(?:_wide)?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
         if m:
             name = (m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)])
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -639,7 +657,7 @@ def ptxas_report(mod, w: int, routes=("",)) -> str:
         if m and name:
             regs[name] = int(m.group(1))
     src = Path(mod.LIB_PATH).name
-    check(len(regs) == 3 * mod.MAX_W * len(routes),
+    check(len(regs) == 3 * len(mod.KERNEL_WIDTHS) * len(routes),
           f"{src}: ptxas reported {len(regs)} kernels")
     check(not any(spills.values()), f"{src}: register spills: {spills}")
     return ", ".join(f"{k}{' ' + rt if rt else ''} {r}"
@@ -682,6 +700,15 @@ def ldl_dense(f):
     return LD
 
 
+def ldl_as_lu(f):
+    """K1's factored band (B, n, w+1) as LAPACK's packed LU of the same
+    matrix: L below the diagonal, U = diag(d) L^T on and above it."""
+    LD = ldl_dense(f)
+    L = LD.tril(-1)
+    eye = torch.eye(f.shape[1], device=f.device, dtype=f.dtype)
+    return L + f[:, :, 0, None] * (L + eye).mT
+
+
 def library_check(fn, x, scale, what, reps):
     """Holds one PyTorch call's x to a kernel's at the kernels' tolerance
     and returns its time (ms, CUDA events, ``reps`` single calls after
@@ -710,13 +737,13 @@ def library_pair(A, b, x, scale, reps):
     return library_check(pair, x, scale, f"lu_factor_ex + lu_solve at B={B} n={n}", reps)
 
 
-def library_lu_factor(A, want, scale, what, lower=False):
+def library_lu_factor(A, want, scale, what, lower=False, reps=5):
     """torch.linalg.lu_factor_ex(A, pivot=False) on a band expanded to its
     dense matrix A (built before the timed calls): its LU held to a
     kernel's factor in LAPACK's packed form ``want`` at the kernels'
     tolerance (``lower``: L and the diagonal only, the part an LDL^T
-    factor shares with it); returns its time (ms, CUDA events, 5 single
-    calls) and the difference."""
+    factor shares with it); returns its time (ms, CUDA events, ``reps``
+    single calls) and the difference."""
     LU = torch.linalg.lu_factor_ex(A, pivot=False).LU
     if lower:
         LU = LU.tril()
@@ -725,7 +752,7 @@ def library_lu_factor(A, want, scale, what, lower=False):
     check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
           f"{what}: max abs diff from the kernel {el}")
     del LU
-    return cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 5), el
+    return cuda_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), reps), el
 
 
 # (B, n, w): the MPC-MHE fleet and the pursuit fleet; ragged batches (B
@@ -990,6 +1017,140 @@ def phase_kernels(fb):
             phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp)
         del band, rhs, f1, x1, x2, f3, pf, px, px2, fbo, xo
     return recs
+
+
+def wide_row(label, names, k, B, n, w, err, kern, bms, by, lib_ms, plain_ms=None):
+    """One kernel's line at a wide shape: device time alone and with the
+    host's launch overhead, bound, library pair, plain version."""
+    dev = cuda_ms(kern, 20, spin=True)
+    ms = cuda_ms(kern, 20)
+    plain_s = f"{plain_ms:.3f} ms" if plain_ms is not None else "not timed"
+    log(f"[{label}] {names[k]} B={B} n={n} w={w}: max_abs_err {err:.3e}  kernel "
+        f"{ms:.4f} ms (device {dev:.4f} ms)  plain {plain_s}  library {lib_ms:.4f} ms  "
+        f"bound {bms:.5f} ms ({by})")
+    return {"B": B, "n": n, "w": w, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def phase_wide_kernels(fb, recs):
+    """K1-K3 on the wide route (w = 17..63, a warp an instance) at
+    FB_WIDE_SHAPES: bitwise against the plain versions, timed beside their
+    bounds and library calls on the band expanded to dense (K1: the
+    lu_factor_ex + lu_solve pair; K2: lu_solve on K1's factor as an LU;
+    K3: lu_factor_ex); the quadcopter's shape goes into the records'
+    main_shapes."""
+    clamp = 1e-7
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, n, w in FB_WIDE_SHAPES:
+        plan = fb.launch_plan(n, w, B, sms)
+        check(plan.group == 1 and plan.ring == (B == 16),
+              f"wide plan at B={B} n={n} w={w}: {plan}")
+        band, rhs = test_band(B, n, w, seed=n + w)
+        f1, x1 = fb.fleet_banded_factor_solve_batched(band, rhs, w, clamp)
+        x2 = fb.fleet_banded_solve_batched(f1, rhs, w)
+        f3 = fb.fleet_banded_factor_batched(band, w, clamp)
+        pf, px = fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)
+        px2 = fb.fleet_banded_solve_plain(pf, rhs, w)
+        torch.cuda.synchronize()
+        check(same_bits(f1, pf) and same_bits(x1, px) and same_bits(x2, px2)
+              and same_bits(f3, pf), f"K1-K3 at B={B} n={n} w={w}: not bitwise")
+        errs = {"factor_solve": max((f1 - pf).abs().max().item(), (x1 - px).abs().max().item()),
+                "solve": (x2 - px2).abs().max().item(), "factor": (f3 - pf).abs().max().item()}
+        for k, e in errs.items():
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+        log(f"[kernels] B={B} n={n} w={w}: wide route "
+            f"{'ring' if plan.ring else 'staged'}, a CTA of one warp an instance, {B} CTAs, "
+            f"{plan.smem} bytes of shared memory a CTA; bitwise equal to the plain versions")
+        scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+        lreps = 1 if plan.ring else 3
+        check(bool((f3[..., 0].abs() > clamp).all()), "no clamp fired in K3")
+        Ad = ldl_dense(band)
+        Ad = Ad + Ad.tril(-1).mT
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+        LU = ldl_as_lu(f1)
+        libs = {
+            "factor_solve": library_pair(Ad, rhs, x1, scale, lreps)[0],
+            "solve": library_check(
+                lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0], x2, scale,
+                f"lu_solve against K2 at B={B} n={n} w={w}", lreps)[0],
+            "factor": library_lu_factor(Ad, ldl_dense(f3), scale,
+                                        f"lu_factor_ex against K3 at B={B} n={n} w={w}",
+                                        lower=True, reps=lreps)[0],
+        }
+        del Ad, LU
+        fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
+        runs = {
+            "factor_solve": (lambda: fb.launch_factor_solve(band, rhs, fbo, xo, w, clamp),
+                             lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)),
+            "solve": (lambda: fb.launch_solve(f1, rhs, xo, w),
+                      lambda: fb.fleet_banded_solve_plain(pf, rhs, w)),
+            "factor": (lambda: fb.launch_factor(band, fbo, w, clamp),
+                       lambda: fb.fleet_banded_factor_plain(band, w, clamp)),
+        }
+        for k, (kern, plain) in runs.items():
+            main = (B, n, w) == QUAD_BAND
+            plain_ms = cuda_ms(plain, 1) if main else None
+            bms, by = bound(k, B, n, w)
+            row = wide_row("kernels", NAMES, k, B, n, w, errs[k], kern, bms, by, libs[k],
+                           plain_ms)
+            if main:
+                recs[k].setdefault("main_shapes", []).append(row)
+        del band, rhs, f1, x1, x2, f3, pf, px, px2, fbo, xo
+
+
+def phase_wide_lu_kernels(lu, recs):
+    """K9-K11 at two rows a lane (w = 32..63) at LU_WIDE_SHAPES: bitwise
+    against the plain versions, timed beside their bounds and library
+    calls on the band expanded to dense (K9: the lu_factor_ex + lu_solve
+    pair; K10: lu_solve on K9's factor; K11: lu_factor_ex)."""
+    clamp = 1e-4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, n, w in LU_WIDE_SHAPES:
+        plan = lu.launch_plan(n, w, B, sms)
+        check(plan.ring == (n > 1000), f"LU plan at B={B} n={n} w={w}: {plan}")
+        band, rhs = test_lu_band(B, n, w, seed=n + w)
+        f9, x9 = lu.fleet_banded_lu_factor_solve_batched(band, rhs, w, clamp)
+        x10 = lu.fleet_banded_lu_solve_batched(f9, rhs, w)
+        f11 = lu.fleet_banded_lu_factor_batched(band, w, clamp)
+        pf, px = lu.fleet_banded_lu_factor_solve_plain(band, rhs, w, clamp)
+        px10 = lu.fleet_banded_lu_solve_plain(pf, rhs, w)
+        torch.cuda.synchronize()
+        check(same_bits(f9, pf) and same_bits(x9, px) and same_bits(x10, px10)
+              and same_bits(f11, pf), f"K9-K11 at B={B} n={n} w={w}: not bitwise")
+        errs = {"lu_factor_solve": max((f9 - pf).abs().max().item(),
+                                       (x9 - px).abs().max().item()),
+                "lu_solve": (x10 - px10).abs().max().item(),
+                "lu_factor": (f11 - pf).abs().max().item()}
+        for k, e in errs.items():
+            recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], e)
+        log(f"[lu-kernels] B={B} n={n} w={w}: two rows a lane, route "
+            f"{'ring' if plan.ring else 'staged'}, {plan.group} instances (a warp each) a "
+            f"CTA, {plan.smem} bytes of shared memory a CTA; bitwise equal to the plain "
+            "versions")
+        scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+        lreps = 1 if plan.ring else 3
+        check(bool((f11[..., 0].abs() > clamp).all()), "no clamp fired in K11")
+        Ad = lu_dense(band)
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+        LU = lu_dense(f9)
+        libs = {
+            "lu_factor_solve": library_pair(Ad, rhs, x9, scale, lreps)[0],
+            "lu_solve": library_check(
+                lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0], x10, scale,
+                f"lu_solve against K10 at B={B} n={n} w={w}", lreps)[0],
+            "lu_factor": library_lu_factor(Ad, lu_dense(f11), scale,
+                                           f"lu_factor_ex against K11 at B={B} n={n} w={w}",
+                                           reps=lreps)[0],
+        }
+        del Ad, LU
+        fo, xo = torch.empty_like(band), torch.empty_like(rhs)
+        runs = {"lu_factor_solve": lambda: lu.launch_factor_solve(band, rhs, fo, xo, w, clamp),
+                "lu_solve": lambda: lu.launch_solve(f9, rhs, xo, w),
+                "lu_factor": lambda: lu.launch_factor(band, fo, w, clamp)}
+        for k, kern in runs.items():
+            bms, by = lu_bound(k, B, n, w)
+            wide_row("lu-kernels", LU_NAMES, k, B, n, w, errs[k], kern, bms, by, libs[k])
+        del band, rhs, f9, x9, x10, f11, pf, px, px10, fo, xo
 
 
 def phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp):
@@ -1790,6 +1951,175 @@ def phase_pursuit_cross_check(tm, params, inits, res):
         f"{f_c[~stable].round(5).tolist()}")
 
 
+def phase_quadcopter(tq, fb, others):
+    """The quadcopter fleet (examples/mpc_quadcopter at T = 20 with the
+    large Newton matrix, B = 512, float32, 'auto', mu0 = 0.1, max_iter =
+    300, each instance its own target) on the card: its KKT (nK = 286,
+    RCM w = 30) assembled densely at every iterate (band mode None) and
+    factored by K1/K2 on the wide route.  The reference converges on this
+    configuration only for some instances and iterations vary with the
+    rounding, so the converged share is reported, not required."""
+    ns = "bquad_"
+    t0 = time.perf_counter()
+    solver = tq.build_solver(T=QUAD_T, ns=ns, dtype="float32", smallerNewtonMatrix=False)
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode is None
+          and (plan.n, plan.bandwidth) == QUAD_BAND[1:],
+          f"fleet banded, no band mode, n={QUAD_BAND[1]}, w={QUAD_BAND[2]}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[quadcopter] solver built in {build:.1f} s: nU {solver.nU} nG {solver.nG} nF "
+        f"{solver.nF}; nK {plan.n}, RCM w {plan.bandwidth}; band mode "
+        f"{solver._solve_raw.band_mode}; backend {solver.kkt_backend_resolved}; hoist (H, Fu, "
+        f"Gu) {tuple(solver._hoist)}; K1/K2 launch plan "
+        f"{fb.launch_plan(plan.n, plan.bandwidth, QUAD_B, sms)}")
+    params, inits = tq.fleet_inputs(QUAD_T, QUAD_B, ns, seed=0)
+
+    def run(max_iter=300):
+        res = solver.solve_many(params, inits=inits, mu0=1e-1, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)  # warm-up (first-call allocations)
+    reset_counts(fb, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the quadcopter path: {[m.LAUNCHES for m in others]}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (QUAD_B, solver.nU) and bool(torch.isfinite(res.u).all()),
+          "finite u of the expected shape")
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    check(launches["factor_solve"] >= lockstep > 0 and launches["solve"] > 0,
+          f"K1 and K2 at least once a lockstep iteration: {launches}")
+    n_ok = int((status == 0).sum())
+    ok = status == 0
+    k1 = launches["factor_solve"]
+    log(f"[quadcopter] fleet B={QUAD_B} T={QUAD_T} f32: status 0 for {n_ok} of {QUAD_B} "
+        f"(converged share {n_ok / QUAD_B:.4f}; statuses {dict(zip(*np.unique(status, return_counts=True)))}); "
+        f"iters max {iters.max()} mean {iters.mean():.2f} (converged: max "
+        f"{iters[ok].max(initial=0)} mean {iters[ok].mean() if ok.any() else 0:.2f}); warm "
+        f"solve wall {wall:.4f} s, {QUAD_B / wall:.1f} solves/s, host {1e3 * wall / lockstep:.1f} "
+        f"ms a lockstep iteration ({card_line()}); launches {launches}; per lockstep "
+        f"iteration K1 {k1 / lockstep:.2f} K2 {launches['solve'] / lockstep:.2f} K3 "
+        f"{launches['factor'] / lockstep:.2f}; adaptation trips beyond one a lockstep "
+        f"iteration: {k1 - lockstep}")
+    return solver, params, inits, res, launches, wall, lockstep
+
+
+def quadcopter_cpu_worker(sub_p, inits, card, T):
+    """The quadcopter cross-check's CPU side, in a process of its own so
+    that it runs beside the card's other phases: the port on the CPU
+    (float32, plain versions of K1/K2) solves the instances from each of
+    ``inits`` in one fleet, and evaluates the exit tests' metrics of the
+    card's answers ``card``.  Returns numpy arrays and the tolerances."""
+    from types import SimpleNamespace
+
+    from tenscalc_tpu_torch.examples import mpc_quadcopter as tq
+
+    torch.set_num_threads(2)
+    cpu = tq.build_solver(T=T, ns="bquad_", dtype="float32", device="cpu",
+                          smallerNewtonMatrix=False)
+    k = len(inits)
+    t0 = time.perf_counter()
+    r = cpu.solve_many(
+        {n: (np.concatenate([v] * k) if np.ndim(v) == 3 else v) for n, v in sub_p.items()},
+        inits={n: np.concatenate([i[n] for i in inits]) for n in inits[0]},
+        mu0=1e-1, max_iter=300)
+    seconds = time.perf_counter() - t0
+    m = minimize_exit_metrics(cpu, sub_p, SimpleNamespace(
+        **{n: torch.as_tensor(v) for n, v in card.items()}))
+    o = cpu.opts
+    return {"status": r.status.numpy().reshape(k, -1), "iters": r.iters.numpy().reshape(k, -1),
+            "u": r.u.numpy().reshape(k, -1, cpu.nU), "f": r.f.numpy().reshape(k, -1),
+            "seconds": seconds, "nF": cpu.nF, "tol": (o.gradTolerance, o.equalTolerance,
+                                                      o.desiredDualityGap),
+            **{"m_" + n: v.numpy() for n, v in m.items()}}
+
+
+def start_quadcopter_cross_check(params, inits, res):
+    """Start the CPU side of the quadcopter cross-check on eight of the
+    fleet's instances (every 64th), from their inits and from two draws
+    of them moved by UNI_NUDGE, in a spawned process; returns what
+    finish_quadcopter_cross_check needs."""
+    import multiprocessing
+
+    idx = np.arange(0, QUAD_B, QUAD_B // 8)
+    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
+    sub_i = {k: v[idx] for k, v in inits.items()}
+    nudge = np.random.default_rng(1)
+    moved = [{k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
+             for _ in range(2)]
+    sel = torch.as_tensor(idx, device=res.u.device)
+    card = {k: getattr(res, k)[sel].cpu().numpy()
+            for k in ("u", "nu", "lam", "scale_ineq", "scale_cost", "status", "iters", "f")}
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    job = pool.apply_async(quadcopter_cpu_worker, (sub_p, [sub_i, *moved], card, QUAD_T))
+    return pool, job, card
+
+
+def finish_quadcopter_cross_check(pool, job, card):
+    """The quadcopter cross-check, the CPU side collected.
+
+    The problem is nonconvex (the thrust magnitude's square root) and its
+    KKT's factor has pivots that the clamp decides, so a last-bit change
+    can move an instance's path, even to the iteration limit: the JAX
+    package alone, from one init moved by 1e-6, ends in 42-86 iterations
+    or at the limit (T = 6, float32).  So every converged card answer is
+    held to the exit tests evaluated again on the CPU; and where the CPU's
+    three solves (the init and two draws moved by UNI_NUDGE) agree (the
+    same status, iterations within one, p and u within U_ATOL), the card
+    is held to their status, iterations within one, p and u within
+    U_ATOL and J within F_RTOL relative; the others are printed."""
+    try:
+        out = job.get(timeout=1000)
+    finally:
+        pool.close()
+        pool.join()
+    st, it, u, f = out["status"], out["iters"], out["u"], out["f"]
+    st_g, it_g, f_g = card["status"], card["iters"], card["f"]
+    pu = 6 * QUAD_T  # p then u lead the packed primal vector (3 T each)
+    x = u[:, :, :pu]
+    x_g = card["u"][:, :pu]
+    stable = ((st == st[0]).all(0) & (np.abs(it - it[0]) <= 1).all(0)
+              & (np.abs(x - x[0]).max(axis=2) <= U_ATOL).all(0))
+    dx = np.abs(x[0] - x_g).max(axis=1)
+    df = np.abs(f[0] - f_g) / np.abs(f[0])
+    g_tol, eq_tol, gap = out["tol"]
+    conv = st_g == 0
+    m = {k[2:]: v for k, v in out.items() if k.startswith("m_")}
+    check(bool(np.isfinite(m["g"][conv]).all() and (m["g"][conv] <= g_tol).all()),
+          f"converged card answers stationary on the CPU (g {m['g'][conv]})")
+    check(bool((m["eq"][conv] <= eq_tol).all()),
+          f"converged card answers feasible on the CPU (|G| {m['eq'][conv]})")
+    check(bool((m["min_F"][conv] >= -1e-6).all() and (m["min_lam"][conv] > 0).all()),
+          "converged card answers inside the bounds with positive multipliers on the CPU")
+    gap_tol = gap * (1 + 2 * (out["nF"] + 2) * 2.0**-24)
+    check(bool((m["gap"][conv] <= gap_tol).all()),
+          f"converged card answers within the gap on the CPU ({m['gap'][conv]})")
+    check((st_g == st[0])[stable].all(),
+          f"the same status where the CPU's solves agree ({st_g}, {st[0]}, {stable})")
+    check((np.abs(it_g - it[0]) <= 1)[stable].all(),
+          f"iterations within one where the CPU's solves agree ({it_g}, {it[0]})")
+    check(bool((dx[stable] <= U_ATOL).all()),
+          f"p and u within {U_ATOL} where the CPU's solves agree ({dx[stable]})")
+    check(bool((df[stable] <= F_RTOL).all()),
+          f"J within {F_RTOL} relative where the CPU's solves agree ({df[stable]})")
+    log(f"[quadcopter-cross-check] 8 instances (every 64th) on the CPU in {out['seconds']:.1f} s "
+        f"beside the other phases: status card {st_g.tolist()} cpu {st.tolist()} (the init, "
+        f"then moved by {UNI_NUDGE} twice); iterations card {it_g.tolist()} cpu {it.tolist()}; "
+        f"status equal on {int((st_g == st[0]).sum())} of 8; the CPU's three solves agree on "
+        f"{int(stable.sum())} of 8: there max |d(p, u)| {dx[stable].max(initial=0):.3e}, J max "
+        f"rel diff {df[stable].max(initial=0):.3e}; the {int(conv.sum())} converged card "
+        f"answers on the CPU: max g {m['g'][conv].max(initial=0):.3e} (tol {g_tol}), max |G| "
+        f"{m['eq'][conv].max(initial=0):.3e}, max gap {m['gap'][conv].max(initial=0):.6e} (tol "
+        f"{gap}); elsewhere max |d(p, u)| {dx[~stable].max(initial=0):.3e}, J card "
+        f"{f_g[~stable].round(5).tolist()} cpu {f[0][~stable].round(5).tolist()}")
+
 def flops_launch_check(rows, n_launch, others, where):
     """K8 and K7 alone up to 896 KKT rows, no kernel above."""
     check(not any(v for m in others for v in m.LAUNCHES.values()),
@@ -1975,17 +2305,42 @@ def main() -> int:
     log(f"[setup] native sources built in {time.perf_counter() - t0:.1f} s")
     log(f"[setup] ptxas, csrc/fleet_banded.cu: no spills at w=1..{fb.MAX_W} on either "
         f"route; registers a thread at w=4: {ptxas_report(fb, 4, ('staged', 'ring'))}; "
-        f"at w=16: {ptxas_report(fb, 16, ('staged', 'ring'))}")
+        f"at w=16: {ptxas_report(fb, 16, ('staged', 'ring'))}; on the wide route at "
+        f"capacity 31 (w = 24..31): {ptxas_report(fb, 31, ('staged', 'ring'))}; at 63: "
+        f"{ptxas_report(fb, 63, ('staged', 'ring'))}")
     log(f"[setup] ptxas, csrc/banded_lu.cu: no spills at w=1..{lu.MAX_W} on either "
         f"route; registers a thread at w=10: "
         f"{ptxas_report(lu, 10, ('staged', 'ring'))}; at w=22: "
         f"{ptxas_report(lu, 22, ('staged', 'ring'))}; at w=31: "
-        f"{ptxas_report(lu, 31, ('staged', 'ring'))}")
+        f"{ptxas_report(lu, 31, ('staged', 'ring'))}; two rows a lane at capacity 63: "
+        f"{ptxas_report(lu, 63, ('staged', 'ring'))}")
     dense_regs = dense_ptxas_report(build_log(dl.LIB_PATH), -(-dl.FLEET_MAX_N // 32))
     log(f"[setup] ptxas, csrc/dense_ldl.cu: no spills; registers a thread: {dense_regs}")
 
     elapsed("the kernels")
     recs = phase_kernels(fb)
+    elapsed("K1-K3's wide route")
+    phase_wide_kernels(fb, recs)
+
+    # the quadcopter fleet: its KKT (the large Newton matrix) assembled
+    # densely at every iterate, K1/K2 on the wide route; its CPU
+    # cross-check runs in a process of its own beside the later phases
+    from tenscalc_tpu_torch.examples import mpc_quadcopter
+
+    elapsed("the quadcopter slice")
+    csolver, cparams, cinits, cres, quad_launches, quad_wall, clock = phase_quadcopter(
+        mpc_quadcopter, fb, (lu, dl))
+    quad_check = start_quadcopter_cross_check(cparams, cinits, cres)
+    elapsed("[profile9]")
+    cwall, cbusy = phase_profile("profile9", lambda: csolver.solve_many(
+        cparams, inits=cinits, mu0=1e-1, max_iter=PROFILE9_ITERS),
+        watch=(("K1", r"\bfactor_solve_wide_kernel<"), ("K2", r"\bsolve_wide_kernel<")),
+        host_ops=False)
+    log(f"[profile9] the quadcopter fleet, its first {PROFILE9_ITERS} iterations: device "
+        f"kernel time {cbusy:.4f} s, {1e3 * cbusy / PROFILE9_ITERS:.2f} ms a lockstep "
+        f"iteration; host {1e3 * cwall / PROFILE9_ITERS:.1f} ms a lockstep iteration profiled "
+        f"({1e3 * quad_wall / clock:.1f} unprofiled over the whole solve)")
+    del csolver
     solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
     phase_cross_check(mpc, params, inits, res)
@@ -1995,6 +2350,7 @@ def main() -> int:
 
     elapsed("slice 2")
     lu_recs = phase_lu_kernels(lu)
+    phase_wide_lu_kernels(lu, lu_recs)
     msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the MPC-MHE path")
     phase_mpcmhe_cross_check(mm, mparams, mres)
@@ -2109,7 +2465,8 @@ def main() -> int:
     # are in its [minmax] line); K3: the min-max HessD inertia, its only
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
-    fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches}
+    fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches,
+                "quadcopter": quad_launches}
     kernels = [
         {**entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k]),
          "launches_by_path": {p: c[k] for p, c in fb_paths.items()}}
@@ -2124,6 +2481,8 @@ def main() -> int:
          "launches_by_path": {"mpcmhe": lu_launches[k], "pursuit": pur_launches[k]}}
         for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
+    elapsed("the quadcopter's cross-check")
+    finish_quadcopter_cross_check(*quad_check)
     elapsed("the end")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,8 +1,8 @@
 """Design choices of csrc/fleet_banded.cu (K1 factor+solve, K2 solve, K3
 factor), each undone in turn and timed against the design on one NVIDIA
-card.
+card; or the design against another commit's source.
 
-    python3 fleet_banded_ablation.py
+    python3 fleet_banded_ablation.py [--parent PATH]
 
 Each variant is the CUDA source with one textual edit (named below and
 checked to apply), built with nvcc at w = 4 alone and launched on the
@@ -11,12 +11,19 @@ launch plan.  Times are device times alone (CUDA events after the card
 spins, median of 40 calls, as chip_smoke.py's ``device_ms``); every variant
 that computes the kernels' function is held bitwise against the plain
 versions.  The design is also timed over n, whose slope and intercept
-split a launch into its per-row and fixed costs.  Prints the card's name
-and power limit and one JSON line of the times.
+split a launch into its per-row and fixed costs.  ``--parent`` instead
+times the design against another commit's fleet_banded.cu with the same
+C entries (for instance ``git show <commit>:tenscalc_tpu_torch/csrc/
+fleet_banded.cu`` written into the git-ignored ``_scratch/``), both built
+at the narrow widths of PARENT_SHAPES, in the order design, parent,
+parent, design at each shape, every launch held bitwise against the
+plain versions.  Prints the card's name and power limit and one JSON
+line of the times.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -34,6 +41,9 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "tenscalc_tpu_torch" / "csrc" / "fleet_banded.cu"
 SHAPE = (1024, 149, 4)
 CLAMP = 1e-7
+# the narrow route's main paths: the flagship fleet, the min-max saddle
+# and the nonlinear unicycle fleet
+PARENT_SHAPES = [(1024, 149, 4), (1024, 480, 6), (512, 439, 9)]
 
 # name -> (edits of the source, chunk rows, ring rows, exact): each edit
 # (old, new) must apply; `exact` variants compute the kernels' function
@@ -63,10 +73,11 @@ VARIANTS = {
 }
 
 
-def variant_source(edits) -> str:
-    src = SOURCE.read_text()
+def variant_source(edits, src=None, widths=(4,)) -> str:
+    src = SOURCE.read_text() if src is None else src
     src, n = re.subn(r"#define TC_FOR_EACH_W\(X\) \\\n.*\n.*\n",
-                     "#define TC_FOR_EACH_W(X) X(4)\n", src)
+                     "#define TC_FOR_EACH_W(X) " + " ".join(f"X({w})" for w in widths)
+                     + "\n", src)
     assert n == 1, "the width list moved"
     for old, new in edits:
         assert old in src, f"the edit {old!r} does not apply"
@@ -74,10 +85,11 @@ def variant_source(edits) -> str:
     return src
 
 
-def build(name: str, fb, out: Path) -> ctypes.CDLL:
-    edits, chunk, ring, _ = VARIANTS[name]
+def build(name: str, fb, out: Path, text=None) -> ctypes.CDLL:
+    """The library of variant ``name``, or of source ``text`` when given."""
+    edits, chunk, ring, _ = VARIANTS.get(name, ([], None, None, True))
     src = out / (re.sub(r"\W", "_", name) + ".cu")
-    src.write_text(variant_source(edits))
+    src.write_text(variant_source(edits) if text is None else text)
     lib = src.with_suffix(".so")
     subprocess.run(
         ["/usr/local/cuda/bin/nvcc", *fb.NVCC_FLAGS,
@@ -111,13 +123,56 @@ def kernels(h, fb, band, rhs, fband):
     ), f, x
 
 
+def against_parent(fb, parent: Path) -> dict:
+    """Device ms of K1/K2/K3, design and parent in the order design,
+    parent, parent, design at each of PARENT_SHAPES."""
+    widths = sorted({w for _, _, w in PARENT_SHAPES})
+    texts = {"design": variant_source([], widths=widths),
+             "parent": variant_source([], parent.read_text(), widths)}
+    times = {name: {} for name in texts}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        libs = dict(zip(texts, pool.map(lambda kv: build(kv[0], fb, Path(tmp), kv[1]),
+                                        texts.items())))
+        for B, n, w in PARENT_SHAPES:
+            band, rhs = cs.test_band(B, n, w, seed=n + w)
+            pf, px = fb.fleet_banded_factor_solve_plain(band, rhs, w, CLAMP)
+            px2 = fb.fleet_banded_solve_plain(pf, rhs, w)
+            runs = {name: kernels(h, fb, band, rhs, pf) for name, h in libs.items()}
+            for name, (ks, f, x) in runs.items():
+                for k, want in zip(ks, ((pf, px), (None, px2), (pf, None))):
+                    assert k() == 0
+                    torch.cuda.synchronize()
+                    cs.check(all(torch.equal(o, p) for o, p in zip((f, x), want)
+                                 if p is not None),
+                             f"{name} at {(B, n, w)}: bitwise against the plain versions")
+            got = {name: [] for name in texts}
+            for name in ("design", "parent", "parent", "design"):
+                got[name].append([cs.cuda_ms(k, 40, spin=True) for k in runs[name][0]])
+            for name, pair in got.items():
+                times[name][f"{B},{n},{w}"] = pair
+                cs.log(f"[ablation] {name} B={B} n={n} w={w}: K1/K2/K3 device ms "
+                       + "; ".join("/".join(f"{t:.4f}" for t in ts) for ts in pair))
+            d, p = ([sum(ts[i] for ts in got[nm]) / 2 for i in range(3)]
+                    for nm in ("design", "parent"))
+            cs.log(f"[ablation] B={B} n={n} w={w}: design / parent K1 {d[0] / p[0]:.4f}, "
+                   f"K2 {d[1] / p[1]:.4f}, K3 {d[2] / p[2]:.4f}")
+    return times
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, help="another commit's fleet_banded.cu")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fleet_banded_ablation: CUDA is not available", file=sys.stderr)
         return 2
     from tenscalc_tpu_torch.kkt import fleet_banded as fb
 
     card = cs.card_line()
+    if args.parent is not None:
+        print(json.dumps({"device_ms": against_parent(fb, args.parent)}))
+        print(card)
+        return 0
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(lambda v: build(v, fb, Path(tmp)), VARIANTS)))
         B, n, w = SHAPE

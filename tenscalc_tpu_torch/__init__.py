@@ -12,6 +12,7 @@ from .expr import (
     Constraint,
     Expr,
     Tconstant,
+    Teye,
     Tones,
     Tvariable,
     Tzeros,
@@ -19,22 +20,94 @@ from .expr import (
     clear_variables,
     concat,
     constant,
+    gradient,
+    hessian,
+    horzcat,
+    jacobian,
     lift,
     parameter,
+    stack,
+    substitute,
     to_expr,
     variable,
+    vertcat,
 )
-from .ops.fns import norm2, tprod
-from .ops.tseries import tsIntegral
+from .ops.fns import (
+    Ginterpolate,
+    Hinterpolate,
+    allv,
+    anyv,
+    bitrate,
+    ceil,
+    chol,
+    clp,
+    compose,
+    cube,
+    dsheaviside,
+    floor,
+    heaviside,
+    interpolate,
+    ldl,
+    ldl_d,
+    ldl_l,
+    lngamma,
+    logdet,
+    lu,
+    lu_d,
+    lu_l,
+    lu_u,
+    max2,
+    min2,
+    norm,
+    norm1,
+    norm2,
+    norminf,
+    pdist2t,
+    permute,
+    pptrs,
+    relu,
+    repmat,
+    round,
+    sheaviside,
+    sqr,
+    srelu,
+    tprod,
+    traceinv,
+    vec2tensor,
+)
+from .ops.tseries import (
+    tsCross,
+    tsDerivative,
+    tsDerivative2,
+    tsDot,
+    tsIntegral,
+    tsIntegrate,
+    tsODE,
+    tsQdot,
+    tsQdotStar,
+    tsRotation,
+    tsRotationT,
+)
 from .ipm.options import SolverOptions
 from .ipm.status import SolverStatus, describe_status
 from .api import OptimizeSolver, Solution, equilibrium, minmax, optimize
 from .parallel.batch import solve_batched
 
 __all__ = [
-    "Constraint", "Expr", "Tconstant", "Tones", "Tvariable", "Tzeros",
-    "Variable", "clear_variables", "concat", "constant", "lift",
-    "parameter", "to_expr", "variable", "norm2", "tprod", "tsIntegral", "SolverOptions",
-    "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
+    "Constraint", "Expr", "Tconstant", "Teye", "Tones", "Tvariable", "Tzeros",
+    "Variable", "clear_variables", "concat", "constant", "gradient", "hessian",
+    "horzcat", "jacobian", "lift", "parameter", "stack", "substitute", "to_expr",
+    "variable", "vertcat",
+    "norm1", "norm2", "norminf", "logdet", "chol", "ldl", "ldl_l", "ldl_d", "lu",
+    "lu_l", "lu_u", "lu_d", "pptrs", "bitrate", "traceinv", "relu", "srelu",
+    "heaviside", "sqr", "cube", "clp", "vec2tensor", "tprod", "pdist2t",
+    "interpolate", "Ginterpolate", "Hinterpolate",
+    # round stays an attribute, out of __all__, so that a star import does
+    # not shadow the builtin (all/any are exported as allv/anyv likewise)
+    "ceil", "floor", "lngamma", "sheaviside", "dsheaviside", "compose", "min2",
+    "max2", "allv", "anyv", "norm", "repmat", "permute",
+    "tsDerivative", "tsDerivative2", "tsIntegral", "tsIntegrate", "tsODE",
+    "tsCross", "tsDot", "tsQdot", "tsQdotStar", "tsRotation", "tsRotationT",
+    "SolverOptions", "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
     "optimize", "minmax", "equilibrium", "solve_batched",
 ]

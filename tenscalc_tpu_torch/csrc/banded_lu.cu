@@ -65,10 +65,16 @@
 // - A factor step (factor_rows): lanes i and 16 + i (W <= 15), or lane i
 //   alone (W = 16..31), own row i of the trailing square and update it
 //   with their own l_i; the next pivot and numerators pass by shuffles;
-//   one __syncwarp a step.
+//   one __syncwarp a step.  Above W = 31 (to 63) lane l owns rows l and
+//   l + 32 (factor_rows_two_rows): the rows do not fit the warp's lanes
+//   one a lane.
 // - The forward sweep (forward_rows) keeps y of rows c..c+W in lanes
-//   0..W: a shuffle, a product and a subtraction a row.  The backward
-//   sweep runs on one lane, its row loads one row ahead of the chain.
+//   0..W: a shuffle, a product and a subtraction a row; above W = 31 two
+//   rows a lane.  The backward sweep runs on one lane, its row loads one
+//   row ahead of the chain (read at the row above W = 31).
+// - Above W = 31 the width is a run-time argument of kernels instantiated
+//   at two capacities (47, 63), the entries past W masked, and the window
+//   reaches two chunks ahead (rows c..c+W+1 span three chunks).
 // - Above the shared-memory cap (an instance of (n + W)(2W + 2) floats
 //   over the block's opt-in) the same kernels keep a ring of 128 rows of
 //   the band and of x instead of the whole of each: 128 (2W + 2) floats
@@ -102,14 +108,17 @@
 
 namespace {
 
-constexpr int kMaxW = 31;  // y of rows c..c+W in a warp's lanes
+constexpr int kLaneRowW = 31;  // y of rows c..c+W in a warp's lanes
+constexpr int kMaxW = 63;      // above kLaneRowW two rows a lane
 constexpr int kTeam = 32;                       // lanes an instance: a warp
 constexpr int kMaxGroup = TC_LU_MAX_GROUP;      // instances a CTA
 constexpr int kChunk = TC_LU_CHUNK_ROWS;        // rows a copy group
 constexpr int kRing = TC_LU_RING_ROWS;          // rows of the ring route
 constexpr int kDepth = kRing / kChunk - 1;      // chunks in flight
 constexpr int kSmemMax = TC_LU_SMEM_MAX;        // a block's opt-in cap
-static_assert(kChunk > kMaxW, "a chunk must hold the window's rows");
+static_assert(kChunk > kLaneRowW, "a chunk must hold the window's rows");
+static_assert(kMaxW < 2 * kChunk && kMaxW < 2 * kTeam,
+              "two chunks ahead hold the wide window's rows, two a lane");
 static_assert((kRing & (kRing - 1)) == 0 && kRing % kChunk == 0 && kDepth >= 2,
               "the ring is a power of two of at least three chunks");
 
@@ -596,6 +605,303 @@ lu_factor_kernel(const float* __restrict__ band, float* __restrict__ fband,
                               nullptr, n, clamp, lane);
 }
 
+
+// ---------------------------------------------------------------------------
+// w = 32..63 (kLaneRowW < w <= kMaxW): the width a run-time argument, CAP
+// the capacity of an instantiation, R = 2w + 1 a band row's floats.
+// ---------------------------------------------------------------------------
+
+// start_chunk at a run-time row length R
+template <bool RING>
+__device__ __forceinline__ void start_chunk_rt(float* sb, float* sx, const float* gb,
+                                               const float* gr, int k, int n, int R,
+                                               int lane) {
+  const int r0 = k * kChunk;
+  if (k < 0 || r0 >= n) return;
+  const int r1 = min(n, r0 + kChunk);
+  float* dst = sb + srow<RING>(r0) * R;
+  const float* src = gb + (size_t)r0 * R;
+  const int cnt = (r1 - r0) * R;
+  for (int i = lane; i < cnt; i += kTeam) cp_async4(dst + i, src + i);
+  if (gr != nullptr) {
+    float* xd = sx + srow<RING>(r0);
+    for (int i = lane; i < r1 - r0; i += kTeam) cp_async4(xd + i, gr + r0 + i);
+  }
+}
+
+// Entry e (j = e + 1) of trailing row i at step c: A[c+i, c+j], in band
+// row c+j at column i-j (j <= i) or band row c+i at column w+j-i (j > i).
+template <bool RING>
+__device__ __forceinline__ float* trailing_entry(float* sb, int c, int i, int e, int w,
+                                                 int R) {
+  const int j = e + 1;
+  return j <= i ? sb + srow<RING>(c + j) * R + (i - j)
+                : sb + srow<RING>(c + i) * R + (w + j - i);
+}
+
+// One trailing row's step: entries A[c+i, c+j] -= l u_j, j = 1..w, loaded
+// together, updated, stored; returns the updated A[c+i, c+1].
+template <int CAP, bool RING>
+__device__ __forceinline__ float update_row(float* sb, const float (&u)[CAP], int c,
+                                            int i, bool own, float l, int w, int R) {
+  float a[CAP];
+#pragma unroll
+  for (int e = 0; e < CAP; ++e) {
+    a[e] = own && e < w ? *trailing_entry<RING>(sb, c, i, e, w, R) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < CAP; ++e) a[e] = __fsub_rn(a[e], __fmul_rn(l, u[e]));
+#pragma unroll
+  for (int e = 0; e < CAP; ++e) {
+    if (own && e < w) *trailing_entry<RING>(sb, c, i, e, w, R) = a[e];
+  }
+  return a[0];
+}
+
+// The factor for w = 32..63: lane l owns trailing rows i0 = l (l >= 1)
+// and i1 = l + 32 (i1 <= w), forms their l_i and updates their w entries
+// a row at a time.  The next pivot is row 1's updated first entry (lane
+// 1); row i's next numerator is row i+1's: lane l+1's row of the same
+// slot, and for row 31 lane 0's second row; row w takes A[c+1+w, c+1],
+// untouched by the step.
+template <int CAP, bool SOLVE, bool RING>
+__device__ __forceinline__ void factor_rows_two_rows(float* sb, float* sx,
+                                                     const float* gb, const float* gr,
+                                                     float* gf, float* gy, int n, int w,
+                                                     float clamp, int lane) {
+  const int R = 2 * w + 1;
+  const int i0 = lane, i1 = lane + kTeam;
+  const bool own0 = i0 >= 1, own1 = i1 <= w;
+  const int K = (n + kChunk - 1) / kChunk;
+  for (int k = 0; k < kDepth; ++k) {
+    start_chunk_rt<RING>(sb, sx, gb, SOLVE ? gr : nullptr, k, n, R, lane);
+    cp_async_commit();
+  }
+  float piv = 0.0f, num0 = 0.0f, num1 = 0.0f;  // raw A[c, c], A[c+i0, c], A[c+i1, c]
+  for (int k = 0; k < K; ++k) {
+    __syncwarp();  // chunk k-1's write-back has read its ring rows
+    start_chunk_rt<RING>(sb, sx, gb, SOLVE ? gr : nullptr, k + kDepth, n, R, lane);
+    cp_async_commit();
+    cp_async_wait<kDepth - 2>();  // chunks k, k+1 and k+2 have landed
+    __syncwarp();
+    if (k == 0) {
+      piv = sb[0];
+      num0 = own0 ? sb[i0] : 0.0f;
+      num1 = own1 ? sb[i1] : 0.0f;
+    }
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+#pragma unroll 1
+    for (int c = c0; c < c1; ++c) {
+      float* row = sb + srow<RING>(c) * R;
+      float u[CAP];  // u_j = A[c, c+j]
+#pragma unroll
+      for (int e = 0; e < CAP; ++e) u[e] = e < w ? row[w + 1 + e] : 0.0f;
+      // A[c+1+w, c+1] is untouched by this step: row w's next numerator
+      const float tail = i1 == w ? sb[srow<RING>(c + 1) * R + w] : 0.0f;
+      float yc = 0.0f, y0 = 0.0f, y1 = 0.0f;
+      if (SOLVE) {
+        yc = sx[srow<RING>(c)];
+        if (own0) y0 = sx[srow<RING>(c + i0)];
+        if (own1) y1 = sx[srow<RING>(c + i1)];
+      }
+      const float d = clamp_pivot(piv, clamp);
+      const float l0 = own0 ? __fdiv_rn(num0, d) : 0.0f;
+      const float l1 = own1 ? __fdiv_rn(num1, d) : 0.0f;
+      const float f0 = update_row<CAP, RING>(sb, u, c, i0, own0, l0, w, R);
+      const float f1 = update_row<CAP, RING>(sb, u, c, i1, own1, l1, w, R);
+      piv = __shfl_sync(0xffffffffu, f0, 1);
+      const float n0 = __shfl_sync(0xffffffffu, f0, (lane + 1) & (kTeam - 1));
+      const float n1 = __shfl_sync(0xffffffffu, f1, (lane + 1) & (kTeam - 1));
+      num0 = lane == kTeam - 1 ? n1 : n0;
+      num1 = i1 == w ? tail : n1;
+      if (SOLVE) {
+        if (own0) sx[srow<RING>(c + i0)] = __fsub_rn(y0, __fmul_rn(l0, yc));
+        if (own1) sx[srow<RING>(c + i1)] = __fsub_rn(y1, __fmul_rn(l1, yc));
+      }
+      __syncwarp();
+      // row c is final: its pivot and multipliers replace A[c, c] and
+      // A[c+i, c], which no later step reads
+      if (lane == 0) row[0] = d;
+      if (own0) row[i0] = l0;
+      if (own1) row[i1] = l1;
+    }
+    __syncwarp();
+    // rows c0..c1-1 (and their y) are final: store them while the next
+    // chunk runs
+    const float* src = sb + srow<RING>(c0) * R;
+    float* dst = gf + (size_t)c0 * R;
+    const int cnt = (c1 - c0) * R;
+    for (int e = lane; e < cnt; e += kTeam) dst[e] = src[e];
+    if (SOLVE && RING) store_rows<RING>(sx, gy, c0, c1, lane);
+  }
+}
+
+// Forward sweep for w = 32..63: lane l holds y of rows c+l and c+32+l
+// (the second while 32+l <= w); the window shifts down one row a step,
+// lane 31's first row taking lane 0's second.
+template <bool RING>
+__device__ __forceinline__ void forward_rows_two(float* sb, float* sx, const float* gf,
+                                                 const float* gr, float* gy, int n,
+                                                 int w, int lane) {
+  const int R = 2 * w + 1;
+  const int K = (n + kChunk - 1) / kChunk;
+  const int i0 = lane, i1 = lane + kTeam;
+  const bool own0 = i0 >= 1, own1 = i1 <= w;
+  for (int k = 0; k < kDepth; ++k) {
+    start_chunk_rt<RING>(sb, sx, gf, gr, k, n, R, lane);
+    cp_async_commit();
+  }
+  // y of rows c+i0 and c+i1, y_c, and l_i of row c
+  float x0 = 0.0f, x1 = 0.0f, y = 0.0f, l0 = 0.0f, l1 = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    __syncwarp();
+    start_chunk_rt<RING>(sb, sx, gf, gr, k + kDepth, n, R, lane);
+    cp_async_commit();
+    cp_async_wait<kDepth - 2>();  // chunks k, k+1 and k+2 have landed
+    __syncwarp();
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    if (k == 0) {
+      x0 = i0 < n ? sx[i0] : 0.0f;
+      x1 = own1 && i1 < n ? sx[i1] : 0.0f;
+      y = __shfl_sync(0xffffffffu, x0, 0);
+      l0 = own0 ? sb[i0] : 0.0f;
+      l1 = own1 ? sb[i1] : 0.0f;
+    }
+#pragma unroll 1
+    for (int c = c0; c < c1; ++c) {
+      const float* next = sb + srow<RING>(c + 1) * R;
+      const float ln0 = own0 ? next[i0] : 0.0f;
+      const float ln1 = own1 ? next[i1] : 0.0f;
+      const int last = c + 1 + w;
+      const float xlast = i1 == w && last < n ? sx[srow<RING>(last)] : 0.0f;
+      if (own0) x0 = __fsub_rn(x0, __fmul_rn(l0, y));
+      if (own1) x1 = __fsub_rn(x1, __fmul_rn(l1, y));
+      if (lane == 0) sx[srow<RING>(c)] = y;
+      const float ynext = __shfl_sync(0xffffffffu, x0, 1);
+      const float d0 = __shfl_down_sync(0xffffffffu, x0, 1);
+      const float d1 = __shfl_down_sync(0xffffffffu, x1, 1);
+      const float s10 = __shfl_sync(0xffffffffu, x1, 0);
+      x0 = lane == kTeam - 1 ? s10 : d0;
+      x1 = i1 == w ? xlast : d1;
+      y = ynext;
+      l0 = ln0;
+      l1 = ln1;
+    }
+    if (RING) {
+      __syncwarp();  // lane 0's y of rows c0..c1-1
+      store_rows<RING>(sx, gy, c0, c1, lane);
+    }
+  }
+  __syncwarp();
+}
+
+// Backward sweep for w = 32..63, one lane: x_c = (y_c - sum_q u_q
+// x_{c+q}) / d_c with x_{c+1..c+w} in registers, row c read as it is
+// worked on.  Chunks move as in backward_rows.
+template <int CAP, bool RING>
+__device__ __forceinline__ void backward_rows_rt(float* sb, float* sx, const float* gf,
+                                                 float* gx, int n, int w, int lane) {
+  const int R = 2 * w + 1;
+  const int K = (n + kChunk - 1) / kChunk;
+  __syncwarp();  // the team's stores of the factor and y are visible
+  if (RING) {
+    for (int j = 0; j < kDepth; ++j) {
+      start_chunk_rt<RING>(sb, sx, gf, gx, K - 1 - j, n, R, lane);
+      cp_async_commit();
+    }
+  }
+  float xn[CAP + 1];  // xn[q] = x_{c+q}
+#pragma unroll
+  for (int q = 0; q <= CAP; ++q) xn[q] = 0.0f;
+  for (int j = 0; j < K; ++j) {
+    const int k = K - 1 - j;
+    const int c0 = k * kChunk, c1 = min(n, c0 + kChunk);
+    if (RING) {
+      __syncwarp();  // the chunk before has been read and stored
+      start_chunk_rt<RING>(sb, sx, gf, gx, k - kDepth, n, R, lane);
+      cp_async_commit();
+      cp_async_wait<kDepth>();  // chunk k has landed
+      __syncwarp();
+    }
+    if (lane == 0) {
+#pragma unroll 1
+      for (int c = c1 - 1; c >= c0; --c) {
+        const float* row = sb + srow<RING>(c) * R;
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 1; q <= CAP; ++q) {
+          const float t = __fadd_rn(acc, __fmul_rn(row[w + q], xn[q]));
+          acc = q <= w ? t : acc;
+        }
+        const float xc = __fdiv_rn(__fsub_rn(sx[srow<RING>(c)], acc), row[0]);
+        sx[srow<RING>(c)] = xc;
+#pragma unroll
+        for (int q = CAP; q > 1; --q) xn[q] = xn[q - 1];
+        xn[1] = xc;
+      }
+    }
+    if (RING) {
+      __syncwarp();  // lane 0's x of rows c0..c1-1
+      store_rows<RING>(sx, gx, c0, c1, lane);
+    }
+  }
+}
+
+// The warp's slice of the block's shared memory at a run-time width
+__device__ __forceinline__ float* team_smem_rt(int rows, int w) {
+  extern __shared__ float smem[];
+  return smem + (threadIdx.x / kTeam) * rows * (2 * w + 2);
+}
+
+template <int CAP, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
+lu_factor_solve_wide_kernel(const float* __restrict__ band,
+                            const float* __restrict__ rhs, float* fband, float* x,
+                            int n, int B, int G, int rows, int w, float clamp) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  const int R = 2 * w + 1;
+  float* sb = team_smem_rt(rows, w);
+  float* sx = sb + rows * R;
+  const size_t off = (size_t)b * n * R;
+  float* gx = x + (size_t)b * n;
+  factor_rows_two_rows<CAP, true, RING>(sb, sx, band + off, rhs + (size_t)b * n,
+                                        fband + off, gx, n, w, clamp, lane);
+  backward_rows_rt<CAP, RING>(sb, sx, fband + off, gx, n, w, lane);
+  if (!RING) store_x(sx, gx, n, lane);
+}
+
+template <int CAP, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
+lu_solve_wide_kernel(const float* __restrict__ fband, const float* __restrict__ rhs,
+                     float* x, int n, int B, int G, int rows, int w) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  const int R = 2 * w + 1;
+  float* sb = team_smem_rt(rows, w);
+  float* sx = sb + rows * R;
+  const float* gf = fband + (size_t)b * n * R;
+  float* gx = x + (size_t)b * n;
+  forward_rows_two<RING>(sb, sx, gf, rhs + (size_t)b * n, gx, n, w, lane);
+  backward_rows_rt<CAP, RING>(sb, sx, gf, gx, n, w, lane);
+  if (!RING) store_x(sx, gx, n, lane);
+}
+
+template <int CAP, bool RING>
+__global__ void __launch_bounds__(kTeam * kMaxGroup, 1)
+lu_factor_wide_kernel(const float* __restrict__ band, float* __restrict__ fband,
+                      int n, int B, int G, int rows, int w, float clamp) {
+  int lane, b;
+  if (!team_of(G, B, lane, b)) return;
+  float* sb = team_smem_rt(rows, w);
+  const size_t off = (size_t)b * n * (2 * w + 1);
+  factor_rows_two_rows<CAP, false, RING>(sb, nullptr, band + off, nullptr, fband + off,
+                                         nullptr, n, w, clamp, lane);
+}
+
+// The capacity a launch above kLaneRowW runs at
+inline int wide_cap(int w) { return w <= 47 ? 47 : 63; }
+
 template <typename K>
 cudaError_t allow_smem(K kernel) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -613,6 +919,19 @@ cudaError_t allow_smem_w() {
       allow_smem(lu_factor_solve_kernel<W, false>), allow_smem(lu_factor_solve_kernel<W, true>),
       allow_smem(lu_solve_kernel<W, false>), allow_smem(lu_solve_kernel<W, true>),
       allow_smem(lu_factor_kernel<W, false>), allow_smem(lu_factor_kernel<W, true>)};
+  for (cudaError_t e : es) {
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <int CAP>
+cudaError_t allow_smem_wide() {
+  const cudaError_t es[] = {
+      allow_smem(lu_factor_solve_wide_kernel<CAP, false>),
+      allow_smem(lu_factor_solve_wide_kernel<CAP, true>),
+      allow_smem(lu_solve_wide_kernel<CAP, false>), allow_smem(lu_solve_wide_kernel<CAP, true>),
+      allow_smem(lu_factor_wide_kernel<CAP, false>), allow_smem(lu_factor_wide_kernel<CAP, true>)};
   for (cudaError_t e : es) {
     if (e != cudaSuccess) return e;
   }
@@ -639,6 +958,7 @@ bool launch_config(int n, int w, int B, int G, int rows, dim3& grid, dim3& block
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14)  \
   X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26)     \
   X(27) X(28) X(29) X(30) X(31)
+#define TC_FOR_EACH_CAP(X) X(47) X(63)
 
 extern "C" {
 
@@ -652,6 +972,10 @@ int tc_banded_lu_init() {
 #define X(WW) \
   if (e == cudaSuccess) e = allow_smem_w<WW>();
   TC_FOR_EACH_W(X)
+#undef X
+#define X(CC) \
+  if (e == cudaSuccess) e = allow_smem_wide<CC>();
+  TC_FOR_EACH_CAP(X)
 #undef X
   return e;
 }
@@ -667,6 +991,20 @@ int tc_banded_lu_factor_solve(int w, int ring, int G, int rows, const float* ban
   size_t smem;
   if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kLaneRowW) {
+    switch (wide_cap(w)) {
+#define X(CC)                                                                   \
+  case CC:                                                                      \
+    if (ring)                                                                   \
+      lu_factor_solve_wide_kernel<CC, true><<<grid, block, smem, s>>>(band, rhs, fband, x, n, B, G, rows, w, clamp); \
+    else                                                                        \
+      lu_factor_solve_wide_kernel<CC, false><<<grid, block, smem, s>>>(band, rhs, fband, x, n, B, G, rows, w, clamp); \
+    break;
+      TC_FOR_EACH_CAP(X)
+#undef X
+    }
+    return cudaGetLastError();
+  }
   switch (w) {
 #define X(WW)                                                                   \
   case WW:                                                                      \
@@ -691,6 +1029,20 @@ int tc_banded_lu_solve(int w, int ring, int G, int rows, const float* fband,
   size_t smem;
   if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kLaneRowW) {
+    switch (wide_cap(w)) {
+#define X(CC)                                                                   \
+  case CC:                                                                      \
+    if (ring)                                                                   \
+      lu_solve_wide_kernel<CC, true><<<grid, block, smem, s>>>(fband, rhs, x, n, B, G, rows, w); \
+    else                                                                        \
+      lu_solve_wide_kernel<CC, false><<<grid, block, smem, s>>>(fband, rhs, x, n, B, G, rows, w); \
+    break;
+      TC_FOR_EACH_CAP(X)
+#undef X
+    }
+    return cudaGetLastError();
+  }
   switch (w) {
 #define X(WW)                                                                   \
   case WW:                                                                      \
@@ -715,6 +1067,20 @@ int tc_banded_lu_factor(int w, int ring, int G, int rows, const float* band,
   size_t smem;
   if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kLaneRowW) {
+    switch (wide_cap(w)) {
+#define X(CC)                                                                   \
+  case CC:                                                                      \
+    if (ring)                                                                   \
+      lu_factor_wide_kernel<CC, true><<<grid, block, smem, s>>>(band, fband, n, B, G, rows, w, clamp); \
+    else                                                                        \
+      lu_factor_wide_kernel<CC, false><<<grid, block, smem, s>>>(band, fband, n, B, G, rows, w, clamp); \
+    break;
+      TC_FOR_EACH_CAP(X)
+#undef X
+    }
+    return cudaGetLastError();
+  }
   switch (w) {
 #define X(WW)                                                                   \
   case WW:                                                                      \

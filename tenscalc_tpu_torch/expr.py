@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numbers
 import operator
-from typing import Callable, Dict, FrozenSet, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -131,6 +131,13 @@ class Expr:
     def __getitem__(self, idx):
         return unary_op(lambda x: x[idx], self)
 
+    @property
+    def at(self):
+        """Indexed assignment in JAX's functional idiom:
+        ``x.at[I].set(y)``, ``.add(y)``, ``.multiply(y)`` return a new
+        expression (the value of ``x`` with entries ``I`` replaced)."""
+        return _AtHelper(self)
+
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
@@ -203,6 +210,46 @@ class Expr:
 
     def __hash__(self):
         return id(self)
+
+
+class _AtHelper:
+    """``expr.at[idx]`` accessor (see :attr:`Expr.at`)."""
+
+    def __init__(self, expr: Expr):
+        self._expr = expr
+
+    def __getitem__(self, idx):
+        return _AtIndexed(self._expr, idx)
+
+
+def _at_update(x: torch.Tensor, idx, v, how: str) -> torch.Tensor:
+    y = x.clone()
+    if how == "set":
+        y[idx] = v
+    elif how == "add":
+        y[idx] = y[idx] + v
+    else:
+        y[idx] = y[idx] * v
+    return y
+
+
+class _AtIndexed:
+    def __init__(self, expr: Expr, idx):
+        self._expr = expr
+        self._idx = idx
+
+    def _update(self, value, how: str) -> Expr:
+        idx = self._idx
+        return binary_op(lambda x, v: _at_update(x, idx, v, how), self._expr, value)
+
+    def set(self, value):
+        return self._update(value, "set")
+
+    def add(self, value):
+        return self._update(value, "add")
+
+    def multiply(self, value):
+        return self._update(value, "multiply")
 
 
 # Registry of declared variable shapes, used to infer expression shapes.
@@ -288,6 +335,16 @@ def Tones(shape=()) -> Expr:
         return torch.ones(shape, dtype=dt, device=dev)
 
     return Expr(fn, shape, frozenset(), "ones")
+
+
+def Teye(n, m=None) -> Expr:
+    m = n if m is None else m
+
+    def fn(env):
+        dt, dev = _env_like(env)
+        return torch.eye(n, m, dtype=dt, device=dev)
+
+    return Expr(fn, (n, m), frozenset(), "eye")
 
 
 def to_expr(x) -> Expr:
@@ -409,6 +466,75 @@ def concat(exprs: Sequence, axis: int = 0) -> Expr:
         lambda *xs: torch.cat([torch.atleast_1d(x) for x in xs], dim=axis),
         *exprs,
     )
+
+
+def vertcat(*exprs) -> Expr:
+    return concat(exprs, axis=0)
+
+
+def horzcat(*exprs) -> Expr:
+    return concat(exprs, axis=-1)
+
+
+def stack(exprs: Sequence, axis: int = 0) -> Expr:
+    return nary_op(lambda *xs: torch.stack(xs, dim=axis), *exprs)
+
+
+def substitute(expr: Expr, old: Union[Variable, Sequence[Variable]], new) -> Expr:
+    """Replace variable(s) by expression(s): evaluate ``new`` in the
+    outer environment and rebind the entries named by ``old``."""
+    if isinstance(old, Variable):
+        olds, news = [old], [to_expr(new)]
+    else:
+        olds = list(old)
+        news = [to_expr(n) for n in new]
+    if len(olds) != len(news):
+        raise ValueError("substitute: mismatched variable/value lists")
+    deps = (expr.deps - {o.name for o in olds}) | _deps(*news)
+
+    def fn(env, _e=expr, _olds=tuple(olds), _news=tuple(news)):
+        env2 = dict(env)
+        for o, n in zip(_olds, _news):
+            env2[o.name] = n(env)
+        return _e(env2)
+
+    return Expr(fn, expr.shape, deps)
+
+
+def gradient(f, x: Variable) -> Expr:
+    """Partial derivatives of ``f`` with respect to the variable ``x``:
+    shape ``f.shape + x.shape``, ``g[i..., j...] = d f[i...] / d x[j...]``.
+    Reverse mode (``torch.func.jacrev``) when ``f`` is no larger than
+    ``x``, else forward mode, as the JAX package chooses."""
+    f = to_expr(f)
+    if not isinstance(x, Variable):
+        raise TypeError("gradient: second argument must be a Variable")
+    deps = f.deps | {x.name}
+    mode = torch.func.jacrev if f.size <= x.size else torch.func.jacfwd
+
+    def fn(env, _f=f, _n=x.name, _mode=mode):
+        def g(xv):
+            env2 = dict(env)
+            env2[_n] = xv
+            return _f(env2)
+
+        out = _mode(g)(env[_n])
+        # a derivative that AD knows to be zero comes as a ZeroTensor,
+        # which numpy and in-place operations refuse: materialize it
+        return torch.zeros_like(out) if out._is_zerotensor() else out
+
+    return Expr(fn, f.shape + x.shape, deps, "gradient")
+
+
+def jacobian(f, x: Variable) -> Expr:
+    """Alias of :func:`gradient`."""
+    return gradient(f, x)
+
+
+def hessian(f, x: Variable, y: Variable = None) -> Expr:
+    """``gradient(gradient(f, x), y or x)``: shape ``f.shape + x.shape +
+    y.shape``."""
+    return gradient(gradient(f, x), x if y is None else y)
 
 
 class Constraint:

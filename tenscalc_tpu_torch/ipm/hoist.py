@@ -23,7 +23,14 @@ Four facts keep the analysis from rejecting every quadratic:
   one (``mul``, ``mv``, ``mm``, ... or a division of one), is zero
   whatever the other operand holds;
 * every other node's outputs are tainted when any input is (sound
-  over-approximation), so a false "depends" only costs speed.
+  over-approximation), so a false "depends" only costs speed: ``sqrt``,
+  ``floor``, ``sign``, a ``where`` on a comparison, ``searchsorted``, a
+  Cholesky factor are no exception.
+
+A function whose Python control flow reads a tensor's value (a loop
+until a residual is small) cannot be traced into one graph: ``make_fx``
+refuses to read the value.  Such a function is opaque and certifies
+nothing, as the JAX package's analysis treats a ``while_loop``.
 """
 
 from __future__ import annotations
@@ -92,6 +99,12 @@ def _is_zero(node: torch.fx.Node, zeros: set) -> bool:
     if name in _ZERO_ABSORBING:
         return any(n in zeros for n in node.all_input_nodes)
     return False
+
+
+def _data_dependent(err: Exception) -> bool:
+    """Whether ``make_fx`` refused a function for reading a traced
+    tensor's value (data-dependent control flow)."""
+    return isinstance(err, RuntimeError) and "_local_scalar_dense" in str(err)
 
 
 def _trace(fn: Callable, flat_args: Sequence[torch.Tensor]) -> torch.fx.Graph:
@@ -164,7 +177,12 @@ def output_independent_of(fn: Callable, n_tainted: int, *example_args,
     raises :class:`DerivativeDtypeError` when an output is traced in
     another dtype (``what`` names it)."""
     flat_call, flat = _flat_fn(fn, example_args)
-    graph = TaintGraph(flat_call, *flat)
+    try:
+        graph = TaintGraph(flat_call, *flat)
+    except RuntimeError as err:
+        if _data_dependent(err):
+            return False  # opaque: certifies nothing
+        raise
     bad = [t for t in graph.output_dtypes() if dtype is not None and t not in (None, dtype)]
     if bad:
         raise DerivativeDtypeError(
@@ -189,7 +207,12 @@ def param_value_deps(fn: Callable, penv_example, *args) -> set:
         return fn(dict(zip(keys, pvals)), *rest)
 
     flat_call, flat = _flat_fn(call, ([penv_example[k] for k in keys],) + args)
-    graph = TaintGraph(flat_call, *flat)
+    try:
+        graph = TaintGraph(flat_call, *flat)
+    except RuntimeError as err:
+        if _data_dependent(err):
+            return set(keys)  # opaque: any parameter may reach the outputs
+        raise
     return {key for i, key in enumerate(keys) if any(graph.tainted_outputs([i]))}
 
 

@@ -49,7 +49,12 @@ from .dense import hdot
 from .fleet_banded import NVCC_FLAGS, _clamp_pivot, _device_kind, _stream
 from .structure import BandedPlan
 
-MAX_W = 31  # widths the kernels are instantiated for (csrc/banded_lu.cu)
+MAX_W = 63  # widths the kernels take (csrc/banded_lu.cu)
+LANE_ROW_W = 31  # a width a template up to here; above, two rows a lane
+# the template widths of csrc/banded_lu.cu: each width to LANE_ROW_W, and
+# the capacities above (w a run-time argument up to the next capacity)
+WIDE_CAPS = (47, 63)
+KERNEL_WIDTHS = (*range(1, LANE_ROW_W + 1), *WIDE_CAPS)
 # compile-time parameters of csrc/banded_lu.cu (nvcc defines)
 MAX_GROUP = 4  # instances a CTA, a warp each
 CHUNK_ROWS = 32  # rows a copy into shared memory moves
@@ -127,8 +132,8 @@ def _load() -> ctypes.CDLL:
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        # 186 kernels (31 widths, two routes, three entry points): their
-        # optimization runs on four threads
+        # 198 kernels (31 widths and two capacities above, two routes,
+        # three entry points): their optimization runs on four threads
         path = LIB_PATH = build_shared_library(
             "banded_lu.cu", nvcc, [*NVCC_FLAGS, "-split-compile=4", *DEFINES])
         _lib = bind(ctypes.CDLL(str(path)))

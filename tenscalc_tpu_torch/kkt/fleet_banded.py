@@ -16,13 +16,14 @@ arithmetic step for step (the same clamp, ``r = row / d``, the same
 trailing update order, sequential sums), so on the card the two agree to
 the last bit; they are the kernels' oracle, not a yardstick of speed.
 
-The kernels read and write the JAX layout itself, instance-contiguous:
-a lane runs one instance's elimination, a CTA is one warp serving
-``group`` instances staged in shared memory.  :func:`launch_plan` picks
-the group (the fewest that fill the card in one wave) and the route by
-size: the whole band and x in shared memory, or, above the block's
-shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
-n.
+The kernels read and write the JAX layout itself, instance-contiguous.
+Up to ``NARROW_W`` a lane runs one instance's elimination, a CTA is one
+warp serving ``group`` instances staged in shared memory; above, up to
+``MAX_W``, a warp runs one instance (a lane a row of the window) and a
+CTA is that warp (group 1).  :func:`launch_plan` picks the group (the
+fewest that fill the card in one wave) and the route by size: the whole
+band and x in shared memory, or, above the block's shared-memory cap, a
+ring of ``RING_ROWS`` rows of each, which takes any n.
 
 Rows past n: the JAX entry points pad with identity rows; the kernels
 and the plain versions mask instead.  Band entries that reach past row n
@@ -43,7 +44,13 @@ from .._build import build_shared_library, find_tool
 from .dense import hdot
 from .structure import BandedPlan
 
-MAX_W = 16  # widths the kernels are instantiated for (csrc/fleet_banded.cu)
+MAX_W = 63  # widths the kernels take (csrc/fleet_banded.cu)
+NARROW_W = 16  # a lane an instance up to here, a warp an instance above
+# the template widths of csrc/fleet_banded.cu: each narrow width, and the
+# capacities the wide route's kernels are instantiated at (w a run-time
+# argument up to the next capacity)
+WIDE_CAPS = (23, 31, 47, 63)
+KERNEL_WIDTHS = (*range(1, NARROW_W + 1), *WIDE_CAPS)
 # compile-time parameters of csrc/fleet_banded.cu (nvcc defines)
 MAX_GROUP = 32  # instances a CTA, a lane of its one warp each
 CHUNK_ROWS = 64  # rows a copy into shared memory moves
@@ -101,15 +108,16 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132,
                 group: Optional[int] = None) -> LaunchPlan:
     """Route and group of a launch.  The group is the fewest instances a
     CTA that lets B instances run in one wave at SM_SLOTS CTAs an SM
-    (``sms`` SMs), at most MAX_GROUP; ``group`` overrides it (a
-    measurement's choice).  The group's bands are staged whole while they
-    fit the block cap together, else they go through the ring, whose size
-    does not depend on n."""
-    want = (max(1, min(MAX_GROUP, -(-B // (sms * SM_SLOTS)))) if group is None
-            else group)
+    (``sms`` SMs), at most MAX_GROUP, and 1 above NARROW_W (a warp an
+    instance); ``group`` overrides it (a measurement's choice).  The
+    group's bands are staged whole while they fit the block cap together,
+    else they go through the ring, whose size does not depend on n."""
+    wide = w > NARROW_W
+    want = (1 if wide else max(1, min(MAX_GROUP, -(-B // (sms * SM_SLOTS))))
+            if group is None else group)
     ring = want * instance_bytes(n, w, False) > SMEM_MAX
     per = instance_bytes(n, w, ring)
-    most = min(MAX_GROUP, SMEM_MAX // per)
+    most = 1 if wide else min(MAX_GROUP, SMEM_MAX // per)
     if group is None:
         group = min(want, most)
     elif not 1 <= group <= most:
@@ -124,7 +132,9 @@ def _load() -> ctypes.CDLL:
     global _lib, LIB_PATH
     if _lib is None:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
-        flags = [*NVCC_FLAGS, f"-DTC_FB_CHUNK_ROWS={CHUNK_ROWS}",
+        # the wide route's kernels take most of the build: their
+        # optimization runs on four threads
+        flags = [*NVCC_FLAGS, "-split-compile=4", f"-DTC_FB_CHUNK_ROWS={CHUNK_ROWS}",
                  f"-DTC_FB_RING_ROWS={RING_ROWS}", f"-DTC_FB_MAX_GROUP={MAX_GROUP}",
                  f"-DTC_FB_SMEM_MAX={SMEM_MAX}"]
         path = LIB_PATH = build_shared_library("fleet_banded.cu", nvcc, flags)
@@ -302,26 +312,41 @@ def _clamp_pivot(d: torch.Tensor, clamp: float) -> torch.Tensor:
     return d
 
 
+def _trailing_index(w: int, device) -> tuple:
+    """Step c's trailing update as one operation: entry (i, k) of rows
+    c+1..c+w (i = 1..w, k = 0..w-1) takes r_{i+k}, at index i-1+k of r
+    padded with w zeros, where i + k <= w (the mask)."""
+    i = torch.arange(1, w + 1, device=device)[:, None]
+    k = torch.arange(w, device=device)[None, :]
+    return i - 1 + k, i + k <= w
+
+
 def fleet_banded_factor_plain(band: torch.Tensor, w: int,
                               clamp: float = 0.0) -> torch.Tensor:
-    """Plain version of K3: factored band (B, n, w+1)."""
+    """Plain version of K3: factored band (B, n, w+1).  Each trailing
+    entry M[c+i+k, c+i] (i + k <= w) is updated once a step, minus the
+    product (d r_i) r_{i+k} rounded first; the rest subtract a zero,
+    which leaves every float as it is."""
     B, n, R = band.shape
     work = torch.cat([band, band.new_zeros(B, w, R)], dim=1)
     fband = torch.empty_like(band)
+    idx, mask = _trailing_index(w, band.device)
     for c in range(n):
         d = _clamp_pivot(work[:, c, 0], clamp)
         r = work[:, c, 1:] / d[:, None]
         fband[:, c, 0] = d
         fband[:, c, 1:] = r
-        for i in range(1, R):
-            di = d * r[:, i - 1]
-            work[:, c + i, : R - i] -= di[:, None] * r[:, i - 1:]
+        di = d[:, None] * r  # d r_i at i - 1
+        rr = torch.cat([r, torch.zeros_like(r)], dim=1)[:, idx]
+        upd = torch.where(mask, di[:, :, None] * rr, torch.zeros_like(rr))
+        work[:, c + 1: c + R, :w] -= upd
     return fband
 
 
 def fleet_banded_solve_plain(fband: torch.Tensor, b: torch.Tensor,
                              w: int) -> torch.Tensor:
-    """Plain version of K2: x with (L diag(d) L^T) x = b."""
+    """Plain version of K2: x with (L diag(d) L^T) x = b; the backward
+    sweep's sum over i = 1..w sequential, from zero."""
     B, n, R = fband.shape
     x = torch.cat([b, b.new_zeros(B, w)], dim=1)
     for c in range(n):
@@ -330,9 +355,10 @@ def fleet_banded_solve_plain(fband: torch.Tensor, b: torch.Tensor,
         x[:, c] = y / fband[:, c, 0]
     x[:, n:] = 0.0
     for c in range(n - 1, -1, -1):
+        prods = fband[:, c, 1:] * x[:, c + 1: c + R]
         acc = torch.zeros_like(x[:, c])
-        for i in range(1, R):
-            acc = acc + fband[:, c, i] * x[:, c + i]
+        for i in range(w):
+            acc = acc + prods[:, i]
         x[:, c] = x[:, c] - acc
     return x[:, :n].contiguous()
 
@@ -393,12 +419,16 @@ def fleet_banded_solve_batched(fband: torch.Tensor, b: torch.Tensor,
 def _sym_equilibration(band: torch.Tensor, n: int, w: int) -> torch.Tensor:
     """Symmetric row-inf-norm equilibration scale s = rsqrt(max_j |W_rj|)
     from lower-band storage (row r holds band[r, :] and band[r-i, i]).
-    band (B, n, w+1) -> s (B, n)."""
+    band (B, n, w+1) -> s (B, n), correctly rounded: float32 rsqrt
+    differs from it in the last bit for about a quarter of the inputs,
+    and differently on the CPU and the card, while the scaled band feeds
+    an unpivoted elimination whose clamped pivots can turn a last-bit
+    change into another IPM path (the quadcopter's KKT)."""
     absb = band.abs()
     rn = absb.amax(dim=2)
     for i in range(1, w + 1):
         rn = torch.maximum(rn, Fn.pad(absb[:, :, i], (i, 0))[:, :n])
-    return torch.rsqrt(torch.clamp(rn, min=1e-30))
+    return (1.0 / torch.sqrt(torch.clamp(rn, min=1e-30).double())).float()
 
 
 def _scaled_band(band: torch.Tensor, n: int, w: int):

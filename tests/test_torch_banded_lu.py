@@ -141,8 +141,8 @@ def test_wrappers_reject_bad_inputs():
         tlu.fleet_banded_lu_factor_batched(tb.double(), 2)
     with pytest.raises(ValueError):
         tlu.fleet_banded_lu_solve_batched(tb, tr[:, :5], 2)
-    with pytest.raises(ValueError, match="outside 1..31"):
-        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 65), 32)
+    with pytest.raises(ValueError, match="outside 1..63"):
+        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 129), 64)
 
 
 # (n, w, B) -> (ring route, instances a CTA): the MPC-MHE fleet fills the
@@ -181,7 +181,7 @@ def test_launch_plan_staged_bytes_and_cap():
     assert tlu.instance_bytes(290, 10, False) == 4 * (300 * 21 + 300)
     assert tlu.instance_bytes(290, 10, True) == 4 * (tlu.RING_ROWS * 21 + tlu.RING_ROWS)
     assert tlu.SMEM_MAX == 232_448
-    for w in (*range(1, 13), 13, 16, 22, tlu.MAX_W):
+    for w in (*range(1, 13), 13, 16, 22, 31, 32, 48, tlu.MAX_W):
         # the largest n staged whole at this width
         n_max = tlu.SMEM_MAX // (4 * (2 * w + 2)) - w
         assert not tlu.launch_plan(n_max, w, 8).ring

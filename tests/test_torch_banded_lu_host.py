@@ -27,13 +27,14 @@ SOURCE = Path(tlu.__file__).resolve().parents[1] / "csrc" / "banded_lu.cu"
 CLAMP = 1e-4  # the adapters' pivot clamp
 # the widths of the old lane map's range and its ends (1, 12, 15), the
 # MPC-MHE fleet's (10), past the old cap (13), the first of the one-lane
-# map (16), the pursuit game's (22) and the cap (31)
-WIDTHS = (1, 10, 12, 13, 15, 16, 22, 31)
+# map (16), the pursuit game's (22), its last (31), and two rows a lane
+# (32, 48, 63: both capacities and the cap)
+WIDTHS = (1, 10, 12, 13, 15, 16, 22, 31, 32, 48, 63)
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    only = " ".join(f"X({w})" for w in WIDTHS)
+    only = " ".join(f"X({w})" for w in WIDTHS if w <= 31)
     return tlu.bind(build_host_library(
         tmp_path_factory.mktemp("banded_lu_host"), SOURCE, tlu.DEFINES,
         [(r"#define TC_FOR_EACH_W\(X\).*?X\(31\)\n", f"#define TC_FOR_EACH_W(X) {only}\n"),
@@ -109,7 +110,7 @@ def test_kernels_on_the_host_equal_plain_versions(lib, w, B, n, G, ring):
 
 
 def test_host_launches_refuse_widths_past_the_cap(lib):
-    """The C entry points check the width before launching: w = 32 is
+    """The C entry points check the width before launching: w = 64 is
     past every route, as w = 0 is."""
     band, rhs = _band(1, 40, 4, seed=1)
     f, x = torch.empty_like(band), torch.empty_like(rhs)
@@ -117,4 +118,4 @@ def test_host_launches_refuse_widths_past_the_cap(lib):
         assert lib.tc_banded_lu_factor_solve(w, 0, 1, 40 + max(w, 1), band.data_ptr(),
                                              rhs.data_ptr(), f.data_ptr(), x.data_ptr(),
                                              40, 1, CLAMP, None) != 0
-    assert lib.tc_banded_lu_max_w() == tlu.MAX_W == 31
+    assert lib.tc_banded_lu_max_w() == tlu.MAX_W == 63

@@ -102,8 +102,8 @@ def test_wrappers_reject_bad_inputs():
         tfb.fleet_banded_factor_batched(tband.double(), 2)
     with pytest.raises(ValueError):
         tfb.fleet_banded_solve_batched(tband, trhs[:, :5], 2)
-    with pytest.raises(ValueError):
-        tfb.fleet_banded_factor_batched(torch.zeros(2, 20, 18), 17)
+    with pytest.raises(ValueError, match="outside 1..63"):
+        tfb.fleet_banded_factor_batched(torch.zeros(2, 20, 65), tfb.MAX_W + 1)
 
 
 def test_cpu_entry_points_take_the_adapters_layout():
@@ -144,7 +144,7 @@ def test_launches_reject_bad_operands_before_cuda(monkeypatch):
         (ValueError, r"\(3, 20, 3\)", lambda: tfb.launch_factor(band, f[:, :, :2], w, CLAMP)),
         (ValueError, r"\(3, 20\)",
          lambda: tfb.launch_factor_solve(band, rhs[:, :5], f, x, w, CLAMP)),
-        (ValueError, "w=17", lambda: tfb.launch_factor(band, f, 17, CLAMP)),
+        (ValueError, "w=64", lambda: tfb.launch_factor(band, f, tfb.MAX_W + 1, CLAMP)),
         (TypeError, "float32", lambda: tfb.launch_factor(band.double(), f, w, CLAMP)),
         (ValueError, "CUDA device", lambda: tfb.launch_factor_solve(band, rhs, f, x, w, CLAMP)),
     ]
@@ -170,6 +170,12 @@ PLANS = [
     ((3000, 16, 1024), (True, 2)),
     ((12000, 4, 64), (True, 1)),
     ((12000, 4, 1024), (True, 2)),
+    # the wide route: a warp an instance, group 1, at the quadcopter's
+    # band and past it
+    ((286, 30, 512), (False, 1)),
+    ((286, 63, 1024), (False, 1)),
+    ((2000, 30, 512), (True, 1)),
+    ((5000, 17, 8), (True, 1)),
 ]
 
 
@@ -187,7 +193,8 @@ def test_launch_plan_route_and_group(shape, expected):
 def test_launch_plan_route_at_the_cap_edge():
     """The route changes exactly where a group's staged instances (n + w + 1
     rows of w + 1 floats and as many entries of x, made odd) pass the
-    block cap together: one instance at B = 8, two at B = 1024."""
+    block cap together: one instance at B = 8, two at B = 1024 on the
+    narrow route (one at any B on the wide route)."""
     assert tfb.SMEM_MAX == 232_448
     assert tfb.instance_bytes(149, 4, False) == 4 * (154 * 6 + 1)
     assert tfb.instance_bytes(149, 16, False) == 4 * (166 * 18 + 1)
@@ -197,7 +204,7 @@ def test_launch_plan_route_at_the_cap_edge():
         assert tfb.instance_bytes(n_max + 1, w, False) > tfb.SMEM_MAX
         assert not tfb.launch_plan(n_max, w, 8).ring
         assert tfb.launch_plan(n_max + 1, w, 8).ring
-        n2 = (tfb.SMEM_MAX // 8 - 1) // (w + 2) - w - 1
+        n2 = n_max if w > tfb.NARROW_W else (tfb.SMEM_MAX // 8 - 1) // (w + 2) - w - 1
         assert not tfb.launch_plan(n2, w, 1024).ring
         assert tfb.launch_plan(n2 + 1, w, 1024).ring
 
@@ -221,14 +228,14 @@ def test_launch_plan_fills_the_card_in_one_wave():
     assert tfb.launch_plan(149, 4, 1024, group=8).group == 8
 
 
-@pytest.mark.parametrize("w", range(1, 17))
+@pytest.mark.parametrize("w", range(1, tfb.MAX_W + 1))
 def test_launch_plan_fits_the_cap_at_every_width(w):
     """Rows and bytes a CTA stay under the 232,448-byte opt-in at every
     width, staged or on the ring, for any fleet size."""
     for n in (1, 2, w, 149, 3000, 9000, 20_000):
         for B in (1, 7, 132, 1000, 1024, 5000):
             plan = tfb.launch_plan(n, w, B)
-            assert 1 <= plan.group <= tfb.MAX_GROUP
+            assert 1 <= plan.group <= (tfb.MAX_GROUP if w <= tfb.NARROW_W else 1)
             assert plan.rows * (w + 2) <= plan.stride
             assert plan.smem == plan.group * plan.stride * 4 <= tfb.SMEM_MAX
             assert plan.ring or plan.rows == n + w + 1
@@ -241,7 +248,8 @@ def test_launch_plan_ring_takes_any_n():
     for w in (1, 4, 9, tfb.MAX_W):
         plans = [tfb.launch_plan(n, w, 1024) for n in (20_000, 60_000, 100_000, 10**7)]
         assert all(p.ring and p.rows == tfb.RING_ROWS for p in plans)
-        assert {p.smem for p in plans} == {4 * (tfb.RING_ROWS * (w + 2) | 1) * 2}
+        group = 2 if w <= tfb.NARROW_W else 1
+        assert {p.smem for p in plans} == {4 * (tfb.RING_ROWS * (w + 2) | 1) * group}
 
 
 class _JaxOp:
@@ -340,3 +348,15 @@ def test_equilibration_and_adapter_match_jax():
     # the solve is accurate, not just equal: refined residual
     res = torch.from_numpy(rhs) - top.matvec(x_t)
     assert res.abs().max().item() < 1e-4
+
+
+def test_launch_plan_wide_route_takes_one_instance_a_cta():
+    """Above NARROW_W a warp serves one instance: the group is 1 at any
+    fleet size, and a larger group is refused."""
+    assert tfb.NARROW_W == 16 and tfb.MAX_W == 63
+    for w in (17, 30, 31, 32, 63):
+        for B in (1, 512, 40_000):
+            assert tfb.launch_plan(286, w, B).group == 1
+        with pytest.raises(ValueError, match="group 2"):
+            tfb.launch_plan(286, w, 512, group=2)
+    assert tfb.launch_plan(286, 16, 40_000).group > 1

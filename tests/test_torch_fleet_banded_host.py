@@ -210,6 +210,14 @@ def _band(B, n, w, seed, extreme):
     return band, rhs
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, signed zeros included, NaN where the other has
+    NaN (extreme magnitudes overflow some wide instances to NaN)."""
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
 # (B, n, w, group, ring route, extreme magnitudes): the flagship width,
 # the nonlinear unicycle fleet's band (n = 439, w = 9: staged, an
 # instance a CTA), ragged groups, one row, the widest band, the group
@@ -231,12 +239,32 @@ CASES = [
     (3, 577, 16, 2, True, False),
     (2, 512, 1, 2, True, False),
 ]
+# the wide route (a warp an instance, group 1) at the widths past the
+# narrow route's 16: the quadcopter's (30), each capacity's edges (23/24,
+# 31/32, 47/48, 63), staged and on the ring, with extreme magnitudes
+CASES += [
+    (2, 70, w, 1, False, w % 2 == 0) for w in (17, 24, 30, 31, 32, 48, 63)
+] + [
+    (2, 300, w, 1, True, w % 2 == 1) for w in (17, 24, 30, 31, 32, 48, 63)
+] + [
+    (3, 286, 30, 1, False, False),  # the quadcopter's band
+    (2, 1, 40, 1, False, False),
+    (2, 45, 40, 1, False, False),   # n shorter than a window past the first
+]
 assert all(n > tfb.RING_ROWS for _, n, _, _, ring, _ in CASES if ring)
 
 
 @pytest.mark.parametrize("B,n,w,G,ring,extreme", CASES)
 def test_kernels_on_the_host_equal_plain_versions(lib, B, n, w, G, ring, extreme):
     band, rhs = _band(B, n, w, seed=B + n + w, extreme=extreme)
+    if w > tfb.NARROW_W:
+        # a zero pivot no earlier step touches, and a tiny one: the clamp
+        # decides both
+        p = min(n - 1, w + 2)
+        band[:, p, 0] = 0.0
+        for c in range(max(0, p - w), p):
+            band[:, c, p - c] = 0.0
+        band[:, n // 2, 0] = -1e-12
     rows = tfb.instance_rows(n, w, ring)
     plan = (w, int(ring), G, rows, tfb.instance_floats(n, w, ring))
     pf, px = tfb.fleet_banded_factor_solve_plain(band, rhs, w, CLAMP)
@@ -249,9 +277,11 @@ def test_kernels_on_the_host_equal_plain_versions(lib, B, n, w, G, ring, extreme
                                      n, B, None) == 0
     assert lib.tc_fleet_banded_factor(*plan, band.data_ptr(), f3.data_ptr(), n, B, CLAMP,
                                       None) == 0
-    assert torch.equal(f, pf) and torch.equal(x, px)
-    assert torch.equal(x2, px2)
-    assert torch.equal(f3, pf)
+    assert _same_bits(f, pf) and _same_bits(x, px)
+    assert _same_bits(x2, px2)
+    assert _same_bits(f3, pf)
+    if w > tfb.NARROW_W:
+        assert (pf[..., 0].abs() == CLAMP).any()
 
 
 def test_host_launches_refuse_a_plan_the_kernels_do_not_take(lib):
@@ -263,7 +293,8 @@ def test_host_launches_refuse_a_plan_the_kernels_do_not_take(lib):
         (4, 0, 2, 37, good[4]),           # fewer rows than n + w + 1
         (4, 1, 2, 64, good[4]),           # a ring that is not RING_ROWS
         (4, 0, 33, good[3], good[4]),     # a group past a warp
-        (17, 0, 2, good[3], good[4]),     # a width past MAX_W
+        (17, 0, 2, good[3], good[4]),     # a group on the wide route
+        (tfb.MAX_W + 1, 0, 1, good[3], good[4]),  # a width past MAX_W
         (4, 0, 2, good[3], good[3]),      # a slice smaller than its rows
     ]
     for plan in bad:
