@@ -10,7 +10,8 @@ adds another commit's banded_lu.cu with the same C entries (for instance
 the git-ignored ``_scratch/``), built with its own width list.  Every
 source is launched with the binding's launch plan on the MPC-MHE fleet's
 band (B = 1024, n = 290, w = 10), the pursuit fleet's (B = 512, n = 585,
-w = 22) and a w = 31 fleet (B = 1000, n = 77), held bitwise against the
+w = 22), a w = 31 fleet (B = 1000, n = 77) and two rows a lane at w = 48
+(B = 512, n = 286), held bitwise against the
 plain versions, and timed by device time alone (CUDA events after the
 card spins, median of 40 calls, as chip_smoke.py's ``device_ms``), the
 sources in the order design, variants, parent, then in reverse.  Prints
@@ -36,10 +37,12 @@ import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "tenscalc_tpu_torch" / "csrc" / "banded_lu.cu"
-SHAPES = [(1024, 290, 10), (512, 585, 22), (1000, 77, 31)]
-WIDTHS = sorted({w for _, _, w in SHAPES})
+# the lane maps' shapes, and two rows a lane (a capacity kernel, w a
+# run-time argument) at w = 48
+SHAPES = [(1024, 290, 10), (512, 585, 22), (1000, 77, 31), (512, 286, 48)]
+WIDTHS = sorted({w for _, _, w in SHAPES if w <= 31})  # the per-width templates
 CLAMP = 1e-4
-PARENT_MAX_W = 31  # the widest width the parent's source instantiates
+PARENT_MAX_W = 63  # the widest width the parent's source takes
 
 # name -> edits of the source; each edit (old, new) must apply
 VARIANTS = {
@@ -128,7 +131,7 @@ def main() -> int:
     if args.parent is not None:
         # the parent's kernels may stop short of the design's widths
         texts["parent"] = variant_source(args.parent.read_text(), [],
-                                         [w for w in WIDTHS if w <= PARENT_MAX_W])
+                                         [w for w in WIDTHS if w <= min(PARENT_MAX_W, 31)])
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(texts)) as pool:
         built = dict(zip(texts, pool.map(lambda kv: build(kv[0], kv[1], lu, Path(tmp)),
                                          texts.items())))

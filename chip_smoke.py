@@ -83,9 +83,9 @@ Phases:
      Gu at every iterate) through solve_many, with its build time and
      plan, every instance at status 0, the iterations, the launch counts
      read around it (K1, K2 and no K3: the inertia reads K1's factor) and
-     the warm solve's wall time; eight instances again on the CPU (status
+     the warm solve's wall time; four instances again on the CPU (status
      equal, u within 2e-3, objective within 1e-3); a profile of one fleet
-     solve ([profile7]: device time, idle share, host and device ms a
+     solve's first 20 iterations ([profile7]: device time, idle share, host and device ms a
      lockstep iteration).  [kernels] also holds K1-K3 at its band
      (512, 439, 10) and times them beside their bounds and the library
      calls on the band expanded to dense;
@@ -95,7 +95,7 @@ Phases:
      densely at every iterate, band mode None) through solve_many, with
      its build time and plan, every instance at status 0, the iterations,
      the launch counts read around it (K9 and K10 alone) and the warm
-     solve's wall time; eight instances again on the CPU (the card's
+     solve's wall time; four instances again on the CPU (the card's
      answers pass the exit tests there, status equal, iterations within
      one, uFuture within 2e-3 and J within 1e-3 where the CPU's own
      solves from the init and from it moved by 1e-6 agree); a profile of
@@ -103,7 +103,32 @@ Phases:
      band (512, 585, 22) and times them beside their bounds and the
      library calls on the band expanded to dense, and holds them at
      w = 13, 15, 16 and 31 (B = 1000) and on the ring route at w = 13,
-     16, 22 and 31.
+     16, 22 and 31;
+ 16. the block route (w > 63), [block-kernels]: K1-K3 and K9-K11 at
+     (B, n, w) = (256, 1000, 95), (64, 1200, 127), (16, 2000, 255) and
+     (2, 4000, 999), and K9-K11 at the game's band (256, 3000, 381),
+     bitwise against their plain versions, timed beside their bounds, the
+     plain versions and the library calls on the band expanded to dense;
+     [deconv]: a fleet of 256 box-bounded
+     deconvolutions through a 96-tap filter (N = 1000, nK = 1000, RCM
+     w = 95, the 'hoisted' band) through K1/K2 on the block route, eight
+     instances again on the CPU in a spawned process beside the later
+     phases ([deconv-cross-check]: status equal, iterations within one,
+     x within 2e-3, J within 1e-3), a profile ([profile10]);
+     [deconv-game]: the same problem as a two-player game (nK = 3000,
+     RCM w = 381) through K9/K10 on the block route, held to [deconv]'s
+     minimizer (x within 2e-3, J within 1e-3; the instance and entry
+     where they part most printed with each solve's final mu), a profile
+     of its first iterations ([profile11]); [api]: sensitivity() of a flagship
+     instance in float64 on the card against the CPU's (1e-8 relative),
+     solve_result() against solve(); [tutorials]: the seven tutorials
+     at their defaults on the card against the port on the CPU (within
+     1e-8 relative), the CPU side in a spawned process.
+
+Every cross-check's CPU side (phases 4, 8, 11, 12, 14, 15, the
+quadcopter's, [deconv]'s and [tutorials]') runs in a spawned process of
+its own (start_cpu_side) beside the card's later phases, and is held
+once the card's phases are done.
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  It exits non-zero,
@@ -112,13 +137,17 @@ without that line, when CUDA is missing or any check fails.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -127,6 +156,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FLEET_B, FLEET_T = 1024, 30
+# the instances each cross-check solves again on the CPU
+FLEET_CHECKS = np.arange(0, FLEET_B, FLEET_B // 8)
 # same operations in the same order without contraction into fused
 # multiply-adds: the kernels are expected to match the plain versions
 # to the last bit; the check allows a few roundings of the result scale
@@ -150,6 +181,7 @@ REPLACES = {
 NAMES = {"factor_solve": "K1 fleet_banded_factor_solve",
          "solve": "K2 fleet_banded_solve", "factor": "K3 fleet_banded_factor"}
 MMHE_B, MMHE_T, MMHE_L = 1024, 12, 16
+MMHE_CHECKS = np.arange(0, MMHE_B, MMHE_B // 64)
 LU_SHAPE = (MMHE_B, 290, 10)  # the MPC-MHE fleet's stacked KKT band
 LU_SOURCE = "tenscalc_tpu_torch/csrc/banded_lu.cu"
 LU_REPLACES = {
@@ -176,6 +208,7 @@ DENSE_NAMES = {"fleet_factor": "K4 fleet_ldl_factor_batched",
 # (B, n): the sls fleet, a ragged fleet, the unbanded width, the fleet
 # cap; the single-instance route at sls, mid and cap widths, and batched
 SLS_B, SLS_N, WIDE_N = 1024, 32, 80
+SLS_CHECKS = np.arange(0, SLS_B, SLS_B // 8)
 FLEET_SHAPES = [(SLS_B, SLS_N), (1000, 13), (SLS_B, WIDE_N), (256, 160)]
 SINGLE_SHAPES = [(1, SLS_N), (1, 45), (1, 150), (1, 200), (1, 450), (1, 840), (1, 896),
                  (64, SLS_N), (8, 450)]
@@ -194,6 +227,7 @@ SLSEQ_ATOL = 1e-4
 # variables, their bounds; saddle KKT (nK = 480, RCM w = 6), HessD
 # (m = 240, w = 1)
 MM_B, MM_N = 1024, 80
+MM_CHECKS = np.arange(0, MM_B, MM_B // 8)
 MM_SADDLE, MM_HESSD = (MM_B, 480, 6), (MM_B, 240, 1)
 # the nonlinear unicycle fleet (bench.py:669-741): B = 512, T = 40; its
 # condensed KKT (nU = 239, nG = 200: nK = 439, RCM w = 9) assembled into
@@ -212,7 +246,16 @@ QUAD_B, QUAD_T = 512, 20
 QUAD_BAND = (QUAD_B, 286, 30)
 # [profile9] traces the fleet's first iterations (the whole solve's
 # lockstep iterations look alike, and the trace of ~300 takes a minute)
-PROFILE9_ITERS = 60
+PROFILE9_ITERS = 10
+# [profile7] traces the unicycle fleet's first iterations (every instance
+# is still iterating there; the whole solve's trace took ~45 s)
+PROFILE7_ITERS = 20
+# instances of the unicycle's, the pursuit's and the quadcopter's CPU
+# cross-checks (eight before the deconvolution phases joined the run,
+# whose time limit they share)
+NONCONVEX_CHECKS = 4
+UNI_CHECKS = np.arange(0, UNI_B, UNI_B // NONCONVEX_CHECKS)
+PUR_CHECKS = np.arange(0, PUR_B, PUR_B // NONCONVEX_CHECKS)
 # K1-K3's wide route (a warp an instance) at the quadcopter's fleet and n
 # and at each capacity's edges, staged; the same widths on the ring; K9-K11
 # at two rows a lane, staged and on the ring
@@ -222,6 +265,31 @@ FB_WIDE_SHAPES = ([(QUAD_B, 286, w) for w in FB_WIDE_WIDTHS]
 LU_WIDE_WIDTHS = (32, 48, 63)
 LU_WIDE_SHAPES = ([(512, 286, w) for w in LU_WIDE_WIDTHS]
                   + [(16, 1200, w) for w in LU_WIDE_WIDTHS])
+
+
+# the deconvolution fleet and its game: a signal of N = 1000 samples
+# through a 96-tap FIR filter (H^T H: half-bandwidth 95), B = 256, float32;
+# the game's stacked KKT (nK = 3 N) has RCM w = 381
+DC_N, DC_K, DC_B = 1000, 96, 256
+GAME_BAND = (DC_B, 3 * DC_N, 381)
+# the block route (a CTA an instance, in place in device memory) of
+# K1-K3 and K9-K11: the deconvolution fleet's band (B = 256, n = 1000,
+# w = 95), wider bands, and the planner's n/4 limit; K9-K11 also at the
+# game's band
+BLOCK_SHAPES = [(256, 1000, 95), (64, 1200, 127), (16, 2000, 255), (2, 4000, 999)]
+BLOCK_CASES = ([(fam, shape) for shape in BLOCK_SHAPES for fam in ("fb", "lu")]
+               + [("lu", GAME_BAND)])
+DC_MAX_ITER = 100
+# [profile11] traces the game's first iterations (a lockstep iteration of
+# the game takes ~0.8 s)
+PROFILE11_ITERS = 5
+# the flagship instance whose sensitivity [api] takes in float64
+API_T = 30
+# the tutorials at the JAX package's defaults (tutorial_fim's S = 100000,
+# tutorial_nn's 400 steps), held to the port on the CPU as the CPU tests
+# hold the port to the JAX package
+TUTORIAL_RTOL = 1e-8
+TUTORIALS = ("lq", "lq_extended", "fim", "fim_extended", "nn", "nn1", "nn_extended")
 
 
 def log(msg: str) -> None:
@@ -634,22 +702,24 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
 
 
-def ptxas_report(mod, w: int, routes=("",)) -> str:
+def ptxas_report(mod, w, routes=("",)) -> str:
     """Registers a thread of a kernel library's three kernels at width
     ``w`` (on the wide routes, the capacity ``w`` is instantiated at) on
     each route (the kernels' second template argument: ``routes`` =
-    ("staged", "ring")), from the ptxas report (-Xptxas -v) in its build
-    log; fails on a spill at any width and route."""
+    ("staged", "ring")), or with ``w`` None of its three block-route
+    kernels (not templates), from the ptxas report (-Xptxas -v) in its
+    build log; fails on a spill in any kernel."""
     import re
 
     from tenscalc_tpu_torch._build import build_log
 
     regs, spills, name = {}, {}, None
     for line in build_log(mod.LIB_PATH).read_text().splitlines():
-        m = re.search(r"Compiling entry function '.*\d((?:lu_)?(?:factor_solve|solve|factor)"
-                      r"(?:_wide)?_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
-        if m:
-            name = (m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)])
+        m = re.search(r"Compiling entry function '.*?\d((?:lu_)?(?:factor_solve|solve|factor)"
+                      r"(?:_wide|_block)?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+        if "Compiling entry function" in line:
+            name = ((m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)]) if m and m.group(2)
+                    else (m.group(1), None, "") if m else None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills[name] = int(m.group(1)) + int(m.group(2))
@@ -657,8 +727,9 @@ def ptxas_report(mod, w: int, routes=("",)) -> str:
         if m and name:
             regs[name] = int(m.group(1))
     src = Path(mod.LIB_PATH).name
-    check(len(regs) == 3 * len(mod.KERNEL_WIDTHS) * len(routes),
-          f"{src}: ptxas reported {len(regs)} kernels")
+    n_block = sum(kw is None for _, kw, _ in regs)
+    check(len(regs) - n_block == 3 * len(mod.KERNEL_WIDTHS) * len(routes) and n_block == 3,
+          f"{src}: ptxas reported {len(regs)} kernels, {n_block} on the block route")
     check(not any(spills.values()), f"{src}: register spills: {spills}")
     return ", ".join(f"{k}{' ' + rt if rt else ''} {r}"
                      for (k, kw, rt), r in sorted(regs.items()) if kw == w)
@@ -1153,6 +1224,405 @@ def phase_wide_lu_kernels(lu, recs):
         del band, rhs, f9, x9, x10, f11, pf, px, px10, fo, xo
 
 
+def phase_block_kernels(fb, lu):
+    """K1-K3 and K9-K11 on the block route (w > 63: a CTA an instance) at
+    BLOCK_CASES: bitwise against the plain versions, timed (device time
+    alone and with the host's launch overhead) beside their bounds, the
+    plain versions and the library calls on the band expanded to dense
+    (K1/K9: lu_factor_ex(pivot=False) + lu_solve; K2/K10: lu_solve on the
+    kernel's factor; K3/K11: lu_factor_ex).  Returns each kernel's rows
+    (the game's band's marked with its path)."""
+    rows = {k: [] for k in (*REPLACES, *LU_REPLACES)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for mod, src in ((fb, SOURCE), (lu, LU_SOURCE)):
+        log(f"[block-kernels] ptxas, {src}: no spills; registers a thread: "
+            f"{ptxas_report(mod, None, ('staged', 'ring'))}")
+    for fam, (B, n, w) in BLOCK_CASES:
+        mod, clamp = (fb, 1e-7) if fam == "fb" else (lu, 1e-4)
+        check(mod.route(w) == "block", f"{fam} route at w={w}: {mod.route(w)}")
+        plan = mod.launch_plan(n, w, B, sms)
+        if fam == "fb":
+            band, rhs = test_band(B, n, w, seed=n + w)
+            fs, so, fa = (fb.fleet_banded_factor_solve_batched, fb.fleet_banded_solve_batched,
+                          fb.fleet_banded_factor_batched)
+            pfs, pso, pfa = (fb.fleet_banded_factor_solve_plain, fb.fleet_banded_solve_plain,
+                             fb.fleet_banded_factor_plain)
+            names, keys, bnd = NAMES, tuple(REPLACES), bound
+        else:
+            band, rhs = test_lu_band(B, n, w, seed=n + w)
+            fs, so, fa = (lu.fleet_banded_lu_factor_solve_batched,
+                          lu.fleet_banded_lu_solve_batched, lu.fleet_banded_lu_factor_batched)
+            pfs, pso, pfa = (lu.fleet_banded_lu_factor_solve_plain,
+                             lu.fleet_banded_lu_solve_plain, lu.fleet_banded_lu_factor_plain)
+            names, keys, bnd = LU_NAMES, tuple(LU_REPLACES), lu_bound
+        f1, x1 = fs(band, rhs, w, clamp)
+        x2 = so(f1, rhs, w)
+        f3 = fa(band, w, clamp)
+        t0 = time.perf_counter()
+        pf, px = pfs(band, rhs, w, clamp)
+        torch.cuda.synchronize()
+        plain_fs = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        px2 = pso(pf, rhs, w)
+        torch.cuda.synchronize()
+        plain_so = 1e3 * (time.perf_counter() - t0)
+        check(same_bits(f1, pf) and same_bits(x1, px) and same_bits(x2, px2)
+              and same_bits(f3, pf), f"{names[keys[0]]} family at B={B} n={n} w={w}: "
+              "not bitwise on the block route")
+        errs = {keys[0]: max((f1 - pf).abs().max().item(), (x1 - px).abs().max().item()),
+                keys[1]: (x2 - px2).abs().max().item(), keys[2]: (f3 - pf).abs().max().item()}
+        check(all(e == 0.0 for e in errs.values()), f"block route errors {errs}")
+        check(bool((f3[..., 0].abs() > clamp).all()), "no clamp fired in the factor")
+        log(f"[block-kernels] B={B} n={n} w={w} {'K1-K3' if fam == 'fb' else 'K9-K11'}: "
+            f"block route, a CTA of {fb.block_threads(w)} threads an instance, {B} CTAs, "
+            f"{plan.smem} bytes of shared memory a CTA; bitwise equal to the plain versions "
+            f"(max abs err 0.0)")
+        scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+        if fam == "fb":
+            Ad = ldl_dense(band)
+            Ad = Ad + Ad.tril(-1).mT
+            LU, want3 = ldl_as_lu(f1), ldl_dense(f3)
+        else:
+            # K11's factor is K9's, bit for bit (held above)
+            Ad, LU = lu_dense(band), lu_dense(f1)
+            want3 = LU
+        piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+        lreps = 3 if B * n * n <= 400_000_000 else 1
+        libs = {
+            keys[0]: library_pair(Ad, rhs, x1, scale, lreps)[0],
+            keys[1]: library_check(
+                lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0], x2, scale,
+                f"lu_solve against {names[keys[1]]} at B={B} n={n} w={w}", lreps)[0],
+            keys[2]: library_lu_factor(Ad, want3, scale,
+                                       f"lu_factor_ex against {names[keys[2]]} at "
+                                       f"B={B} n={n} w={w}", lower=fam == "fb",
+                                       reps=lreps)[0],
+        }
+        del Ad, LU, want3
+        fo, xo = torch.empty_like(band), torch.empty_like(rhs)
+        launch = {keys[0]: lambda: mod.launch_factor_solve(band, rhs, fo, xo, w, clamp),
+                  keys[1]: lambda: mod.launch_solve(f1, rhs, xo, w),
+                  keys[2]: lambda: mod.launch_factor(band, fo, w, clamp)}
+        plain_ms = {keys[0]: plain_fs, keys[1]: plain_so, keys[2]: None}
+        kreps = 5 if n * w * w <= 3e7 else 2
+        for k, kern in launch.items():
+            bms, by = bnd(k, B, n, w)
+            dev = cuda_ms(kern, kreps, spin=True)
+            ms = cuda_ms(kern, kreps)
+            plain_s = (f"{plain_ms[k]:.1f} ms (one call, host clock)"
+                       if plain_ms[k] is not None else "not timed")
+            log(f"[block-kernels] {names[k]} B={B} n={n} w={w}: max_abs_err {errs[k]:.1e}  "
+                f"kernel {ms:.4f} ms (device {dev:.4f} ms)  plain {plain_s}  library "
+                f"{libs[k]:.4f} ms  bound {bms:.5f} ms ({by}), {dev / bms:.1f}x")
+            rows[k].append({"B": B, "n": n, "w": w, "ms": ms, "device_ms": dev,
+                            "plain_ms": plain_ms[k], "bound_ms": bms, "bound_by": by,
+                            "library_ms": libs[k], "max_abs_err": errs[k],
+                            **({"path": "deconv_game"} if (B, n, w) == GAME_BAND else {})})
+        del band, rhs, f1, x1, x2, f3, pf, px, px2, fo, xo
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tutorial_outputs(name: str, device: str) -> list:
+    """The arrays a tutorial's ``main`` returns at its defaults, flat, on
+    ``device`` ('cuda' or 'cpu')."""
+    import importlib
+
+    mod = importlib.import_module(f"tenscalc_tpu_torch.examples.tutorial_{name}")
+    kw = {"verbose": False} if name not in ("lq", "fim") else {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mod.main(device=device, **kw)
+    if isinstance(out, dict):
+        return [np.asarray(out[k]) for k in sorted(out)]
+    if isinstance(out, tuple) and isinstance(out[0], dict):  # tutorial_nn
+        return [np.asarray(out[1])] + [np.asarray(out[0][k]) for k in sorted(out[0])]
+    if isinstance(out, tuple):
+        return [np.asarray(o) for o in out]
+    return [np.asarray(out)]
+
+
+def cpu_side(fn, args):
+    """A CPU side's process: ``fn(*args)`` on one thread, below the card's
+    phases in priority (they are host-bound); returns its result and
+    seconds."""
+    os.nice(10)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def start_cpu_side(fn, *args):
+    """``fn(*args)``, the CPU side of a cross-check (the port on the CPU:
+    the plain versions of the kernels), in a spawned process of its own
+    beside the card's later phases; returns what collect_cpu_side takes."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(cpu_side, (fn, args))
+
+
+def collect_cpu_side(side):
+    """A CPU side's (result, seconds), its process ended."""
+    pool, job = side
+    try:
+        return job.get(timeout=1000)
+    finally:
+        pool.close()
+        pool.join()
+
+
+def numpy_result(res, idx=None):
+    """A fleet's result (its instances ``idx``, or all) as numpy arrays on
+    the host, field by field."""
+    if idx is not None:
+        res = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
+    return SimpleNamespace(**{k: v.cpu().numpy() for k, v in res._asdict().items()})
+
+
+def torch_result(res):
+    """numpy_result's fields as CPU tensors again."""
+    return SimpleNamespace(**{k: torch.as_tensor(v) for k, v in vars(res).items()})
+
+
+def deconv_cpu(params, inits):
+    """[deconv-cross-check]'s CPU side: those instances of the fleet."""
+    import tenscalc_tpu_torch as ttc
+
+    cpu = build_deconv(ttc, DC_N, DC_K, "bdc_", dtype="float32", device="cpu")
+    return numpy_result(cpu.solve_many(params, inits=inits, mu0=1.0, max_iter=DC_MAX_ITER))
+
+
+def tutorials_cpu():
+    """[tutorials]' CPU side: the seven tutorials at their defaults, each
+    timed."""
+    import tenscalc_tpu_torch as ttc
+
+    res = {}
+    for name in TUTORIALS:
+        ttc.clear_variables()
+        t0 = time.perf_counter()
+        res[name] = (tutorial_outputs(name, "cpu"), time.perf_counter() - t0)
+    return res
+
+
+def phase_deconv(ttc, fb, others):
+    """The deconvolution fleet (B = 256, N = 1000, a 96-tap filter, f32,
+    'auto', mu0 = 1, max_iter = 100) on the card: the 'hoisted' band mode
+    through K1/K2 on the block route (w = 95), no K3 and no other kernel."""
+    ns = "bdc_"
+    t0 = time.perf_counter()
+    solver = build_deconv(ttc, DC_N, DC_K, ns, dtype="float32")
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    check(solver.device.type == "cuda", "the default device is the card")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode == "hoisted"
+          and (plan.n, plan.bandwidth) == (DC_N, DC_K - 1) and fb.route(plan.bandwidth) == "block",
+          f"fleet banded, hoisted band (1000, w=95) on the block route: "
+          f"{solver.kkt_backend_resolved} {solver._solve_raw.band_mode} {plan.n} {plan.bandwidth}")
+    log(f"[deconv] solver built in {build:.1f} s: nU {solver.nU} nF {solver.nF}; nK {plan.n}, "
+        f"RCM w {plan.bandwidth} ({plan.n_blocks} blocks); band mode "
+        f"{solver._solve_raw.band_mode}; K1/K2 route {fb.route(plan.bandwidth)}, "
+        f"{fb.block_threads(plan.bandwidth)} threads an instance")
+    h, y, xtrue = deconv_inputs(DC_N, DC_K, DC_B, seed=0)
+    params = {ns + "h": h, ns + "y": y}
+    inits = {ns + "x": np.full((DC_B, DC_N), 0.5)}
+
+    def run(max_iter=DC_MAX_ITER):
+        res = solver.solve_many(params, inits=inits, mu0=1.0, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)  # warm-up (first-call allocations)
+    reset_counts(fb, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the deconvolution path: {[m.LAUNCHES for m in others]}")
+    check(tuple(res.u.shape) == (DC_B, DC_N) and bool(torch.isfinite(res.u).all()),
+          "finite x of the expected shape")
+    check(bool((res.u >= 0).all() and (res.u <= 1).all()), "x inside its box")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0 and launches["factor"] == 0,
+          f"K1 and K2 on the deconvolution path, no K3: {launches}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    err = np.abs(res.u.cpu().numpy() - xtrue)
+    log(f"[deconv] fleet B={DC_B} N={DC_N} K={DC_K} f32: status counts "
+        f"{dict(zip(*np.unique(status, return_counts=True)))}; iters max {iters.max()} mean "
+        f"{iters.mean():.2f}; warm solve wall {wall:.4f} s, {DC_B / wall:.1f} solves/s, host "
+        f"{1e3 * wall / lockstep:.1f} ms a lockstep iteration ({card_line()}); launches "
+        f"{launches}; per lockstep iteration K1 {launches['factor_solve'] / lockstep:.2f} K2 "
+        f"{launches['solve'] / lockstep:.2f}; |x - spike train| mean {err.mean():.4f} max "
+        f"{err.max():.4f}")
+    return solver, params, inits, res, launches, wall, lockstep
+
+
+def deconv_cross_check_inputs(params, inits, res):
+    """Eight instances for the CPU cross-check: those off status 0 first
+    (up to four), then every 32nd."""
+    off = np.flatnonzero(res.status.cpu().numpy() != 0)[:4]
+    idx = np.unique(np.concatenate([off, np.arange(0, DC_B, DC_B // 8)]))[:8]
+    sub_p = {k: (v[idx] if np.ndim(v) == 2 else v) for k, v in params.items()}
+    return idx, sub_p, {k: v[idx] for k, v in inits.items()}
+
+
+def finish_deconv_cross_check(idx, out, res):
+    """The card's instances against the port on the CPU: status equal,
+    iterations within one, x within U_ATOL, the objective within F_RTOL."""
+    r, seconds = out
+    st, it = res.status.cpu().numpy()[idx], res.iters.cpu().numpy()[idx]
+    x, f = res.u.cpu().numpy()[idx], res.f.cpu().numpy()[idx]
+    dx = np.abs(x - r.u).max(axis=1)
+    df = np.abs(f - r.f) / np.abs(r.f)
+    check(np.array_equal(st, r.status), f"deconv status card {st} cpu {r.status}")
+    check(bool((np.abs(it - r.iters) <= 1).all()),
+          f"deconv iterations card {it} cpu {r.iters}")
+    check(bool((dx <= U_ATOL).all() and (df <= F_RTOL).all()),
+          f"deconv x within {U_ATOL} ({dx.max():.3e}), J within {F_RTOL} ({df.max():.3e})")
+    log(f"[deconv-cross-check] instances {idx.tolist()} on the CPU in {seconds:.1f} s beside "
+        f"the other phases: status card {st.tolist()} cpu {r.status.tolist()}; iterations "
+        f"card {it.tolist()} cpu {r.iters.tolist()}; max |dx| {dx.max():.3e}, J max rel "
+        f"diff {df.max():.3e}")
+
+
+def phase_deconv_game(ttc, lu, others, fleet_res):
+    """The deconvolution as a two-player game (each player owns 500 of the
+    1000 samples, both minimize the same objective) on the card, B = 256,
+    f32: the stacked KKT's band through K9/K10 on the block route.  A
+    potential game: its x is held within U_ATOL of [deconv]'s minimizer
+    where both are at status 0, its objective within F_RTOL."""
+    ns = "bdg_"
+    t0 = time.perf_counter()
+    solver = build_deconv_game(ttc, DC_N, DC_K, ns, dtype="float32")
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    w = plan.bandwidth
+    check(solver.kkt_backend_resolved == "fleet_banded_lu"
+          and solver._solve_raw.band_mode == "hoisted" and (plan.n, w) == GAME_BAND[1:]
+          and w > lu.MAX_W and lu.route(w) == "block",
+          f"the game on the fleet banded LU, hoisted band past w=63: "
+          f"{solver.kkt_backend_resolved} {solver._solve_raw.band_mode} {plan.n} {w}")
+    log(f"[deconv-game] solver built in {build:.1f} s: nK {plan.n}, RCM w {w} "
+        f"({plan.n_blocks} blocks); band mode {solver._solve_raw.band_mode}; K9/K10 route "
+        f"{lu.route(w)}, {lu.launch_plan(plan.n, w, DC_B).smem} bytes of shared memory a CTA")
+    h, y, _ = deconv_inputs(DC_N, DC_K, DC_B, seed=0)
+    params = {ns + "h": h, ns + "y": y}
+    half = DC_N // 2
+    inits = {ns + "x1": np.full((DC_B, half), 0.5), ns + "x2": np.full((DC_B, DC_N - half), 0.5)}
+
+    def run(max_iter=DC_MAX_ITER):
+        res = solver.solve_many(params, inits=inits, mu0=1.0, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)
+    reset_counts(lu, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(lu.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K1-K8 on the game's path: {[m.LAUNCHES for m in others]}")
+    check(launches["lu_factor_solve"] > 0 and launches["lu_solve"] > 0
+          and launches["lu_factor"] == 0, f"K9 and K10 on the game's path: {launches}")
+    x = res.u[:, :DC_N]
+    check(bool(torch.isfinite(x).all()), "finite x")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    both = (status == 0) & (fleet_res.status.cpu().numpy() == 0)
+    dx = (x - fleet_res.u).abs().max(dim=1).values.cpu().numpy()
+    df = (np.abs(res.f.cpu().numpy() - fleet_res.f.cpu().numpy())
+          / np.abs(fleet_res.f.cpu().numpy()))
+    check(both.any() and bool((dx[both] <= U_ATOL).all() and (df[both] <= F_RTOL).all()),
+          f"the game's x within {U_ATOL} of the fleet's ({dx[both].max(initial=0):.3e}), J "
+          f"within {F_RTOL} ({df[both].max(initial=0):.3e})")
+    # where the two part most: an entry at its bound, whose small
+    # multiplier g leaves each interior-point answer near mu / g
+    i = int(np.where(both, dx, -1.0).argmax())
+    j = int((x[i] - fleet_res.u[i]).abs().argmax())
+    lockstep = int(iters.max()) - 1
+    log(f"[deconv-game] fleet B={DC_B} f32: status counts "
+        f"{dict(zip(*np.unique(status, return_counts=True)))}; iters max {iters.max()} mean "
+        f"{iters.mean():.2f}; warm solve wall {wall:.4f} s, {DC_B / wall:.1f} solves/s, host "
+        f"{1e3 * wall / lockstep:.1f} ms a lockstep iteration; launches {launches}; per "
+        f"lockstep iteration K9 {launches['lu_factor_solve'] / lockstep:.2f} K10 "
+        f"{launches['lu_solve'] / lockstep:.2f}; against [deconv] on the {int(both.sum())} "
+        f"instances at status 0 in both: max |dx| {dx[both].max():.3e}, J max rel diff "
+        f"{df[both].max():.3e}; the max at instance {i} entry {j}: x game "
+        f"{float(x[i, j]):.4e} fleet {float(fleet_res.u[i, j]):.4e}, final mu game "
+        f"{float(res.mu[i]):.3e} fleet {float(fleet_res.mu[i]):.3e}; game iterations "
+        f"{int(iters[i])}, the slowest instance {int(iters.argmax())}")
+    return solver, params, inits, launches, wall, lockstep
+
+
+def phase_api(mpc):
+    """sensitivity() on one flagship instance (T = 30) in float64 on the
+    card, against the same solution's sensitivity on the CPU (1e-8
+    relative to each block's largest entry); solve_result()'s fields
+    against solve()'s."""
+    ns = "bapi_"
+    card = mpc.build_solver(T=API_T, namespace=ns, dtype="float64")
+    cpu = mpc.build_solver(T=API_T, namespace=ns, dtype="float64", device="cpu")
+    params, inits = mpc.fleet_inputs(API_T, 1, ns, seed=0)
+    params = {k: (v[0] if k in (ns + "ref", ns + "xinit") else v) for k, v in params.items()}
+    init = {k: v[0] for k, v in inits.items()}
+    sol = card.solve(params, init=init, mu0=1e-3, max_iter=100)
+    check(sol.ok, f"the flagship instance in float64: {sol.describe()}")
+    raw = card.solve_result(params, init=init, mu0=1e-3, max_iter=100)
+    check(raw.u.device.type == "cuda" and raw.u.dim() == 1, "solve_result: the card's tensors")
+    check(int(raw.status) == sol.status and int(raw.iters) == sol.iters,
+          f"solve_result status/iterations {int(raw.status)}/{int(raw.iters)} against solve's "
+          f"{sol.status}/{sol.iters}")
+    du = float((raw.u.cpu() - torch.as_tensor(card.packing.pack(
+        {k: torch.as_tensor(v) for k, v in sol.variables.items()}))).abs().max())
+    check(du <= 1e-12 and abs(float(raw.f) - sol.objective) <= 1e-12 * abs(sol.objective),
+          f"solve_result's u and objective equal solve's (|du| {du})")
+    t0 = time.perf_counter()
+    sens = card.sensitivity(sol, params)
+    t_card = time.perf_counter() - t0
+    ref = cpu.sensitivity(sol, params)
+    worst, n_blocks = 0.0, 0
+    for v, blocks in ref.items():
+        for p, r in blocks.items():
+            scale = max(np.abs(r).max(), 1e-300)
+            worst = max(worst, np.abs(sens[v][p] - r).max() / scale)
+            n_blocks += 1
+    check(worst <= 1e-8, f"sensitivity on the card against the CPU: {worst:.3e} relative")
+    log(f"[api] flagship T={API_T} float64: status 0, {sol.iters} iterations; solve_result "
+        f"equal to solve (|du| {du:.1e}); sensitivity of {len(ref)} variables to "
+        f"{len(params)} parameters ({n_blocks} blocks) on the card in {t_card:.2f} s, max "
+        f"difference from the CPU's {worst:.3e} relative")
+
+
+def phase_tutorials(ttc):
+    """The seven tutorials at their defaults on the card, each timed."""
+    outs = {}
+    for name in TUTORIALS:
+        ttc.clear_variables()
+        t0 = time.perf_counter()
+        outs[name] = tutorial_outputs(name, "cuda")
+        torch.cuda.synchronize()
+        outs[name] = (outs[name], time.perf_counter() - t0)
+    return outs
+
+
+def finish_tutorials(card, out):
+    """The card's tutorials against the port's on the CPU, every output
+    within TUTORIAL_RTOL relative to its largest entry."""
+    cpu, seconds = out
+    parts = []
+    for name in TUTORIALS:
+        (c, tc_), (r, tr) = card[name], cpu[name]
+        check(len(c) == len(r), f"tutorial_{name}: {len(c)} outputs against {len(r)}")
+        err = max(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300) for a, b in zip(c, r))
+        check(err <= TUTORIAL_RTOL, f"tutorial_{name}: card against CPU {err:.3e} relative")
+        parts.append(f"{name} {tc_:.2f} s (CPU {tr:.2f} s, max rel diff {err:.1e})")
+    log(f"[tutorials] at their defaults on the card, against the port on the CPU (run in "
+        f"{seconds:.1f} s beside the other phases): " + "; ".join(parts))
+
+
 def phase_kernels_groups(fb, B, n, w, band, rhs, f1, pf, px, px2, clamp):
     """K1-K3 at each group of FB_GROUPS: bitwise against the plain
     versions, and their device times alone."""
@@ -1260,21 +1730,30 @@ def phase_slice(mpc, fb, lu):
     return solver, params, inits, res, launches, entry_launches
 
 
-def phase_cross_check(mpc, params, inits, res):
+def flagship_cpu(params, inits):
+    """[cross-check]'s CPU side: FLEET_CHECKS of the flagship fleet."""
+    from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
+
     ns = "fleet_"
-    idx = np.arange(0, FLEET_B, FLEET_B // 8)
     cpu = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32", device="cpu")
-    sub_p = {k: (v[idx] if k in (ns + "ref", ns + "xinit") else v)
-             for k, v in params.items()}
-    sub_i = {k: v[idx] for k, v in inits.items()}
-    r = cpu.solve_many(sub_p, inits=sub_i, mu0=1e-3, max_iter=100)
+    return numpy_result(cpu.solve_many(
+        {k: (v[FLEET_CHECKS] if k in (ns + "ref", ns + "xinit") else v)
+         for k, v in params.items()},
+        inits={k: v[FLEET_CHECKS] for k, v in inits.items()}, mu0=1e-3, max_iter=100))
+
+
+def phase_cross_check(out, res):
+    """Eight of the flagship fleet's instances against the port on the
+    CPU: status equal, u within U_ATOL."""
+    r, _ = out
+    idx = FLEET_CHECKS
     st_gpu = res.status.cpu().numpy()[idx]
-    du = np.abs(r.u.numpy() - res.u.cpu().numpy()[idx]).max()
-    check((r.status.numpy() == st_gpu).all(), "status equal on card and CPU")
+    du = np.abs(r.u - res.u.cpu().numpy()[idx]).max()
+    check((r.status == st_gpu).all(), "status equal on card and CPU")
     check(du <= U_ATOL, f"u within {U_ATOL} (max diff {du:.3e})")
     log(f"[cross-check] 8 instances on the CPU: status equal, max |du| "
         f"{du:.3e}, iters card {res.iters.cpu().numpy()[idx].tolist()} "
-        f"cpu {r.iters.numpy().tolist()}")
+        f"cpu {r.iters.tolist()}")
 
 
 def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
@@ -1378,29 +1857,37 @@ def phase_mpcmhe(mm, fb, lu):
     return solver, params, res, launches, entry_launches
 
 
-def phase_mpcmhe_cross_check(mm, params, res):
+def mpcmhe_cpu(params, card):
+    """[cross-check2]'s CPU side: MMHE_CHECKS of the MPC-MHE fleet solved
+    again, and the exit tests' metrics of the card's answers ``card``."""
+    from tenscalc_tpu_torch.examples import mpcmhe_dcmotor as mm
+
+    ns = "mmhe_"
+    per = (ns + "uPast", ns + "yPast", ns + "ref")
+    cpu = mm.build_solver(T=MMHE_T, L=MMHE_L, ns=ns, dtype="float32", device="cpu")
+    sub_p = {k: (v[MMHE_CHECKS] if k in per else v) for k, v in params.items()}
+    r = cpu.solve_many(sub_p, mu0=1e-3, max_iter=100)
+    m = cpu.exit_metrics(sub_p, torch_result(card))
+    return numpy_result(r), {k: v.numpy() for k, v in m.items()}
+
+
+def phase_mpcmhe_cross_check(out, card, opts):
     """64 of the card's MPC-MHE instances solved again on the CPU.
 
     Status 0 stands for the exit tests (stationarity, equality and gap
     within their tolerances), and that is what is held: both sides at
-    status 0 within one iteration of each other, and the card's answers,
-    evaluated again on the CPU from their final (z, nu, lam), pass the
-    exit tests.  uFuture is printed, not held: float32 solves of this
-    game that pass the gap test one update apart differ by a few 1e-3 in
-    uFuture, as much as an answer one update short of passing it."""
-    ns = "mmhe_"
-    per = (ns + "uPast", ns + "yPast", ns + "ref")
-    idx = np.arange(0, MMHE_B, MMHE_B // 64)
-    cpu = mm.build_solver(T=MMHE_T, L=MMHE_L, ns=ns, dtype="float32", device="cpu")
-    opts = cpu.opts
-    sub_p = {k: (v[idx] if k in per else v) for k, v in params.items()}
-    r = cpu.solve_many(sub_p, mu0=1e-3, max_iter=100)
-    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    m = {k: v.numpy() for k, v in cpu.exit_metrics(sub_p, card).items()}
-    st_gpu, st_cpu = card.status.cpu().numpy(), r.status.numpy()
-    it_gpu, it_cpu = card.iters.cpu().numpy(), r.iters.numpy()
-    du = np.abs(r.u.numpy()[:, :MMHE_T] - card.u.cpu().numpy()[:, :MMHE_T]).max(axis=1)
-    f_gpu, f_cpu = card.f.cpu().numpy(), r.f.numpy()
+    status 0 within one iteration of each other, and the card's answers
+    ``card`` (numpy_result's), evaluated again on the CPU from their final
+    (z, nu, lam), pass the exit tests (``opts``: the solver's).  uFuture
+    is printed, not held: float32 solves of this game that pass the gap
+    test one update apart differ by a few 1e-3 in uFuture, as much as an
+    answer one update short of passing it."""
+    (r, m), _ = out
+    idx = MMHE_CHECKS
+    st_gpu, st_cpu = card.status, r.status
+    it_gpu, it_cpu = card.iters, r.iters
+    du = np.abs(r.u[:, :MMHE_T] - card.u[:, :MMHE_T]).max(axis=1)
+    f_gpu, f_cpu = card.f, r.f
     rel_df = np.abs(f_gpu - f_cpu) / np.abs(f_cpu)
     same = it_gpu == it_cpu
     check((st_gpu == 0).all() and (st_cpu == 0).all(), "status 0 on card and CPU")
@@ -1515,20 +2002,26 @@ def phase_sls_fleet(label, sls, dl, others, ns, B, n, seed, **opts):
     return solver, data, res, launches
 
 
-def phase_sls_cross_check(sls, data, res):
-    """Eight of the sls fleet's instances solved again by the port on the
-    CPU (plain versions of K4/K5)."""
+def sls_cpu(sub):
+    """[sls-fleet-cross-check]'s CPU side: SLS_CHECKS of the sls fleet
+    (``sub``: their data)."""
+    from tenscalc_tpu_torch.examples import sls
+
     ns = "slsf_"
-    idx = np.arange(0, SLS_B, SLS_B // 8)
     cpu = sls.build_constrained(ns=ns, dtype="float32", device="cpu")
-    sub = {k: v[idx] for k, v in data.items()}
-    r = cpu.solve_many(sls_params(ns, sub), inits={ns + "x": sub["x0"]}, mu0=1.0,
-                       max_iter=60)
-    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
-    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
-    dx = np.abs(r.u.numpy() - card.u.cpu().numpy()).max()
-    dJ = (np.abs(r.f.numpy() - card.f.cpu().numpy()) / np.abs(r.f.numpy())).max()
+    return numpy_result(cpu.solve_many(sls_params(ns, sub), inits={ns + "x": sub["x0"]},
+                                       mu0=1.0, max_iter=60))
+
+
+def phase_sls_cross_check(out, res):
+    """Eight of the sls fleet's instances against the port on the CPU
+    (plain versions of K4/K5)."""
+    r, _ = out
+    card = numpy_result(res, SLS_CHECKS)
+    st_c, st_g = r.status, card.status
+    it_c, it_g = r.iters, card.iters
+    dx = np.abs(r.u - card.u).max()
+    dJ = (np.abs(r.f - card.f) / np.abs(r.f)).max()
     check((st_c == 0).all() and (st_g == 0).all(), "status 0 on card and CPU")
     check((np.abs(it_c - it_g) <= 1).all(), "iterations within one")
     check(dJ <= J_RTOL, f"J within {J_RTOL} relative (max {dJ:.3e})")
@@ -1587,6 +2080,63 @@ def build_minmax(ttc, ns: str, device=None):
         minConstraints=[u >= -2.0, u <= 2.0], maxConstraints=[d >= -2.0, d <= 2.0],
         parameters=[p], dtype="float32", device=device,
     )
+
+
+def deconv_residual(tc, x, h, y, N: int, K: int):
+    """h * x - y for a full convolution, sum_k h_k x_{j-k} for
+    j = 0..N+K-2: x zero-padded by K - 1 on both sides and gathered into
+    its (K, N + K - 1) matrix of shifts by one index, then h times it.
+    The gather keeps the Hessian's pattern the band of H^T H
+    (half-bandwidth K - 1) and the solver's hoisting certificates
+    structural: no derivative reads x."""
+    xp = tc.expr.vertcat(tc.Tzeros((K - 1,)), x, tc.Tzeros((K - 1,)))
+    shifts = (K - 1 - np.arange(K))[:, None] + np.arange(N + K - 1)[None, :]
+    return h @ xp[shifts] - y
+
+
+def build_deconv(tc, N: int, K: int, ns: str, **options):
+    """Non-negative, box-bounded deconvolution through a known K-tap FIR
+    filter h: minimize 1/2 ||h * x - y||^2 s.t. 0 <= x <= 1, x in R^N,
+    h (K,) and y (N + K - 1,) parameters, the tc.optimize defaults
+    (condensed Newton matrix).  ``tc`` is the port (or, in the tests,
+    the JAX package); ``options`` go to its ``optimize``."""
+    h = tc.parameter(ns + "h", (K,))
+    y = tc.parameter(ns + "y", (N + K - 1,))
+    x = tc.variable(ns + "x", (N,))
+    J = 0.5 * tc.norm2(deconv_residual(tc, x, h, y, N, K))
+    return tc.optimize(objective=J, optimizationVariables=[x], constraints=[x >= 0, x <= 1],
+                       parameters=[h, y], outputExpressions={"J": J, "x": x}, **options)
+
+
+def build_deconv_game(tc, N: int, K: int, ns: str, **options):
+    """The deconvolution as a two-player game: player 1 owns x_1..x_{N/2},
+    player 2 the rest, both minimize the same 1/2 ||h * x - y||^2 under
+    their own box.  A potential game: its equilibrium is
+    :func:`build_deconv`'s minimizer."""
+    h = tc.parameter(ns + "h", (K,))
+    y = tc.parameter(ns + "y", (N + K - 1,))
+    x1 = tc.variable(ns + "x1", (N // 2,))
+    x2 = tc.variable(ns + "x2", (N - N // 2,))
+    x = tc.expr.vertcat(x1, x2)
+    J = 0.5 * tc.norm2(deconv_residual(tc, x, h, y, N, K))
+    return tc.equilibrium(
+        P1objective=J, P2objective=J, P1optimizationVariables=[x1],
+        P2optimizationVariables=[x2], P1constraints=[x1 >= 0, x1 <= 1],
+        P2constraints=[x2 >= 0, x2 <= 1], parameters=[h, y],
+        outputExpressions={"J": J, "x": x}, **options)
+
+
+def deconv_inputs(N: int, K: int, B: int, seed: int = 0):
+    """A fleet's data: the filter h_k = exp(-k/20) normalized to sum 1
+    (shared; H^T H has condition ~1e3), and per instance a sparse spike
+    train x (3% of the samples, amplitudes 0.3..1) convolved with h plus
+    N(0, 0.01^2) noise: y (B, N + K - 1); and x (B, N) itself."""
+    rng = np.random.default_rng(seed)
+    h = np.exp(-np.arange(K) / 20.0)
+    h /= h.sum()
+    x = np.where(rng.random((B, N)) < 0.03, rng.uniform(0.3, 1.0, (B, N)), 0.0)
+    y = np.stack([np.convolve(xi, h) for xi in x]) + 0.01 * rng.standard_normal((B, N + K - 1))
+    return h, y, x
 
 
 def minmax_inputs(ns: str, B: int):
@@ -1650,19 +2200,25 @@ def phase_minmax(ttc, fb, others):
     return solver, params, inits, res, launches
 
 
-def phase_minmax_cross_check(ttc, params, inits, res):
-    """Eight of the min-max fleet's instances solved again by the port on
-    the CPU (plain versions of K1-K3)."""
-    ns = "bmm_"
-    idx = np.arange(0, MM_B, MM_B // 8)
-    cpu = build_minmax(ttc, ns, device="cpu")
-    r = cpu.solve_many({k: v[idx] for k, v in params.items()},
-                       inits={k: v[idx] for k, v in inits.items()}, mu0=1.0, max_iter=60)
-    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
-    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
-    du = np.abs(r.u.numpy()[:, :MM_N] - card.u.cpu().numpy()[:, :MM_N]).max()
-    df = (np.abs(r.f.numpy() - card.f.cpu().numpy()) / np.abs(r.f.numpy())).max()
+def minmax_cpu(params, inits):
+    """[minmax-cross-check]'s CPU side: MM_CHECKS of the min-max fleet."""
+    import tenscalc_tpu_torch as ttc
+
+    cpu = build_minmax(ttc, "bmm_", device="cpu")
+    return numpy_result(cpu.solve_many({k: v[MM_CHECKS] for k, v in params.items()},
+                                       inits={k: v[MM_CHECKS] for k, v in inits.items()},
+                                       mu0=1.0, max_iter=60))
+
+
+def phase_minmax_cross_check(out, res):
+    """Eight of the min-max fleet's instances against the port on the CPU
+    (plain versions of K1-K3)."""
+    r, _ = out
+    card = numpy_result(res, MM_CHECKS)
+    st_c, st_g = r.status, card.status
+    it_c, it_g = r.iters, card.iters
+    du = np.abs(r.u[:, :MM_N] - card.u[:, :MM_N]).max()
+    df = (np.abs(r.f - card.f) / np.abs(r.f)).max()
     check((st_c == st_g).all(), "status equal on card and CPU")
     check((np.abs(it_c - it_g) <= 1).all(), "iterations within one")
     check(du <= U_ATOL, f"u within {U_ATOL} (max {du:.3e})")
@@ -1761,9 +2317,41 @@ def minimize_exit_metrics(solver, params, res):
             "min_F": Fs.amin(1), "min_lam": lam.amin(1)}
 
 
-def phase_unicycle_cross_check(tm, params, inits, res):
-    """Eight of the unicycle fleet's instances solved again by the port on
-    the CPU (float32, plain versions of K1/K2).
+def nonconvex_cpu(example, build_kw, idx, params, inits, card, max_iter):
+    """The CPU side of the unicycle's and the pursuit's cross-checks: the
+    port on the CPU (float32, the kernels' plain versions) solves
+    instances ``idx`` from their inits and from the inits moved by
+    UNI_NUDGE, in one fleet (an instance's iterates do not depend on the
+    others in its fleet), and evaluates the exit tests' metrics of the
+    card's answers ``card`` (numpy_result's).  Returns both results, the
+    metrics and the solver's tolerances."""
+    import importlib
+
+    tm = importlib.import_module(f"tenscalc_tpu_torch.examples.{example}")
+    cpu = tm.build_solver(**build_kw, dtype="float32", device="cpu")
+    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
+    sub_i = {k: v[idx] for k, v in inits.items()}
+    nudge = np.random.default_rng(1)
+    sub_n = {k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
+    both = cpu.solve_many(
+        {k: (np.concatenate([v, v]) if np.ndim(v) == 3 else v) for k, v in sub_p.items()},
+        inits={k: np.concatenate([sub_i[k], sub_n[k]]) for k in sub_i},
+        mu0=1e-1, max_iter=max_iter)
+    card = torch_result(card)
+    m = (cpu.exit_metrics(sub_p, card) if hasattr(cpu, "exit_metrics")
+         else minimize_exit_metrics(cpu, sub_p, card))
+    o = cpu.opts
+    return (numpy_result(both, np.arange(len(idx))),
+            numpy_result(both, np.arange(len(idx), 2 * len(idx))),
+            {k: v.numpy() for k, v in m.items()},
+            SimpleNamespace(gradTolerance=o.gradTolerance, equalTolerance=o.equalTolerance,
+                            desiredDualityGap=o.desiredDualityGap))
+
+
+def phase_unicycle_cross_check(out, card):
+    """NONCONVEX_CHECKS of the unicycle fleet's instances (``card``:
+    numpy_result's) against the port on the CPU (float32, plain versions
+    of K1/K2).
 
     The problem is nonconvex (the pursuer may turn either way) and some
     instances start on a rounding's edge between two local minima: the
@@ -1774,34 +2362,18 @@ def phase_unicycle_cross_check(tm, params, inits, res):
     whose two CPU solves agree within U_ATOL is also held to u within
     U_ATOL and the objective within F_RTOL of the card; the others are
     printed."""
-    ns = "buni_"
-    idx = np.arange(0, UNI_B, UNI_B // 8)
-    cpu = tm.build_solver(T=UNI_T, ns=ns, dtype="float32", device="cpu")
-    opts = cpu.opts
-    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
-    sub_i = {k: v[idx] for k, v in inits.items()}
-    nudge = np.random.default_rng(1)
-    sub_n = {k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
-    # both solves in one fleet of 16: an instance's iterates do not depend
-    # on the others in its fleet
-    both = cpu.solve_many(
-        {k: (np.concatenate([v, v]) if np.ndim(v) == 3 else v) for k, v in sub_p.items()},
-        inits={k: np.concatenate([sub_i[k], sub_n[k]]) for k in sub_i},
-        mu0=1e-1, max_iter=200)
-    r = type(both)(*(v[:8] for v in both))
-    rn = type(both)(*(v[8:] for v in both))
-    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    m = {k: v.numpy() for k, v in minimize_exit_metrics(cpu, sub_p, card).items()}
-    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
-    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
+    (r, rn, m, opts), _ = out
+    idx = UNI_CHECKS
+    st_c, st_g = r.status, card.status
+    it_c, it_g = r.iters, card.iters
     nu = UNI_T - 1  # u leads the packed primal vector
-    u_c, u_n, u_g = r.u.numpy()[:, :nu], rn.u.numpy()[:, :nu], card.u.cpu().numpy()[:, :nu]
+    u_c, u_n, u_g = r.u[:, :nu], rn.u[:, :nu], card.u[:, :nu]
     du = np.abs(u_c - u_g).max(axis=1)
     stable = np.abs(u_c - u_n).max(axis=1) <= U_ATOL
-    f_c, f_g = r.f.numpy(), card.f.cpu().numpy()
+    f_c, f_g = r.f, card.f
     df = np.abs(f_c - f_g) / np.abs(f_c)
-    check((st_c == 0).all() and (st_g == 0).all() and (rn.status.numpy() == 0).all(),
-          f"status 0 on card and CPU ({st_g}, {st_c}, nudged {rn.status.numpy()})")
+    check((st_c == 0).all() and (st_g == 0).all() and (rn.status == 0).all(),
+          f"status 0 on card and CPU ({st_g}, {st_c}, nudged {rn.status})")
     check(bool(np.isfinite(m["g"]).all() and (m["g"] <= opts.gradTolerance).all()),
           f"card answers stationary on the CPU (max g {m['g'].max():.3e})")
     check(bool((m["eq"] <= opts.equalTolerance).all()),
@@ -1810,7 +2382,8 @@ def phase_unicycle_cross_check(tm, params, inits, res):
           "card answers inside the bounds with positive multipliers on the CPU")
     # gap = lam . sF is a sum of nF positive float32 products, each
     # evaluation within (nF + 2) * 2^-24 of the exact value relative to it
-    gap_tol = opts.desiredDualityGap * (1 + 2 * (cpu.nF + 2) * 2.0**-24)
+    nF = card.lam.shape[1]
+    gap_tol = opts.desiredDualityGap * (1 + 2 * (nF + 2) * 2.0**-24)
     check(bool((m["gap"] <= gap_tol).all()),
           f"card answers within the gap on the CPU (max {m['gap'].max():.6e})")
     check(bool((du[stable] <= U_ATOL).all()),
@@ -1818,12 +2391,14 @@ def phase_unicycle_cross_check(tm, params, inits, res):
     check(bool((df[stable] <= F_RTOL).all()),
           f"objective within {F_RTOL} relative where the CPU's own solves agree "
           f"({df[stable]})")
-    log(f"[unicycle-cross-check] 8 instances on the CPU: status 0 on both; iterations card "
+    log(f"[unicycle-cross-check] {len(idx)} instances on the CPU: status 0 on both; "
+        f"iterations card "
         f"{it_g.tolist()} cpu {it_c.tolist()} (init moved by {UNI_NUDGE}: "
-        f"{rn.iters.numpy().tolist()}); the card's answers on the CPU: max g "
+        f"{rn.iters.tolist()}); the card's answers on the CPU: max g "
         f"{m['g'].max():.3e} (tol {opts.gradTolerance}), max |G| {m['eq'].max():.3e}, max gap "
         f"{m['gap'].max():.6e} (tol {opts.desiredDualityGap}); the CPU's two solves agree on "
-        f"{int(stable.sum())} of 8: there max |du| {du[stable].max(initial=0):.3e}, objective "
+        f"{int(stable.sum())} of {len(idx)}: there max |du| {du[stable].max(initial=0):.3e}, "
+        f"objective "
         f"max rel diff {df[stable].max(initial=0):.3e}; on the others max |du| "
         f"{du[~stable].max(initial=0):.3e} (the nudged CPU solve "
         f"{np.abs(u_c - u_n).max(axis=1)[~stable].round(4).tolist()}), objectives card "
@@ -1886,9 +2461,10 @@ def phase_pursuit(tm, lu, others):
     return solver, params, inits, res, launches, wall, lockstep
 
 
-def phase_pursuit_cross_check(tm, params, inits, res):
-    """Eight of the pursuit fleet's instances solved again by the port on
-    the CPU (float32, plain versions of K9/K10).
+def phase_pursuit_cross_check(out, card):
+    """NONCONVEX_CHECKS of the pursuit fleet's instances (``card``:
+    numpy_result's) against the port on the CPU (float32, plain versions
+    of K9/K10).
 
     The card's answers must pass the exit tests evaluated again on the CPU
     (stationarity, equality, gap, interior), at the same status and within
@@ -1896,30 +2472,14 @@ def phase_pursuit_cross_check(tm, params, inits, res):
     the objective J (within F_RTOL relative) are held where the CPU's own
     solves from the init and from the init moved by UNI_NUDGE agree
     (the unicycle's rule); the others are printed."""
-    ns = "pur_"
-    idx = np.arange(0, PUR_B, PUR_B // 8)
-    cpu = tm.build_solver(T=PUR_T, L=PUR_L, ns=ns, dtype="float32", device="cpu")
-    opts = cpu.opts
-    sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
-    sub_i = {k: v[idx] for k, v in inits.items()}
-    nudge = np.random.default_rng(1)
-    sub_n = {k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
-    # both solves in one fleet of 16: an instance's iterates do not depend
-    # on the others in its fleet
-    both = cpu.solve_many(
-        {k: (np.concatenate([v, v]) if np.ndim(v) == 3 else v) for k, v in sub_p.items()},
-        inits={k: np.concatenate([sub_i[k], sub_n[k]]) for k in sub_i},
-        mu0=1e-1, max_iter=300)
-    r = type(both)(*(v[:8] for v in both))
-    rn = type(both)(*(v[8:] for v in both))
-    card = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    m = {k: v.numpy() for k, v in cpu.exit_metrics(sub_p, card).items()}
-    st_c, st_g = r.status.numpy(), card.status.cpu().numpy()
-    it_c, it_g = r.iters.numpy(), card.iters.cpu().numpy()
-    u_c, u_n, u_g = (x[:, :PUR_T] for x in (r.u.numpy(), rn.u.numpy(), card.u.cpu().numpy()))
+    (r, rn, m, opts), _ = out
+    idx = PUR_CHECKS
+    st_c, st_g = r.status, card.status
+    it_c, it_g = r.iters, card.iters
+    u_c, u_n, u_g = (x[:, :PUR_T] for x in (r.u, rn.u, card.u))
     du = np.abs(u_c - u_g).max(axis=1)
     stable = np.abs(u_c - u_n).max(axis=1) <= U_ATOL
-    f_c, f_g = r.f.numpy(), card.f.cpu().numpy()
+    f_c, f_g = r.f, card.f
     df = np.abs(f_c - f_g) / np.abs(f_c)
     check((st_g == st_c).all() and (st_g == 0).all(),
           f"status 0 on card and CPU ({st_g}, {st_c})")
@@ -1940,12 +2500,14 @@ def phase_pursuit_cross_check(tm, params, inits, res):
           f"uFuture within {U_ATOL} where the CPU's own solves agree ({du[stable]})")
     check(bool((df[stable] <= F_RTOL).all()),
           f"J within {F_RTOL} relative where the CPU's own solves agree ({df[stable]})")
-    log(f"[pursuit-cross-check] 8 instances on the CPU: status 0 on both; iterations card "
+    log(f"[pursuit-cross-check] {len(idx)} instances on the CPU: status 0 on both; "
+        f"iterations card "
         f"{it_g.tolist()} cpu {it_c.tolist()} (init moved by {UNI_NUDGE}: "
-        f"{rn.iters.numpy().tolist()}); the card's answers on the CPU: max g "
+        f"{rn.iters.tolist()}); the card's answers on the CPU: max g "
         f"{m['g'].max():.3e} (tol {opts.gradTolerance}), max |G| {m['eq'].max():.3e}, max gap "
         f"{m['gap'].max():.6e} (tol {opts.desiredDualityGap}); the CPU's two solves agree on "
-        f"{int(stable.sum())} of 8: there max |duFuture| {du[stable].max(initial=0):.3e}, J "
+        f"{int(stable.sum())} of {len(idx)}: there max |duFuture| "
+        f"{du[stable].max(initial=0):.3e}, J "
         f"max rel diff {df[stable].max(initial=0):.3e}; on the others max |duFuture| "
         f"{du[~stable].max(initial=0):.3e}, J card {f_g[~stable].round(5).tolist()} cpu "
         f"{f_c[~stable].round(5).tolist()}")
@@ -2008,21 +2570,21 @@ def phase_quadcopter(tq, fb, others):
         f"iteration K1 {k1 / lockstep:.2f} K2 {launches['solve'] / lockstep:.2f} K3 "
         f"{launches['factor'] / lockstep:.2f}; adaptation trips beyond one a lockstep "
         f"iteration: {k1 - lockstep}")
+    log(f"[quadcopter] the first 32 instances off status 0: "
+        f"{np.flatnonzero(~ok)[:32].tolist()}")
     return solver, params, inits, res, launches, wall, lockstep
 
 
-def quadcopter_cpu_worker(sub_p, inits, card, T):
-    """The quadcopter cross-check's CPU side, in a process of its own so
-    that it runs beside the card's other phases: the port on the CPU
+def quadcopter_cpu(sub_p, inits, card):
+    """The quadcopter cross-check's CPU side: the port on the CPU
     (float32, plain versions of K1/K2) solves the instances from each of
     ``inits`` in one fleet, and evaluates the exit tests' metrics of the
-    card's answers ``card``.  Returns numpy arrays and the tolerances."""
-    from types import SimpleNamespace
-
+    card's answers ``card`` (numpy_result's).  Returns numpy arrays and
+    the tolerances."""
     from tenscalc_tpu_torch.examples import mpc_quadcopter as tq
 
     torch.set_num_threads(2)
-    cpu = tq.build_solver(T=T, ns="bquad_", dtype="float32", device="cpu",
+    cpu = tq.build_solver(T=QUAD_T, ns="bquad_", dtype="float32", device="cpu",
                           smallerNewtonMatrix=False)
     k = len(inits)
     t0 = time.perf_counter()
@@ -2031,8 +2593,7 @@ def quadcopter_cpu_worker(sub_p, inits, card, T):
         inits={n: np.concatenate([i[n] for i in inits]) for n in inits[0]},
         mu0=1e-1, max_iter=300)
     seconds = time.perf_counter() - t0
-    m = minimize_exit_metrics(cpu, sub_p, SimpleNamespace(
-        **{n: torch.as_tensor(v) for n, v in card.items()}))
+    m = minimize_exit_metrics(cpu, sub_p, torch_result(card))
     o = cpu.opts
     return {"status": r.status.numpy().reshape(k, -1), "iters": r.iters.numpy().reshape(k, -1),
             "u": r.u.numpy().reshape(k, -1, cpu.nU), "f": r.f.numpy().reshape(k, -1),
@@ -2042,27 +2603,21 @@ def quadcopter_cpu_worker(sub_p, inits, card, T):
 
 
 def start_quadcopter_cross_check(params, inits, res):
-    """Start the CPU side of the quadcopter cross-check on eight of the
-    fleet's instances (every 64th), from their inits and from two draws
-    of them moved by UNI_NUDGE, in a spawned process; returns what
+    """Start the CPU side of the quadcopter cross-check on NONCONVEX_CHECKS
+    of the fleet's instances (evenly spaced), from their inits and from two draws
+    of them moved by UNI_NUDGE; returns what
     finish_quadcopter_cross_check needs."""
-    import multiprocessing
-
-    idx = np.arange(0, QUAD_B, QUAD_B // 8)
+    idx = np.arange(0, QUAD_B, QUAD_B // NONCONVEX_CHECKS)
     sub_p = {k: (v[idx] if np.ndim(v) == 3 else v) for k, v in params.items()}
     sub_i = {k: v[idx] for k, v in inits.items()}
     nudge = np.random.default_rng(1)
     moved = [{k: v + UNI_NUDGE * nudge.standard_normal(v.shape) for k, v in sub_i.items()}
              for _ in range(2)]
-    sel = torch.as_tensor(idx, device=res.u.device)
-    card = {k: getattr(res, k)[sel].cpu().numpy()
-            for k in ("u", "nu", "lam", "scale_ineq", "scale_cost", "status", "iters", "f")}
-    pool = multiprocessing.get_context("spawn").Pool(1)
-    job = pool.apply_async(quadcopter_cpu_worker, (sub_p, [sub_i, *moved], card, QUAD_T))
-    return pool, job, card
+    card = numpy_result(res, idx)
+    return start_cpu_side(quadcopter_cpu, sub_p, [sub_i, *moved], card), card
 
 
-def finish_quadcopter_cross_check(pool, job, card):
+def finish_quadcopter_cross_check(side, card):
     """The quadcopter cross-check, the CPU side collected.
 
     The problem is nonconvex (the thrust magnitude's square root) and its
@@ -2075,16 +2630,12 @@ def finish_quadcopter_cross_check(pool, job, card):
     same status, iterations within one, p and u within U_ATOL), the card
     is held to their status, iterations within one, p and u within
     U_ATOL and J within F_RTOL relative; the others are printed."""
-    try:
-        out = job.get(timeout=1000)
-    finally:
-        pool.close()
-        pool.join()
+    out, _ = collect_cpu_side(side)
     st, it, u, f = out["status"], out["iters"], out["u"], out["f"]
-    st_g, it_g, f_g = card["status"], card["iters"], card["f"]
+    st_g, it_g, f_g = card.status, card.iters, card.f
     pu = 6 * QUAD_T  # p then u lead the packed primal vector (3 T each)
     x = u[:, :, :pu]
-    x_g = card["u"][:, :pu]
+    x_g = card.u[:, :pu]
     stable = ((st == st[0]).all(0) & (np.abs(it - it[0]) <= 1).all(0)
               & (np.abs(x - x[0]).max(axis=2) <= U_ATOL).all(0))
     dx = np.abs(x[0] - x_g).max(axis=1)
@@ -2109,11 +2660,13 @@ def finish_quadcopter_cross_check(pool, job, card):
           f"p and u within {U_ATOL} where the CPU's solves agree ({dx[stable]})")
     check(bool((df[stable] <= F_RTOL).all()),
           f"J within {F_RTOL} relative where the CPU's solves agree ({df[stable]})")
-    log(f"[quadcopter-cross-check] 8 instances (every 64th) on the CPU in {out['seconds']:.1f} s "
+    log(f"[quadcopter-cross-check] {len(st_g)} instances (every {QUAD_B // len(st_g)}th) on "
+        f"the CPU in {out['seconds']:.1f} s "
         f"beside the other phases: status card {st_g.tolist()} cpu {st.tolist()} (the init, "
         f"then moved by {UNI_NUDGE} twice); iterations card {it_g.tolist()} cpu {it.tolist()}; "
-        f"status equal on {int((st_g == st[0]).sum())} of 8; the CPU's three solves agree on "
-        f"{int(stable.sum())} of 8: there max |d(p, u)| {dx[stable].max(initial=0):.3e}, J max "
+        f"status equal on {int((st_g == st[0]).sum())} of {len(st_g)}; the CPU's three solves "
+        f"agree on {int(stable.sum())} of {len(st_g)}: there max |d(p, u)| "
+        f"{dx[stable].max(initial=0):.3e}, J max "
         f"rel diff {df[stable].max(initial=0):.3e}; the {int(conv.sum())} converged card "
         f"answers on the CPU: max g {m['g'][conv].max(initial=0):.3e} (tol {g_tol}), max |G| "
         f"{m['eq'][conv].max(initial=0):.3e}, max gap {m['gap'][conv].max(initial=0):.6e} (tol "
@@ -2321,6 +2874,8 @@ def main() -> int:
     recs = phase_kernels(fb)
     elapsed("K1-K3's wide route")
     phase_wide_kernels(fb, recs)
+    elapsed("the block route")
+    block_rows = phase_block_kernels(fb, lu)
 
     # the quadcopter fleet: its KKT (the large Newton matrix) assembled
     # densely at every iterate, K1/K2 on the wide route; its CPU
@@ -2341,9 +2896,49 @@ def main() -> int:
         f"iteration; host {1e3 * cwall / PROFILE9_ITERS:.1f} ms a lockstep iteration profiled "
         f"({1e3 * quad_wall / clock:.1f} unprofiled over the whole solve)")
     del csolver
+
+    # the deconvolution fleet (K1/K2 on the block route), its CPU
+    # cross-check beside the later phases, and its game (K9/K10)
+    elapsed("the deconvolution fleet")
+    dsolver, dparams, dinits, dres, dc_launches, dc_wall, dc_lock = phase_deconv(
+        ttc, fb, (lu, dl))
+    # the CPU sides of [deconv] and [tutorials] run beside the game, whose
+    # lockstep iterations keep the card busy and the host waiting
+    dc_idx, dc_p, dc_i = deconv_cross_check_inputs(dparams, dinits, dres)
+    deconv_side = start_cpu_side(deconv_cpu, dc_p, dc_i)
+    tutorials_side = start_cpu_side(tutorials_cpu)
+    pwall, pbusy = phase_profile("profile10", lambda: dsolver.solve_many(
+        dparams, inits=dinits, mu0=1.0, max_iter=DC_MAX_ITER),
+        watch=(("K1", r"\bfactor_solve_block_kernel\b"), ("K2", r"\bsolve_block_kernel\b")),
+        host_ops=False)
+    log(f"[profile10] the deconvolution fleet: device kernel time {pbusy:.4f} s a solve, "
+        f"{1e3 * pbusy / dc_lock:.2f} ms a lockstep iteration; host "
+        f"{1e3 * dc_wall / dc_lock:.1f} ms a lockstep iteration unprofiled "
+        f"({1e3 * pwall / dc_lock:.1f} profiled)")
+    del dsolver
+    elapsed("the deconvolution game")
+    gsolver, gparams, ginits, dg_launches, dg_wall, dg_lock = phase_deconv_game(
+        ttc, lu, (fb, dl), dres)
+    gwall, gbusy = phase_profile("profile11", lambda: gsolver.solve_many(
+        gparams, inits=ginits, mu0=1.0, max_iter=PROFILE11_ITERS),
+        watch=(("K9", r"\blu_factor_solve_block_kernel\b"),
+               ("K10", r"\blu_solve_block_kernel\b")), host_ops=False)
+    log(f"[profile11] the deconvolution game, its first {PROFILE11_ITERS} iterations: device "
+        f"kernel time {gbusy:.4f} s, {1e3 * gbusy / PROFILE11_ITERS:.2f} ms a lockstep "
+        f"iteration; host {1e3 * gwall / PROFILE11_ITERS:.1f} ms a lockstep iteration "
+        f"profiled ({1e3 * dg_wall / dg_lock:.1f} unprofiled over the whole solve)")
+    del gsolver
+    torch.cuda.empty_cache()
+    elapsed("the rest of the API")
+    phase_api(mpc)
+    elapsed("the tutorials")
+    tutorials_card = phase_tutorials(ttc)
+
     solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
-    phase_cross_check(mpc, params, inits, res)
+    # every cross-check's CPU side runs in a process of its own beside the
+    # later phases; each is held at the end
+    flagship_side = start_cpu_side(flagship_cpu, params, inits)
     phase_profile("profile", lambda: solver.solve_many(
         params, inits=inits, mu0=1e-3, max_iter=100),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")))
@@ -2353,7 +2948,8 @@ def main() -> int:
     phase_wide_lu_kernels(lu, lu_recs)
     msolver, mparams, mres, lu_launches, lu_entry_launches = phase_mpcmhe(mm, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the MPC-MHE path")
-    phase_mpcmhe_cross_check(mm, mparams, mres)
+    mmhe_card = numpy_result(mres, MMHE_CHECKS)
+    mmhe_side = start_cpu_side(mpcmhe_cpu, mparams, mmhe_card)
     phase_profile("profile2", lambda: msolver.solve_many(
         mparams, mu0=1e-3, max_iter=100))
 
@@ -2367,7 +2963,7 @@ def main() -> int:
           and fleet_launches["ldl_factor"] == fleet_launches["ldl_solve"]
           == fleet_launches["ldl_factor_solve"] == 0,
           f"the sls fleet through K4 and K5 alone: {fleet_launches}")
-    phase_sls_cross_check(sls, sdata, sres)
+    sls_side = start_cpu_side(sls_cpu, {k: v[SLS_CHECKS] for k, v in sdata.items()})
     wsolver, _, _, wide_launches = phase_sls_fleet(
         "sls-wide", sls, dl, (fb, lu), "slsw_", SLS_B, WIDE_N, seed=1)
     check(wsolver.kkt_backend_resolved == "fleet" and wsolver.kkt_plan is None
@@ -2379,7 +2975,7 @@ def main() -> int:
     # the min-max slice: K1/K2 on the saddle KKT, K3 on the HessD inertia
     elapsed("the min-max slice")
     mmsolver, mmparams, mminits, mmres, mm_launches = phase_minmax(ttc, fb, (lu, dl))
-    phase_minmax_cross_check(ttc, mmparams, mminits, mmres)
+    minmax_side = start_cpu_side(minmax_cpu, mmparams, mminits)
     phase_profile("profile4", lambda: mmsolver.solve_many(
         mmparams, inits=mminits, mu0=1.0, max_iter=60),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<"),
@@ -2391,15 +2987,17 @@ def main() -> int:
     elapsed("the unicycle slice")
     usolver, uparams, uinits, ures, uni_launches, uwall, ulock = phase_unicycle(
         mpc_unicycle, fb, (lu, dl))
-    elapsed("the unicycle's cross-check")
-    phase_unicycle_cross_check(mpc_unicycle, uparams, uinits, ures)
+    uni_card = numpy_result(ures, UNI_CHECKS)
+    uni_side = start_cpu_side(nonconvex_cpu, "mpc_unicycle", {"T": UNI_T, "ns": "buni_"},
+                              UNI_CHECKS, uparams, uinits, uni_card, 200)
     elapsed("[profile7]")
     pwall, pbusy = phase_profile("profile7", lambda: usolver.solve_many(
-        uparams, inits=uinits, mu0=1e-1, max_iter=200),
+        uparams, inits=uinits, mu0=1e-1, max_iter=PROFILE7_ITERS),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")), host_ops=False)
-    log(f"[profile7] the unicycle fleet: device kernel time {pbusy:.4f} s a solve, "
-        f"{1e3 * pbusy / ulock:.2f} ms a lockstep iteration; host {1e3 * uwall / ulock:.1f} "
-        f"ms a lockstep iteration unprofiled ({1e3 * pwall / ulock:.1f} profiled)")
+    log(f"[profile7] the unicycle fleet, its first {PROFILE7_ITERS} iterations: device kernel "
+        f"time {pbusy:.4f} s, {1e3 * pbusy / PROFILE7_ITERS:.2f} ms a lockstep iteration; host "
+        f"{1e3 * pwall / PROFILE7_ITERS:.1f} ms a lockstep iteration profiled "
+        f"({1e3 * uwall / ulock:.1f} unprofiled over the whole solve)")
 
     # the nonlinear MPC-MHE pursuit fleet: its KKT assembled densely at
     # every iterate, K9/K10
@@ -2408,8 +3006,10 @@ def main() -> int:
     elapsed("the pursuit slice")
     psolver, pparams, pinits, pres, pur_launches, pur_wall, plock = phase_pursuit(
         mpcmhe_unicycle, lu, (fb, dl))
-    elapsed("the pursuit's cross-check")
-    phase_pursuit_cross_check(mpcmhe_unicycle, pparams, pinits, pres)
+    pur_card = numpy_result(pres, PUR_CHECKS)
+    pur_side = start_cpu_side(nonconvex_cpu, "mpcmhe_unicycle",
+                              {"T": PUR_T, "L": PUR_L, "ns": "pur_"}, PUR_CHECKS, pparams,
+                              pinits, pur_card, 300)
     elapsed("[profile8]")
     qwall, qbusy = phase_profile("profile8", lambda: psolver.solve_many(
         pparams, inits=pinits, mu0=1e-1, max_iter=300),
@@ -2466,10 +3066,12 @@ def main() -> int:
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
     fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches,
-                "quadcopter": quad_launches}
+                "quadcopter": quad_launches, "deconv": dc_launches}
+    # block_route: each kernel's rows at BLOCK_SHAPES ([block-kernels])
     kernels = [
         {**entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k]),
-         "launches_by_path": {p: c[k] for p, c in fb_paths.items()}}
+         "launches_by_path": {p: c[k] for p, c in fb_paths.items()},
+         "block_route": block_rows[k]}
         for k in ("factor_solve", "solve", "factor")
     ] + [
         entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,
@@ -2478,10 +3080,20 @@ def main() -> int:
     ] + [
         {**entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
                  lu_entry_launches.get(k), lu_recs[k]),
-         "launches_by_path": {"mpcmhe": lu_launches[k], "pursuit": pur_launches[k]}}
+         "launches_by_path": {"mpcmhe": lu_launches[k], "pursuit": pur_launches[k],
+                              "deconv_game": dg_launches[k]},
+         "block_route": block_rows[k]}
         for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
-    elapsed("the quadcopter's cross-check")
+    elapsed("the CPU sides")
+    phase_cross_check(collect_cpu_side(flagship_side), res)
+    phase_mpcmhe_cross_check(collect_cpu_side(mmhe_side), mmhe_card, msolver.opts)
+    phase_sls_cross_check(collect_cpu_side(sls_side), sres)
+    phase_minmax_cross_check(collect_cpu_side(minmax_side), mmres)
+    phase_unicycle_cross_check(collect_cpu_side(uni_side), uni_card)
+    phase_pursuit_cross_check(collect_cpu_side(pur_side), pur_card)
+    finish_deconv_cross_check(dc_idx, collect_cpu_side(deconv_side), dres)
+    finish_tutorials(tutorials_card, collect_cpu_side(tutorials_side))
     finish_quadcopter_cross_check(*quad_check)
     elapsed("the end")
     print(json.dumps({"kernels": kernels}))

@@ -41,9 +41,9 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "tenscalc_tpu_torch" / "csrc" / "fleet_banded.cu"
 SHAPE = (1024, 149, 4)
 CLAMP = 1e-7
-# the narrow route's main paths: the flagship fleet, the min-max saddle
-# and the nonlinear unicycle fleet
-PARENT_SHAPES = [(1024, 149, 4), (1024, 480, 6), (512, 439, 9)]
+# the narrow route's main paths (the flagship fleet, the min-max saddle
+# and the nonlinear unicycle fleet) and the wide route's (the quadcopter)
+PARENT_SHAPES = [(1024, 149, 4), (1024, 480, 6), (512, 439, 9), (512, 286, 30)]
 
 # name -> (edits of the source, chunk rows, ring rows, exact): each edit
 # (old, new) must apply; `exact` variants compute the kernels' function
@@ -125,8 +125,9 @@ def kernels(h, fb, band, rhs, fband):
 
 def against_parent(fb, parent: Path) -> dict:
     """Device ms of K1/K2/K3, design and parent in the order design,
-    parent, parent, design at each of PARENT_SHAPES."""
-    widths = sorted({w for _, _, w in PARENT_SHAPES})
+    parent, parent, design at each of PARENT_SHAPES (the narrow route's
+    widths instantiated alone; the wide route's capacities as they are)."""
+    widths = sorted({w for _, _, w in PARENT_SHAPES if w <= fb.NARROW_W})
     texts = {"design": variant_source([], widths=widths),
              "parent": variant_source([], parent.read_text(), widths)}
     times = {name: {} for name in texts}

@@ -90,7 +90,17 @@ from .ops.tseries import (
 )
 from .ipm.options import SolverOptions
 from .ipm.status import SolverStatus, describe_status
-from .api import OptimizeSolver, Solution, equilibrium, minmax, optimize
+from .api import (
+    ComputeFunction,
+    ComputeObject,
+    OptimizeSolver,
+    Solution,
+    compute,
+    compute_object,
+    equilibrium,
+    minmax,
+    optimize,
+)
 from .parallel.batch import solve_batched
 
 __all__ = [
@@ -109,5 +119,6 @@ __all__ = [
     "tsDerivative", "tsDerivative2", "tsIntegral", "tsIntegrate", "tsODE",
     "tsCross", "tsDot", "tsQdot", "tsQdotStar", "tsRotation", "tsRotationT",
     "SolverOptions", "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
-    "optimize", "minmax", "equilibrium", "solve_batched",
+    "optimize", "minmax", "equilibrium", "solve_batched", "compute", "compute_object",
+    "ComputeFunction", "ComputeObject",
 ]

@@ -127,6 +127,11 @@ class Solution:
     lam: Any
     nu: Any
     time: float = 0.0
+    # the per-iteration profiling history (None: profiling is M17's, not
+    # ported) and the internal scales sensitivity() unscales the duals by
+    history: Any = None
+    scale_ineq: Any = None
+    scale_cost: Any = None
 
     @property
     def ok(self) -> bool:
@@ -134,6 +139,17 @@ class Solution:
 
     def describe(self) -> str:
         return describe_status(int(self.status))
+
+
+def _first_or_none(res, field: str):
+    """Instance 0 of a result field as numpy, None where the result type
+    has no such field."""
+    v = getattr(res, field, None)
+    return None if v is None else v[0].cpu().numpy()
+
+
+def _deferred_m17(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item M17)")
 
 
 class SolverBase:
@@ -187,6 +203,8 @@ class SolverBase:
             norminf_eq=float(res.norminf_eq[0]), gap=float(res.gap[0]),
             objective=float(res.f[0]), lam=res.lam[0].cpu().numpy(),
             nu=res.nu[0].cpu().numpy(), time=elapsed,
+            scale_ineq=_first_or_none(res, "scale_ineq"),
+            scale_cost=_first_or_none(res, "scale_cost"),
         )
 
     @staticmethod
@@ -411,6 +429,94 @@ class OptimizeSolver(SolverBase):
             addEye2Hessian=addEye2Hessian,
         )
 
+    def solve_result(self, parameters: Optional[Mapping[str, Any]] = None,
+                     init: Optional[Mapping[str, Any]] = None, mu0: float = 1.0,
+                     max_iter: Optional[int] = None, addEye2Hessian=(1e-9, 1e-9),
+                     save_iter: int = -1) -> IPMResult:
+        """One instance's raw :class:`IPMResult` (JAX ``api.py:553-563``):
+        the tensors on the solver's device, one instance's fields without
+        the batch dimension, with no synchronization and no copy to the
+        host after the solve.  ``save_iter`` (allowSave) is M17's."""
+        if save_iter != -1:
+            raise _deferred_m17("save_iter (allowSave)")
+        penv = self._param_env(parameters)
+        u0 = self._pack_init(init)[None]
+        res = self._solve_raw(
+            u0, penv, frozenset(penv), mu0, max_iter,
+            addEye2Hessian[0], addEye2Hessian[1],
+        )
+        return IPMResult(*(f[0] for f in res))
+
+    def capture_ww(self, *args, **kwargs):
+        """The KKT matrix at a chosen iterate (JAX ``api.py:565``) needs
+        ``allowSave``, ``profiling`` and ``diagnostics.analyze_assembled``,
+        which are M17's."""
+        raise _deferred_m17("capture_ww")
+
+    def sensitivity(self, solution: Solution, parameters: Mapping[str, Any],
+                    wrt: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, np.ndarray]]:
+        """d(u*)/d(parameter) at a converged solution (JAX
+        ``api.py:657-737``): implicit differentiation of the unscaled
+        stationarity system r(u, nu, lam; p) = [grad_u L; G; lam F - mu]
+        = 0, the duals recovered from the solver's internal scales.  K =
+        dr/dz and dr/dp by ``torch.func.jacfwd`` on the solver's device,
+        dz/dp = -K^-1 dr/dp by :func:`.kkt.dense.lu_solve_mixed` (a
+        pivoted LU, as the JAX package solves it outside any Pallas
+        kernel).  Returns {variable: {parameter: array of shape
+        variable.shape + parameter.shape}}."""
+        from torch.func import grad, jacfwd
+
+        from .kkt.dense import lu_solve_mixed
+
+        dt, dev = self.opts.torch_dtype, self.device
+        penv = self._param_env(parameters)
+        packing, fns = self.packing, self._fns
+        nU, nF, nG = self.nU, self.nF, self.nG
+
+        def as_t(v):
+            return torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
+
+        u_star = packing.pack({k: as_t(v) for k, v in solution.variables.items()})
+        sc = as_t(solution.scale_cost if solution.scale_cost is not None else 1.0)
+        si = as_t(solution.scale_ineq if solution.scale_ineq is not None else np.ones(nF))
+        # unscale the duals: lam_u = si lam_s / sc, nu_u = nu_s / sc; the
+        # complementarity target becomes mu_s / sc
+        lam_u = si * as_t(solution.lam) / sc
+        nu_u = as_t(solution.nu) / sc
+        mu_u = as_t(solution.mu) / sc
+        z_star = torch.cat([u_star, nu_u, lam_u])
+
+        def residual(z, pv):
+            u, nu, lam = z[:nU], z[nU: nU + nG], z[nU + nG:]
+
+            def lagr(uu):
+                val = fns.f(uu, pv)
+                if nG:
+                    val = val + nu @ fns.G(uu, pv)
+                if nF:
+                    val = val - lam @ fns.F(uu, pv)
+                return val
+
+            r1 = grad(lagr)(u)
+            r2 = fns.G(u, pv) if nG else z.new_zeros(0)
+            r3 = lam * fns.F(u, pv) - mu_u if nF else z.new_zeros(0)
+            return torch.cat([r1, r2, r3])
+
+        K = jacfwd(residual, argnums=0)(z_star, penv)
+        dR = jacfwd(residual, argnums=1)(z_star, penv)
+        names = list(wrt) if wrt is not None else [p.name for p in self.parameters]
+        out: Dict[str, Dict[str, np.ndarray]] = {v: {} for v in packing.names}
+        for pname in names:
+            Rp = dR[pname].reshape(z_star.shape[0], -1)
+            # one factor of K, the columns of dr/dp as a batch of rhs
+            dz = -lu_solve_mixed(K[None], Rp.T.contiguous()).T
+            for vname in packing.names:
+                vshape = self.variables[packing.names.index(vname)].shape
+                out[vname][pname] = (
+                    dz[packing.slice_of(vname)].reshape(vshape + penv[pname].shape)
+                    .cpu().numpy())
+        return out
+
 def minmax(*args, **kwargs):
     """Create a min-max solver on ``device`` (the card when None); see
     :class:`tenscalc_tpu_torch.ipm.minmax.MinMaxSolver`."""
@@ -439,3 +545,134 @@ def optimize(objective: Expr, optimizationVariables: Sequence[Variable],
         objective, optimizationVariables, constraints, parameters,
         outputExpressions, options, device=device, **option_kwargs,
     )
+
+
+def _as_input(v, device: torch.device) -> torch.Tensor:
+    """An input value as a tensor on ``device``, in its own dtype (a numpy
+    or Python float is float64, as the JAX package's inputs are with
+    x64)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(np.asarray(v), device=device)
+
+
+class ComputeFunction:
+    """Evaluation of a set of expressions (JAX ``api.py:786-810``; the
+    reference's cmex2compute): declared inputs, named outputs, evaluated
+    as plain functions on tensors on ``device`` (the card when None);
+    the outputs are tensors on that device."""
+
+    def __init__(self, inputs: Sequence[Variable], outputs: Mapping[str, Expr],
+                 device=None):
+        self.inputs = list(inputs)
+        self.outputs = dict(outputs)
+        self.device = resolve_device(device)
+        full_precision_matmul()
+        self._names = [v.name for v in self.inputs]
+
+    def __call__(self, **values):
+        missing = set(self._names) - set(values)
+        if missing:
+            raise ValueError(f"missing inputs {sorted(missing)}")
+        env = {k: _as_input(v, self.device) for k, v in values.items()}
+        # .to: an output that reads no input (a constant) is made on the CPU
+        return {k: e(env).to(self.device) for k, e in self.outputs.items()}
+
+
+def compute(inputs: Sequence[Variable], outputs: Mapping[str, Expr],
+            device=None) -> ComputeFunction:
+    return ComputeFunction(inputs, outputs, device=device)
+
+
+def _eval_group(group, env, device: torch.device):
+    """A get group's value on ``device``: an Expr, or a mapping or
+    sequence of groups (an Expr that reads no variable, a constant, is
+    made on the CPU and moved)."""
+    if isinstance(group, Expr):
+        return group(env).to(device)
+    if isinstance(group, Mapping):
+        return {k: _eval_group(g, env, device) for k, g in group.items()}
+    return [_eval_group(g, env, device) for g in group]
+
+
+def _group_deps(group) -> frozenset:
+    if isinstance(group, Expr):
+        return frozenset(group.deps)
+    groups = group.values() if isinstance(group, Mapping) else group
+    return frozenset().union(*(_group_deps(g) for g in groups))
+
+
+class ComputeObject:
+    """A stateful compute object (JAX ``api.py:813-944``; the reference's
+    csparse declareSet / declareGet / declareCopy): inputs and state
+    variables live as tensors on ``device`` (the card when None); ``get``
+    evaluates a named output group (an Expr, or a dict or list of them)
+    and ``copy`` runs a named update, atomically: every right-hand side
+    is evaluated before any state variable is assigned.  Each get or
+    copy reads only the variables its expressions depend on, so it needs
+    only those set.  ``state`` maps a Variable to its initial value;
+    ``updates`` maps a copy's name to {state Variable: Expr}, and a
+    target that is not a state variable is refused."""
+
+    def __init__(self, inputs: Sequence[Variable], outputs: Mapping[str, Any],
+                 state: Optional[Mapping[Variable, Any]] = None,
+                 updates: Optional[Mapping[str, Mapping[Variable, Expr]]] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        full_precision_matmul()
+        self.inputs = list(inputs)
+        self.state_vars = list((state or {}).keys())
+        self._names = [v.name for v in self.inputs]
+        state_names = {v.name for v in self.state_vars}
+        self.outputs = dict(outputs)
+        self.updates = {name: {v.name: e for v, e in upd.items()}
+                        for name, upd in (updates or {}).items()}
+        for name, upd in self.updates.items():
+            bad = set(upd) - state_names
+            if bad:
+                raise ValueError(f"copy {name!r} targets non-state variables {sorted(bad)}")
+        self._values: Dict[str, torch.Tensor] = {}
+        for v, init in (state or {}).items():
+            t = _as_input(init, self.device)
+            if tuple(t.shape) != v.shape:
+                t = torch.broadcast_to(t, v.shape)
+            self._values[v.name] = t
+        self._get_deps = {name: _group_deps(g) for name, g in self.outputs.items()}
+        self._copy_deps = {
+            name: frozenset().union(*(e.deps for e in upd.values())) if upd else frozenset()
+            for name, upd in self.updates.items()
+        }
+
+    def set(self, name: str, value) -> None:
+        """Load an input or state variable (declareSet)."""
+        if name not in self._names and name not in {v.name for v in self.state_vars}:
+            raise ValueError(f"unknown variable {name!r}")
+        self._values[name] = _as_input(value, self.device)
+
+    def _env(self, needed: frozenset):
+        missing = needed - set(self._values)
+        if missing:
+            raise ValueError(f"inputs not set: {sorted(missing)}")
+        return {k: self._values[k] for k in needed}
+
+    def get(self, name: str):
+        """Evaluate a named output group at the current values."""
+        return _eval_group(self.outputs[name], self._env(self._get_deps[name]), self.device)
+
+    def copy(self, name: str) -> None:
+        """Run a named atomic state update (declareCopy)."""
+        env = self._env(self._copy_deps[name])
+        new = {k: e(env).to(self.device) for k, e in self.updates[name].items()}
+        self._values.update(new)
+
+    def value(self, var) -> torch.Tensor:
+        """The current value of an input or state variable."""
+        return self._values[var.name if isinstance(var, Variable) else var]
+
+
+def compute_object(inputs: Sequence[Variable], outputs: Mapping[str, Any],
+                   state: Optional[Mapping[Variable, Any]] = None,
+                   updates: Optional[Mapping[str, Mapping[Variable, Expr]]] = None,
+                   device=None) -> ComputeObject:
+    """Create a stateful compute object (csparse declareSet/Get/Copy)."""
+    return ComputeObject(inputs, outputs, state=state, updates=updates, device=device)

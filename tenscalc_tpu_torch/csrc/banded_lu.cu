@@ -83,10 +83,18 @@
 //   memory through the ring, and x leaves a chunk at a time.  The binding
 //   picks the route and the rows an instance by size.
 //
+// - Above W = 63 (every width the planner hands over) the block route: a
+//   CTA an instance, the factor in place on the output band in device
+//   memory, four steps a sweep (see its section below).  At the
+//   deconvolution game's (256, 3000, 381) the 256 windows outgrow the L2
+//   and K9 is bound by their traffic (PERF.md).
+//
 // Arithmetic.  The order is the TPU kernel's: the clamp, then
 // l = row / d, then each trailing entry minus its product (the product
 // rounded first), and in the backward sweep a sequential sum over q,
-// q = 1..W, a subtraction and a division.  Each entry is still updated
+// q = 1..W (on the block route a thread's terms, then a pairwise tree:
+// backward_sum in kkt/fleet_banded.py), a subtraction and a division.
+// Each entry is still updated
 // once a step, in step order, whichever lane updates it, so the kernels
 // round exactly as the plain PyTorch versions beside their wrapper.  The
 // _rn intrinsics keep nvcc from contracting products and sums into fused
@@ -109,7 +117,7 @@
 namespace {
 
 constexpr int kLaneRowW = 31;  // y of rows c..c+W in a warp's lanes
-constexpr int kMaxW = 63;      // above kLaneRowW two rows a lane
+constexpr int kMaxW = 63;      // above kLaneRowW two rows a lane; the block route above
 constexpr int kTeam = 32;                       // lanes an instance: a warp
 constexpr int kMaxGroup = TC_LU_MAX_GROUP;      // instances a CTA
 constexpr int kChunk = TC_LU_CHUNK_ROWS;        // rows a copy group
@@ -899,6 +907,219 @@ lu_factor_wide_kernel(const float* __restrict__ band, float* __restrict__ fband,
                                          nullptr, n, w, clamp, lane);
 }
 
+// ---------------------------------------------------------------------------
+// The block route (w > kMaxW, every width): a CTA an instance, in place in
+// device memory, as csrc/fleet_banded.cu's block route.  The trailing
+// square of (w + 1)^2 floats outgrows a warp's registers and, from
+// w ~ 170, a block's shared memory, so the CTA copies the instance's band
+// into the output band and factors it there, kSweep (4) steps a sweep
+// (see block_lu_factor): the window (band rows c..c+w+3) moves through
+// memory once every four steps, and each entry still takes its products
+// in step order, each rounded first, as the plain version does.  At the game's
+// (256, 3000, 381) the 256 windows (1.2 MB each) outgrow the L2, and the
+// factor is bound by that traffic; a CTA holding several instances, so
+// that the resident windows fit the L2, measured 3.2x slower (PERF.md).  The
+// forward sweep runs a thread an offset, a barrier a row; the backward
+// sweep's row sum is a thread's terms then a pairwise tree over the
+// threads (backward_sum in kkt/fleet_banded.py), and one division.  x
+// lives in the output vector throughout.  Rows past n are masked.
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockMaxThreads = 1024;  // threads of a block-route CTA at most
+constexpr int kSweep = 4;  // elimination steps a sweep over the window
+
+// Threads of a block-route CTA (an offset 1..w each, whole warps, at most
+// kBlockMaxThreads) and leaves of its reduction tree (the binding's
+// block_threads and block_tree in kkt/fleet_banded.py).
+inline int block_threads(int w) {
+  const int t = kTeam * ((w + kTeam - 1) / kTeam);
+  return t < kBlockMaxThreads ? t : kBlockMaxThreads;
+}
+inline int block_tree(int w) {
+  int p = 1;
+  while (p < block_threads(w)) p <<= 1;
+  return p;
+}
+
+// dst[0..cnt) = src[0..cnt), the CTA's threads over the entries
+__device__ __forceinline__ void block_copy(const float* src, float* dst, size_t cnt) {
+  for (size_t i = threadIdx.x; i < cnt; i += blockDim.x) dst[i] = src[i];
+}
+
+// The sum of the CTA's partial sums v (one a thread) by a pairwise tree
+// over P leaves (the blockDim.x partial sums, then zeros): each level
+// adds the upper half to the lower, in shared memory down to 32 leaves,
+// then by shuffles in warp 0.  The sum is thread 0's; the tree is free
+// again after the caller's next block barrier.
+__device__ __forceinline__ float block_tree_sum(float v, float* tree, int P) {
+  const int t = threadIdx.x, T = blockDim.x;
+  tree[t] = v;
+  if (T + t < P) tree[T + t] = 0.0f;
+  __syncthreads();
+  for (int s = P / 2; s >= kTeam; s >>= 1) {
+    if (t < s) tree[t] = __fadd_rn(tree[t], tree[t + s]);
+    __syncthreads();
+  }
+  if (t < kTeam) {
+    v = tree[t];
+    for (int s = kTeam / 2; s >= 1; s >>= 1) {
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, s));
+    }
+  }
+  return v;
+}
+
+// Step c's pivot row: the clamped pivot d, row[i] = l_i = row[i] / d
+// (i = 1..w, a thread an offset), a block barrier; every thread has read
+// row[0] before thread 0 stores d there.
+__device__ __forceinline__ void block_lu_pivot(float* row, int w, float clamp) {
+  const int t = threadIdx.x, T = blockDim.x;
+  const float d = clamp_pivot(row[0], clamp);
+  for (int i = 1 + t; i <= w; i += T) row[i] = __fdiv_rn(row[i], d);
+  __syncthreads();
+  if (t == 0) row[0] = d;
+}
+
+// Step j's update of band row r > j (relative to the sweep's first pivot
+// row, `base`), in place: row r is step j's storage row m = r - j; its
+// columns k <= w - m take l_{m+k} u_m, its columns w + q (q = 1..w - m)
+// l_m u_{m+q}, from step j's pivot row; the threads over the entries.
+__device__ __forceinline__ void block_lu_row_update(float* base, int w, int j, int r) {
+  const int R = 2 * w + 1, t = threadIdx.x, T = blockDim.x;
+  const float* l = base + (size_t)j * R;
+  const float* u = l + w;
+  float* dst = base + (size_t)r * R;
+  const int m = r - j, e = w - m;
+  for (int k = t; k <= 2 * e; k += T) {
+    if (k <= e) {
+      dst[k] = __fsub_rn(dst[k], __fmul_rn(l[m + k], u[m]));
+    } else {
+      const int q = k - e;
+      dst[w + q] = __fsub_rn(dst[w + q], __fmul_rn(l[m], u[m + q]));
+    }
+  }
+}
+
+// Factor an instance's band A (n rows of 2w + 1 floats) in place, kSweep
+// steps a sweep.  The sweep's pivot rows c..c+kSweep-1 go one at a time:
+// pivot row c + j takes its earlier steps' updates, row by row (a block
+// barrier each), and is then step c + j's pivot row.  Then each band row
+// c + r, r = kSweep..w+kSweep-1, is loaded once and takes, entry by
+// entry, the product of each step c + j that reaches it, in step order,
+// each rounded before its subtraction: the plain version's roundings,
+// while the window, which outgrows the L2 at the game's widths, moves
+// through memory once every kSweep steps.  Step c + j's storage row for
+// band row c + r is m = r - j: columns k <= w - m take l_{m+k} u_m,
+// columns w + q (q <= w - m) l_m u_{m+q}, from pivot row c + j.
+__device__ __forceinline__ void block_lu_factor(float* A, int n, int w, float clamp) {
+  const int R = 2 * w + 1, t = threadIdx.x, T = blockDim.x;
+  const int lane = t & (kTeam - 1), warp = t / kTeam, warps = T / kTeam;
+  for (int c = 0; c < n; c += kSweep) {
+    float* base = A + (size_t)c * R;
+    const int np = min(kSweep, n - c);  // the sweep's pivot rows
+    for (int j = 0; j < np; ++j) {
+      block_lu_pivot(base + (size_t)j * R, w, clamp);
+      for (int r = j + 1; r < np; ++r) {  // the later pivot rows take step j
+        if (r - j <= w) block_lu_row_update(base, w, j, r);
+        __syncthreads();
+      }
+    }
+    if (np < kSweep) break;  // the last rows: nothing below them
+    for (int r = kSweep + warp; r < w + kSweep && c + r < n; r += warps) {
+      float* dst = base + (size_t)r * R;
+      const int e = w - r + kSweep - 1;  // the last step's reach
+      for (int k = lane; k <= 2 * e; k += kTeam) {
+        const bool lower = k <= e;
+        const int col = lower ? k : w + (k - e);
+        float v = dst[col];
+#pragma unroll
+        for (int j = 0; j < kSweep; ++j) {
+          const int m = r - j, ej = w - m;  // step j's storage row and reach
+          const float* l = base + (size_t)j * R;
+          const float* u = l + w;
+          if (lower && m <= w && k <= ej) {
+            v = __fsub_rn(v, __fmul_rn(l[m + k], u[m]));
+          } else if (!lower && m <= w && k - e <= ej) {
+            v = __fsub_rn(v, __fmul_rn(l[m], u[m + (k - e)]));
+          }
+        }
+        dst[col] = v;
+      }
+    }
+    __syncthreads();  // the next sweep's rows are final
+  }
+}
+
+// Solve against an instance's factored band F (n rows of 2w + 1 floats)
+// for x in place (x holds the right-hand side).
+__device__ __forceinline__ void block_lu_solve(const float* F, float* x, int n, int w,
+                                               float* tree, int P) {
+  const int R = 2 * w + 1, t = threadIdx.x, T = blockDim.x;
+  for (int c = 0; c < n; ++c) {
+    const float* row = F + (size_t)c * R;
+    const float y = x[c];
+    for (int i = 1 + t; i <= w && c + i < n; i += T) {
+      x[c + i] = __fsub_rn(x[c + i], __fmul_rn(row[i], y));
+    }
+    __syncthreads();  // y of row c + 1 is final
+  }
+  for (int c = n - 1; c >= 0; --c) {
+    const float* row = F + (size_t)c * R;
+    float acc = 0.0f;
+    for (int q = 1 + t; q <= w; q += T) {
+      acc = __fadd_rn(acc, __fmul_rn(row[w + q], c + q < n ? x[c + q] : 0.0f));
+    }
+    acc = block_tree_sum(acc, tree, P);
+    if (t == 0) x[c] = __fdiv_rn(__fsub_rn(x[c], acc), row[0]);
+    __syncthreads();  // x_c is final and the tree free
+  }
+}
+
+// The block route's kernels: a CTA of block_threads(w) threads an
+// instance, P = block_tree(w) floats of shared memory for the tree.
+__global__ void __launch_bounds__(kBlockMaxThreads)
+lu_factor_solve_block_kernel(const float* __restrict__ band, const float* __restrict__ rhs,
+                             float* fband, float* x, int n, int w, int P, float clamp) {
+  extern __shared__ float smem[];
+  const size_t b = blockIdx.x, off = b * n * (2 * w + 1);
+  block_copy(band + off, fband + off, (size_t)n * (2 * w + 1));
+  block_copy(rhs + b * n, x + b * n, n);
+  __syncthreads();
+  block_lu_factor(fband + off, n, w, clamp);
+  block_lu_solve(fband + off, x + b * n, n, w, smem, P);
+}
+
+__global__ void __launch_bounds__(kBlockMaxThreads)
+lu_solve_block_kernel(const float* __restrict__ fband, const float* __restrict__ rhs,
+                      float* x, int n, int w, int P) {
+  extern __shared__ float smem[];
+  const size_t b = blockIdx.x;
+  block_copy(rhs + b * n, x + b * n, n);
+  __syncthreads();
+  block_lu_solve(fband + b * n * (2 * w + 1), x + b * n, n, w, smem, P);
+}
+
+__global__ void __launch_bounds__(kBlockMaxThreads)
+lu_factor_block_kernel(const float* __restrict__ band, float* fband, int n, int w,
+                       float clamp) {
+  const size_t off = (size_t)blockIdx.x * n * (2 * w + 1);
+  block_copy(band + off, fband + off, (size_t)n * (2 * w + 1));
+  __syncthreads();
+  block_lu_factor(fband + off, n, w, clamp);
+}
+
+// Grid, threads and shared memory of a block-route launch (the binding's
+// plan: one instance a CTA, no ring); false for one the kernels do not take.
+bool block_config(int n, int w, int B, int ring, int G, dim3& grid, dim3& threads,
+                  size_t& smem, int& P) {
+  if (n < 1 || B < 1 || w <= kMaxW || ring != 0 || G != 1) return false;
+  grid = dim3(B);
+  threads = dim3(block_threads(w));
+  P = block_tree(w);
+  smem = (size_t)P * sizeof(float);
+  return true;
+}
+
 // The capacity a launch above kLaneRowW runs at
 inline int wide_cap(int w) { return w <= 47 ? 47 : 63; }
 
@@ -989,8 +1210,14 @@ int tc_banded_lu_factor_solve(int w, int ring, int G, int rows, const float* ban
                               int B, float clamp, void* stream) {
   dim3 grid, block;
   size_t smem;
-  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kMaxW) {
+    int P;
+    if (!block_config(n, w, B, ring, G, grid, block, smem, P)) return cudaErrorInvalidValue;
+    lu_factor_solve_block_kernel<<<grid, block, smem, s>>>(band, rhs, fband, x, n, w, P, clamp);
+    return cudaGetLastError();
+  }
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   if (w > kLaneRowW) {
     switch (wide_cap(w)) {
 #define X(CC)                                                                   \
@@ -1027,8 +1254,14 @@ int tc_banded_lu_solve(int w, int ring, int G, int rows, const float* fband,
                        const float* rhs, float* x, int n, int B, void* stream) {
   dim3 grid, block;
   size_t smem;
-  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kMaxW) {
+    int P;
+    if (!block_config(n, w, B, ring, G, grid, block, smem, P)) return cudaErrorInvalidValue;
+    lu_solve_block_kernel<<<grid, block, smem, s>>>(fband, rhs, x, n, w, P);
+    return cudaGetLastError();
+  }
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   if (w > kLaneRowW) {
     switch (wide_cap(w)) {
 #define X(CC)                                                                   \
@@ -1065,8 +1298,14 @@ int tc_banded_lu_factor(int w, int ring, int G, int rows, const float* band,
                         float* fband, int n, int B, float clamp, void* stream) {
   dim3 grid, block;
   size_t smem;
-  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w > kMaxW) {
+    int P;
+    if (!block_config(n, w, B, ring, G, grid, block, smem, P)) return cudaErrorInvalidValue;
+    lu_factor_block_kernel<<<grid, block, 0, s>>>(band, fband, n, w, clamp);
+    return cudaGetLastError();
+  }
+  if (!launch_config(n, w, B, G, rows, grid, block, smem)) return cudaErrorInvalidValue;
   if (w > kLaneRowW) {
     switch (wide_cap(w)) {
 #define X(CC)                                                                   \

@@ -21,9 +21,12 @@ a CUDA tensor goes to the hand-written kernel in ``csrc/banded_lu.cu``
 versions repeat the kernels' arithmetic step for step, so on the card
 the two agree to the last bit.
 
-The kernels read and write the JAX layout itself, instance-contiguous:
-a warp factors one instance staged in shared memory, and a CTA holds
-``group`` instances.  :func:`launch_plan` picks the group and the route
+The kernels read and write the JAX layout itself, instance-contiguous.
+:func:`route` picks the route by width, for every w >= 1: up to
+``MAX_W`` a warp factors one instance staged in shared memory, and a CTA
+holds ``group`` instances; above, the block route, a CTA an instance
+factoring in place on the output band in device memory.
+:func:`launch_plan` picks the group and, on the warp route, the staging
 by size: the whole band and x in shared memory, or, above the block's
 shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
 n.
@@ -45,11 +48,13 @@ import torch.nn.functional as Fn
 
 from .._build import build_shared_library, find_tool
 from .band_assemble import extract_band_lower, extract_band_upper, shifted_cols
-from .dense import hdot
-from .fleet_banded import NVCC_FLAGS, _clamp_pivot, _device_kind, _stream
+from .dense import equilibration_scale, hdot
+from .fleet_banded import (
+    NVCC_FLAGS, _check_width, _clamp_pivot, _device_kind, _stream, backward_sum, block_tree,
+)
 from .structure import BandedPlan
 
-MAX_W = 63  # widths the kernels take (csrc/banded_lu.cu)
+MAX_W = 63  # a warp an instance up to here, a CTA an instance above
 LANE_ROW_W = 31  # a width a template up to here; above, two rows a lane
 # the template widths of csrc/banded_lu.cu: each width to LANE_ROW_W, and
 # the capacities above (w a run-time argument up to the next capacity)
@@ -91,12 +96,25 @@ def instance_bytes(n: int, w: int, ring: bool) -> int:
     return 4 * instance_rows(n, w, ring) * (2 * w + 2)
 
 
+def route(w: int) -> str:
+    """The route of K9-K11 at half-bandwidth w, for every w >= 1: 'warp'
+    (a warp an instance, staged in shared memory; its lane maps change at
+    w = 16 and 32) to MAX_W, 'block' (a CTA an instance, in place in
+    device memory) above."""
+    _check_width(w)
+    return "warp" if w <= MAX_W else "block"
+
+
 def launch_plan(n: int, w: int, B: int, sms: int = 132) -> LaunchPlan:
     """Route and group of a launch.  The band is staged whole while an
     instance fits the block cap, else through the ring, whose size does
     not depend on n.  The group is the fewest instances a CTA that lets B
     instances run in one wave at two CTAs an SM (``sms`` SMs), at most
-    MAX_GROUP and no more than two CTAs an SM can hold."""
+    MAX_GROUP and no more than two CTAs an SM can hold.  On the block
+    route a CTA serves one instance and its shared memory is the
+    reduction tree's block_tree(w) floats."""
+    if route(w) == "block":
+        return LaunchPlan(False, 1, 0, 4 * block_tree(w))
     ring = instance_bytes(n, w, False) > SMEM_MAX
     per = instance_bytes(n, w, ring)
     group = max(1, min(MAX_GROUP, -(-B // (2 * sms)), SMEM_TWO_BLOCKS // per))
@@ -217,8 +235,7 @@ def _check_band(band: torch.Tensor, w: int) -> None:
         )
     if band.dtype != torch.float32:
         raise TypeError(f"band must be float32, got {band.dtype}")
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"half-bandwidth w={w} outside 1..{MAX_W}")
+    _check_width(w)
 
 
 def _check_rhs(band: torch.Tensor, b: torch.Tensor) -> None:
@@ -236,27 +253,22 @@ def _check_rhs(band: torch.Tensor, b: torch.Tensor) -> None:
 # plain versions: the kernels' arithmetic, one row at a time
 # ---------------------------------------------------------------------------
 
-def _trailing_offsets(w: int) -> torch.Tensor:
-    """Where entry A[c+i, c+j] (i, j = 1..w) of step c's trailing square
-    lies in band storage, as an offset from row c's first entry: band row
-    c+j at column i-j (j <= i), band row c+i at column w+j-i (j > i).
-    (w, w), row-major in (i, j)."""
-    i = torch.arange(1, w + 1)[:, None]
-    j = torch.arange(1, w + 1)[None, :]
-    row = torch.minimum(i, j)
-    col = torch.where(j <= i, i - j, w + j - i)
-    return row * (2 * w + 1) + col
-
-
 def fleet_banded_lu_factor_plain(band: torch.Tensor, w: int,
                                  clamp: float = 0.0) -> torch.Tensor:
     """Plain version of K11: factored band (B, n, 2w+1).  Each step
     updates every entry of its trailing square once, A[c+i, c+j] minus
-    the product l_i u_j rounded first."""
+    the product l_i u_j rounded first.  The square lies in band rows
+    c+1..c+w: row c+m takes l_{m+k} u_m at column k <= w - m (entry
+    A[c+m+k, c+m]) and l_m u_{m+q} at column w + q, q = 1..w - m (entry
+    A[c+m, c+m+q]); the factors come as windows of l and u padded with
+    zeros, and the entries outside the square subtract a zero, which
+    leaves every float as it is."""
     B, n, R = band.shape
     work = torch.cat([band, band.new_zeros(B, w, R)], dim=1)
-    flat = work.view(B, -1)
-    off = _trailing_offsets(w).flatten().to(band.device)
+    m = torch.arange(1, w + 1, device=band.device)[:, None]
+    below = torch.arange(w + 1, device=band.device)[None, :] <= w - m  # k = 0..w
+    above = torch.arange(1, w + 1, device=band.device)[None, :] <= w - m  # q = 1..w
+    zero = torch.zeros((), dtype=band.dtype, device=band.device)
     fband = torch.empty_like(band)
     for c in range(n):
         d = _clamp_pivot(work[:, c, 0], clamp)
@@ -265,8 +277,12 @@ def fleet_banded_lu_factor_plain(band: torch.Tensor, w: int,
         fband[:, c, 0] = d
         fband[:, c, 1: w + 1] = l
         fband[:, c, w + 1:] = u
-        idx = off + c * R
-        flat[:, idx] = flat[:, idx] - (l[:, :, None] * u[:, None, :]).flatten(1)
+        # lw[:, m-1, k] = l_{m+k}, uw[:, m-1, q-1] = u_{m+q}
+        lw = Fn.pad(l, (0, w)).unfold(1, w + 1, 1)[:, :w]
+        uw = Fn.pad(u, (0, w)).unfold(1, w, 1)[:, 1:]
+        rows = work[:, c + 1: c + w + 1]
+        rows[:, :, : w + 1] -= torch.where(below, lw * u[:, :, None], zero)
+        rows[:, :, w + 1:] -= torch.where(above, l[:, :, None] * uw, zero)
     return fband
 
 
@@ -282,14 +298,12 @@ def _forward_plain(fband: torch.Tensor, b: torch.Tensor, w: int) -> torch.Tensor
 
 def _backward_plain(fband: torch.Tensor, x: torch.Tensor, w: int) -> torch.Tensor:
     """U x = y in place on the padded y; returns the first n rows.  Row
-    c's products u_q x_{c+q} are summed in the order q = 1..w."""
+    c's products u_q x_{c+q} are summed in the route's order
+    (:func:`.fleet_banded.backward_sum`: q = 1..w to w = 63)."""
     n = fband.shape[1]
     for c in range(n - 1, -1, -1):
         prods = fband[:, c, w + 1:] * x[:, c + 1: c + w + 1]
-        acc = torch.zeros_like(x[:, c])
-        for q in range(w):
-            acc = acc + prods[:, q]
-        x[:, c] = (x[:, c] - acc) / fband[:, c, 0]
+        x[:, c] = (x[:, c] - backward_sum(prods)) / fband[:, c, 0]
     return x[:, :n]
 
 
@@ -371,8 +385,8 @@ class _LUAdapterBase:
         self.n_refine = n_refine
         self.clamp = clamp
         self.w = plan.bandwidth
-        self.r = torch.rsqrt(torch.clamp(rn, min=1e-30))
-        self.c = torch.rsqrt(torch.clamp(cn, min=1e-30))
+        self.r = equilibration_scale(rn)
+        self.c = equilibration_scale(cn)
         self._band_scaled = _scale_band(lband, uband, self.r, self.c, self.w)
         self.fband = None  # lazy: the first solve fuses factor + solve
         self.perm = perm

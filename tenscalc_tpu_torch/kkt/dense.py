@@ -48,6 +48,16 @@ def hdot(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
 
 
+def equilibration_scale(norm: torch.Tensor) -> torch.Tensor:
+    """The equilibration scale 1/sqrt(max(norm, 1e-30)) of float32 row or
+    column norms, correctly rounded to float32: formed in float64, then
+    rounded once.  torch's float32 ``rsqrt`` is off in the last bit for
+    about a quarter of the inputs, and differently on the CPU and the
+    card; the scaled matrix feeds an unpivoted elimination whose clamped
+    pivots can turn a last-bit change into another IPM path."""
+    return (1.0 / torch.sqrt(torch.clamp(norm, min=1e-30).double())).float()
+
+
 def hdotT(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``A.T @ y`` for a batch of vectors ``y`` (B, m), with ``A`` as in
     :func:`hdot`.  Returns (B, n)."""

@@ -17,13 +17,20 @@ trailing update order, sequential sums), so on the card the two agree to
 the last bit; they are the kernels' oracle, not a yardstick of speed.
 
 The kernels read and write the JAX layout itself, instance-contiguous.
-Up to ``NARROW_W`` a lane runs one instance's elimination, a CTA is one
-warp serving ``group`` instances staged in shared memory; above, up to
+:func:`route` picks the route by width, for every w >= 1: up to
+``NARROW_W`` a lane runs one instance's elimination, a CTA is one warp
+serving ``group`` instances staged in shared memory; above, up to
 ``MAX_W``, a warp runs one instance (a lane a row of the window) and a
-CTA is that warp (group 1).  :func:`launch_plan` picks the group (the
-fewest that fill the card in one wave) and the route by size: the whole
-band and x in shared memory, or, above the block's shared-memory cap, a
-ring of ``RING_ROWS`` rows of each, which takes any n.
+CTA is that warp (group 1); above ``MAX_W`` the block route, a CTA of
+:func:`block_threads` threads an instance, factoring in place on the
+output band in device memory (no width cap: the planner's bands reach
+n/4).  :func:`launch_plan` picks the group (the fewest that fill the
+card in one wave) and, on the lane and warp routes, the staging by size:
+the whole band and x in shared memory, or, above the block's
+shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
+n.  The backward sweep's row sums follow the route's order
+(:func:`backward_sum`), so every route agrees with its plain version to
+the last bit.
 
 Rows past n: the JAX entry points pad with identity rows; the kernels
 and the plain versions mask instead.  Band entries that reach past row n
@@ -41,11 +48,12 @@ import torch
 import torch.nn.functional as Fn
 
 from .._build import build_shared_library, find_tool
-from .dense import hdot
+from .dense import equilibration_scale, hdot
 from .structure import BandedPlan
 
-MAX_W = 63  # widths the kernels take (csrc/fleet_banded.cu)
 NARROW_W = 16  # a lane an instance up to here, a warp an instance above
+MAX_W = 63  # a warp an instance up to here, a CTA an instance above
+BLOCK_MAX_THREADS = 1024  # threads of a block-route CTA at most
 # the template widths of csrc/fleet_banded.cu: each narrow width, and the
 # capacities the wide route's kernels are instantiated at (w a run-time
 # argument up to the next capacity)
@@ -76,6 +84,55 @@ NVCC_FLAGS = [
 _lib: Optional[ctypes.CDLL] = None
 LIB_PATH: Optional[Path] = None  # the built library, once loaded
 _READY: set = set()  # devices where the kernels' shared-memory opt-in is set
+
+
+def route(w: int) -> str:
+    """The route of K1-K3 at half-bandwidth w, for every w >= 1: 'lane'
+    (a lane an instance) to NARROW_W, 'warp' (a warp an instance) to
+    MAX_W, 'block' (a CTA an instance) above."""
+    _check_width(w)
+    return "lane" if w <= NARROW_W else "warp" if w <= MAX_W else "block"
+
+
+def block_threads(w: int) -> int:
+    """Threads of a block-route CTA: one an offset 1..w of the window,
+    whole warps, at most BLOCK_MAX_THREADS (a thread takes every
+    BLOCK_MAX_THREADS-th offset above)."""
+    return min(32 * -(-w // 32), BLOCK_MAX_THREADS)
+
+
+def block_tree(w: int) -> int:
+    """Leaves of the block route's reduction tree: block_threads(w)
+    rounded up to a power of two (the padding holds zeros)."""
+    return 1 << (block_threads(w) - 1).bit_length()
+
+
+def backward_sum(prods: torch.Tensor) -> torch.Tensor:
+    """A backward sweep's sum of a row's w products (B, w) -> (B,), in
+    the order of the route that w takes in both families: sequential
+    from zero over i = 1..w up to MAX_W; on the block route thread t's
+    terms i = t, t + T, ... (T = block_threads(w)) sequential from zero,
+    then a pairwise tree over the T partial sums padded with zeros to
+    block_tree(w) leaves, each level adding the upper half to the lower.
+    No partial sum is ever -0 (each starts at +0), so the zeros of the
+    padding change nothing: the kernel skips them."""
+    B, w = prods.shape
+    if w <= MAX_W:
+        acc = prods.new_zeros(B)
+        for i in range(w):
+            acc = acc + prods[:, i]
+        return acc
+    T, P = block_threads(w), block_tree(w)
+    J = -(-w // T)
+    terms = Fn.pad(prods, (0, J * T - w)).view(B, J, T)
+    acc = prods.new_zeros(B, T)
+    for j in range(J):
+        acc = acc + terms[:, j]
+    acc = Fn.pad(acc, (0, P - T))
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
 
 
 class LaunchPlan(NamedTuple):
@@ -111,7 +168,14 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132,
     (``sms`` SMs), at most MAX_GROUP, and 1 above NARROW_W (a warp an
     instance); ``group`` overrides it (a measurement's choice).  The
     group's bands are staged whole while they fit the block cap together,
-    else they go through the ring, whose size does not depend on n."""
+    else they go through the ring, whose size does not depend on n.  On
+    the block route (w > MAX_W) a CTA factors one instance in place in
+    device memory and stages nothing: its shared memory is the reduction
+    tree's block_tree(w) floats."""
+    if route(w) == "block":
+        if group not in (None, 1):
+            raise ValueError(f"group {group} outside 1..1 at n={n}, w={w}")
+        return LaunchPlan(False, 1, 0, 0, 4 * block_tree(w))
     wide = w > NARROW_W
     want = (1 if wide else max(1, min(MAX_GROUP, -(-B // (sms * SM_SLOTS))))
             if group is None else group)
@@ -197,12 +261,17 @@ def check_reciprocal(device: torch.device) -> int:
 # CUDA device, outputs preallocated
 # ---------------------------------------------------------------------------
 
+def _check_width(w: int) -> None:
+    """Every half-bandwidth from 1 up: the block route has no cap."""
+    if w < 1:
+        raise ValueError(f"half-bandwidth w={w} outside 1..")
+
+
 def _kernel_operands(w: int, bands, vectors):
     """(B, n) of a launch, after checking its operands: the bands (B, n,
     w+1) and the vectors (B, n), contiguous float32 tensors on one CUDA
     device.  Raises on anything else, before any CUDA call."""
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"half-bandwidth w={w} outside 1..{MAX_W}")
+    _check_width(w)
     if bands[0].dim() != 3:
         raise ValueError(f"band must be (B, n, w+1), got {tuple(bands[0].shape)}")
     B, n = bands[0].shape[:2]
@@ -280,8 +349,7 @@ def _check_band(band: torch.Tensor, w: int) -> None:
         )
     if band.dtype != torch.float32:
         raise TypeError(f"band must be float32, got {band.dtype}")
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"half-bandwidth w={w} outside 1..{MAX_W}")
+    _check_width(w)
 
 
 def _check_rhs(band: torch.Tensor, b: torch.Tensor) -> None:
@@ -312,41 +380,34 @@ def _clamp_pivot(d: torch.Tensor, clamp: float) -> torch.Tensor:
     return d
 
 
-def _trailing_index(w: int, device) -> tuple:
-    """Step c's trailing update as one operation: entry (i, k) of rows
-    c+1..c+w (i = 1..w, k = 0..w-1) takes r_{i+k}, at index i-1+k of r
-    padded with w zeros, where i + k <= w (the mask)."""
-    i = torch.arange(1, w + 1, device=device)[:, None]
-    k = torch.arange(w, device=device)[None, :]
-    return i - 1 + k, i + k <= w
-
-
 def fleet_banded_factor_plain(band: torch.Tensor, w: int,
                               clamp: float = 0.0) -> torch.Tensor:
     """Plain version of K3: factored band (B, n, w+1).  Each trailing
     entry M[c+i+k, c+i] (i + k <= w) is updated once a step, minus the
-    product (d r_i) r_{i+k} rounded first; the rest subtract a zero,
-    which leaves every float as it is."""
+    product (d r_i) r_{i+k} rounded first, r_{i+k} from a window of r
+    padded with zeros; the rest subtract a zero, which leaves every
+    float as it is."""
     B, n, R = band.shape
     work = torch.cat([band, band.new_zeros(B, w, R)], dim=1)
     fband = torch.empty_like(band)
-    idx, mask = _trailing_index(w, band.device)
+    i = torch.arange(1, w + 1, device=band.device)[:, None]
+    mask = i + torch.arange(w, device=band.device)[None, :] <= w
+    zero = torch.zeros((), dtype=band.dtype, device=band.device)
     for c in range(n):
         d = _clamp_pivot(work[:, c, 0], clamp)
         r = work[:, c, 1:] / d[:, None]
         fband[:, c, 0] = d
         fband[:, c, 1:] = r
         di = d[:, None] * r  # d r_i at i - 1
-        rr = torch.cat([r, torch.zeros_like(r)], dim=1)[:, idx]
-        upd = torch.where(mask, di[:, :, None] * rr, torch.zeros_like(rr))
-        work[:, c + 1: c + R, :w] -= upd
+        rr = Fn.pad(r, (0, w)).unfold(1, w, 1)[:, :w]  # rr[:, i-1, k] = r_{i+k}
+        work[:, c + 1: c + R, :w] -= torch.where(mask, di[:, :, None] * rr, zero)
     return fband
 
 
 def fleet_banded_solve_plain(fband: torch.Tensor, b: torch.Tensor,
                              w: int) -> torch.Tensor:
     """Plain version of K2: x with (L diag(d) L^T) x = b; the backward
-    sweep's sum over i = 1..w sequential, from zero."""
+    sweep's sum over i = 1..w in the route's order (:func:`backward_sum`)."""
     B, n, R = fband.shape
     x = torch.cat([b, b.new_zeros(B, w)], dim=1)
     for c in range(n):
@@ -356,10 +417,7 @@ def fleet_banded_solve_plain(fband: torch.Tensor, b: torch.Tensor,
     x[:, n:] = 0.0
     for c in range(n - 1, -1, -1):
         prods = fband[:, c, 1:] * x[:, c + 1: c + R]
-        acc = torch.zeros_like(x[:, c])
-        for i in range(w):
-            acc = acc + prods[:, i]
-        x[:, c] = x[:, c] - acc
+        x[:, c] = x[:, c] - backward_sum(prods)
     return x[:, :n].contiguous()
 
 
@@ -417,18 +475,15 @@ def fleet_banded_solve_batched(fband: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _sym_equilibration(band: torch.Tensor, n: int, w: int) -> torch.Tensor:
-    """Symmetric row-inf-norm equilibration scale s = rsqrt(max_j |W_rj|)
+    """Symmetric row-inf-norm equilibration scale s = 1/sqrt(max_j |W_rj|)
     from lower-band storage (row r holds band[r, :] and band[r-i, i]).
-    band (B, n, w+1) -> s (B, n), correctly rounded: float32 rsqrt
-    differs from it in the last bit for about a quarter of the inputs,
-    and differently on the CPU and the card, while the scaled band feeds
-    an unpivoted elimination whose clamped pivots can turn a last-bit
-    change into another IPM path (the quadcopter's KKT)."""
+    band (B, n, w+1) -> s (B, n), correctly rounded
+    (:func:`.dense.equilibration_scale`)."""
     absb = band.abs()
     rn = absb.amax(dim=2)
     for i in range(1, w + 1):
         rn = torch.maximum(rn, Fn.pad(absb[:, :, i], (i, 0))[:, :n])
-    return (1.0 / torch.sqrt(torch.clamp(rn, min=1e-30).double())).float()
+    return equilibration_scale(rn)
 
 
 def _scaled_band(band: torch.Tensor, n: int, w: int):

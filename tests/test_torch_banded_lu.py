@@ -141,8 +141,8 @@ def test_wrappers_reject_bad_inputs():
         tlu.fleet_banded_lu_factor_batched(tb.double(), 2)
     with pytest.raises(ValueError):
         tlu.fleet_banded_lu_solve_batched(tb, tr[:, :5], 2)
-    with pytest.raises(ValueError, match="outside 1..63"):
-        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 129), 64)
+    with pytest.raises(ValueError, match="w=0 outside 1.."):
+        tlu.fleet_banded_lu_factor_batched(torch.zeros(2, 40, 1), 0)
 
 
 # (n, w, B) -> (ring route, instances a CTA): the MPC-MHE fleet fills the

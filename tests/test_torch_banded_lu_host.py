@@ -110,12 +110,13 @@ def test_kernels_on_the_host_equal_plain_versions(lib, w, B, n, G, ring):
 
 
 def test_host_launches_refuse_widths_past_the_cap(lib):
-    """The C entry points check the width before launching: w = 64 is
-    past every route, as w = 0 is."""
+    """The C entry points check the width and plan before launching: w = 0
+    is on no route, and past the warp route's cap (w = 64 up, the block
+    route) a CTA takes one instance and no ring."""
     band, rhs = _band(1, 40, 4, seed=1)
     f, x = torch.empty_like(band), torch.empty_like(rhs)
-    for w in (0, tlu.MAX_W + 1):
-        assert lib.tc_banded_lu_factor_solve(w, 0, 1, 40 + max(w, 1), band.data_ptr(),
+    for w, ring, G in ((0, 0, 1), (tlu.MAX_W + 1, 0, 2), (tlu.MAX_W + 1, 1, 1)):
+        assert lib.tc_banded_lu_factor_solve(w, ring, G, 40 + max(w, 1), band.data_ptr(),
                                              rhs.data_ptr(), f.data_ptr(), x.data_ptr(),
                                              40, 1, CLAMP, None) != 0
     assert lib.tc_banded_lu_max_w() == tlu.MAX_W == 63

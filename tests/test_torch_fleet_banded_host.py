@@ -294,7 +294,7 @@ def test_host_launches_refuse_a_plan_the_kernels_do_not_take(lib):
         (4, 1, 2, 64, good[4]),           # a ring that is not RING_ROWS
         (4, 0, 33, good[3], good[4]),     # a group past a warp
         (17, 0, 2, good[3], good[4]),     # a group on the wide route
-        (tfb.MAX_W + 1, 0, 1, good[3], good[4]),  # a width past MAX_W
+        (tfb.MAX_W + 1, 0, 2, good[3], good[4]),  # a group on the block route
         (4, 0, 2, good[3], good[3]),      # a slice smaller than its rows
     ]
     for plan in bad:
