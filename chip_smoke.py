@@ -108,7 +108,8 @@ Phases:
      (B, n, w) = (256, 1000, 95), (64, 1200, 127), (16, 2000, 255) and
      (2, 4000, 999), and K9-K11 at the game's band (256, 3000, 381),
      bitwise against their plain versions, timed beside their bounds, the
-     plain versions and the library calls on the band expanded to dense;
+     plain versions and the library calls on the band expanded to dense,
+     with K9-K11's panel width and each launch's shared memory logged;
      [deconv]: a fleet of 256 box-bounded
      deconvolutions through a 96-tap filter (N = 1000, nK = 1000, RCM
      w = 95, the 'hoisted' band) through K1/K2 on the block route, eight
@@ -272,13 +273,20 @@ LU_WIDE_SHAPES = ([(512, 286, w) for w in LU_WIDE_WIDTHS]
 # the game's stacked KKT (nK = 3 N) has RCM w = 381
 DC_N, DC_K, DC_B = 1000, 96, 256
 GAME_BAND = (DC_B, 3 * DC_N, 381)
-# the block route (a CTA an instance, in place in device memory) of
-# K1-K3 and K9-K11: the deconvolution fleet's band (B = 256, n = 1000,
-# w = 95), wider bands, and the planner's n/4 limit; K9-K11 also at the
-# game's band
+# the block route (K1-K3: a CTA an instance, in place in device memory;
+# K9-K11: a CTA an instance factoring in panels, a warp an instance
+# solving): the deconvolution fleet's band (B = 256, n = 1000, w = 95),
+# wider bands, and the planner's n/4 limit; K9-K11 also at the game's
+# band, at w = 1024 (the widest warp solve: its window's last entry in
+# the x ring, NL = 32) and at w = 1800 (the solve in device memory, the
+# factor in panels of 16)
 BLOCK_SHAPES = [(256, 1000, 95), (64, 1200, 127), (16, 2000, 255), (2, 4000, 999)]
+LU_WIDE_BLOCK_SHAPES = [(2, 4100, 1024), (1, 7000, 1800)]
 BLOCK_CASES = ([(fam, shape) for shape in BLOCK_SHAPES for fam in ("fb", "lu")]
-               + [("lu", GAME_BAND)])
+               + [("lu", shape) for shape in (GAME_BAND, *LU_WIDE_BLOCK_SHAPES)])
+# K9-K11's phases in device memory are also forced, through the C entries,
+# at the LU cases up to this many updates (B n w^2)
+INPLACE_CHECK_UPDATES = 1e10
 DC_MAX_ITER = 100
 # [profile11] traces the game's first iterations (a lockstep iteration of
 # the game takes ~0.8 s)
@@ -706,9 +714,9 @@ def ptxas_report(mod, w, routes=("",)) -> str:
     """Registers a thread of a kernel library's three kernels at width
     ``w`` (on the wide routes, the capacity ``w`` is instantiated at) on
     each route (the kernels' second template argument: ``routes`` =
-    ("staged", "ring")), or with ``w`` None of its three block-route
-    kernels (not templates), from the ptxas report (-Xptxas -v) in its
-    build log; fails on a spill in any kernel."""
+    ("staged", "ring")), or with ``w`` None of its block-route kernels
+    (the library's BLOCK_KERNELS), from the ptxas report (-Xptxas -v) in
+    its build log; fails on a spill in any kernel."""
     import re
 
     from tenscalc_tpu_torch._build import build_log
@@ -716,10 +724,13 @@ def ptxas_report(mod, w, routes=("",)) -> str:
     regs, spills, name = {}, {}, None
     for line in build_log(mod.LIB_PATH).read_text().splitlines():
         m = re.search(r"Compiling entry function '.*?\d((?:lu_)?(?:factor_solve|solve|factor)"
-                      r"(?:_wide|_block)?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
+                      r"(?:_wide|_block|_inplace)?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?", line)
         if "Compiling entry function" in line:
-            name = ((m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)]) if m and m.group(2)
-                    else (m.group(1), None, "") if m else None)
+            if m and re.search("_block_|_inplace_", m.group(1)):  # the block route's
+                name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""), None, "")
+            else:
+                name = ((m.group(1), int(m.group(2)), routes[int(m.group(3) or 0)])
+                        if m and m.group(2) else (m.group(1), None, "") if m else None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills[name] = int(m.group(1)) + int(m.group(2))
@@ -728,7 +739,8 @@ def ptxas_report(mod, w, routes=("",)) -> str:
             regs[name] = int(m.group(1))
     src = Path(mod.LIB_PATH).name
     n_block = sum(kw is None for _, kw, _ in regs)
-    check(len(regs) - n_block == 3 * len(mod.KERNEL_WIDTHS) * len(routes) and n_block == 3,
+    check(len(regs) - n_block == 3 * len(mod.KERNEL_WIDTHS) * len(routes)
+          and n_block == mod.BLOCK_KERNELS,
           f"{src}: ptxas reported {len(regs)} kernels, {n_block} on the block route")
     check(not any(spills.values()), f"{src}: register spills: {spills}")
     return ", ".join(f"{k}{' ' + rt if rt else ''} {r}"
@@ -1224,6 +1236,44 @@ def phase_wide_lu_kernels(lu, recs):
         del band, rhs, f9, x9, x10, f11, pf, px, px10, fo, xo
 
 
+def lu_block_launches(lu, n, w, B, plan) -> str:
+    """K9-K11's launches on the block route: the factor's panel width nb
+    and each kernel's CTAs and shared memory (either phase in device
+    memory where the plan says 0)."""
+    ssmem = lu.block_smem(w, plan.group, plan.rows, False)
+    factor = (f"a CTA of {lu.PANEL_THREADS} threads an instance, panels of nb = "
+              f"{plan.rows} steps" if plan.rows else
+              f"in device memory (a CTA of {lu.block_threads(w)} threads an instance)")
+    solve = (f"{plan.group} instance(s) (a warp each) a CTA, {-(-B // plan.group)} CTAs"
+             if plan.group else
+             f"in device memory (a CTA of {lu.block_threads(w)} threads an instance), {B} CTAs")
+    return (f"the factor (K11, K9's first launch) {factor}, {B} CTAs, {plan.smem} bytes of "
+            f"shared memory a CTA; the solve (K10, K9's second launch) {solve}, "
+            f"{ssmem} bytes a CTA")
+
+
+def lu_inplace_check(lu, band, rhs, w, clamp, pf, px, px2) -> None:
+    """K9-K11 with both block-route phases in device memory (panel 0 and
+    group 0, which the plan takes only past w = 7252 and w = 1024),
+    forced through the C entries at a narrower band: bitwise against the
+    plain versions.  These launches are checks: no wrapper counts them."""
+    lib = lu._lib_on(band.device)
+    B, n, _ = band.shape
+    f, x, x2, f3 = (torch.full_like(t, float("nan")) for t in (band, rhs, rhs, band))
+    s = lu._stream(band)
+    rcs = (lib.tc_banded_lu_factor_solve(w, 0, 0, 0, band.data_ptr(), rhs.data_ptr(),
+                                         f.data_ptr(), x.data_ptr(), n, B, clamp, s),
+           lib.tc_banded_lu_solve(w, 0, 0, 0, pf.data_ptr(), rhs.data_ptr(), x2.data_ptr(),
+                                  n, B, s),
+           lib.tc_banded_lu_factor(w, 0, 0, 0, band.data_ptr(), f3.data_ptr(), n, B, clamp, s))
+    torch.cuda.synchronize()
+    check(rcs == (0, 0, 0) and same_bits(f, pf) and same_bits(x, px) and same_bits(x2, px2)
+          and same_bits(f3, pf), f"K9-K11 in device memory at B={B} n={n} w={w}: rc {rcs}, "
+          "not bitwise")
+    log(f"[block-kernels] B={B} n={n} w={w} K9-K11 with both phases in device memory "
+        "(forced): bitwise equal to the plain versions")
+
+
 def phase_block_kernels(fb, lu):
     """K1-K3 and K9-K11 on the block route (w > 63: a CTA an instance) at
     BLOCK_CASES: bitwise against the plain versions, timed (device time
@@ -1273,10 +1323,15 @@ def phase_block_kernels(fb, lu):
                 keys[1]: (x2 - px2).abs().max().item(), keys[2]: (f3 - pf).abs().max().item()}
         check(all(e == 0.0 for e in errs.values()), f"block route errors {errs}")
         check(bool((f3[..., 0].abs() > clamp).all()), "no clamp fired in the factor")
+        if fam == "fb":
+            launches = (f"a CTA of {fb.block_threads(w)} threads an instance, {B} CTAs, "
+                        f"{plan.smem} bytes of shared memory a CTA")
+        else:
+            launches = lu_block_launches(lu, n, w, B, plan)
+            if B * n * w * w <= INPLACE_CHECK_UPDATES:
+                lu_inplace_check(lu, band, rhs, w, clamp, pf, px, px2)
         log(f"[block-kernels] B={B} n={n} w={w} {'K1-K3' if fam == 'fb' else 'K9-K11'}: "
-            f"block route, a CTA of {fb.block_threads(w)} threads an instance, {B} CTAs, "
-            f"{plan.smem} bytes of shared memory a CTA; bitwise equal to the plain versions "
-            f"(max abs err 0.0)")
+            f"block route, {launches}; bitwise equal to the plain versions (max abs err 0.0)")
         scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
         if fam == "fb":
             Ad = ldl_dense(band)
@@ -1311,9 +1366,16 @@ def phase_block_kernels(fb, lu):
             ms = cuda_ms(kern, kreps)
             plain_s = (f"{plain_ms[k]:.1f} ms (one call, host clock)"
                        if plain_ms[k] is not None else "not timed")
+            floor = ""
+            if fam == "lu" and k != keys[1]:
+                # the factor's floor under the kernels' contract: each of its
+                # sum over steps of min(w, n-1-c)^2 updates a product rounded,
+                # then a subtraction, two FP32 instructions (no FMA)
+                upd = B * sum(min(w, n - 1 - c) ** 2 for c in range(n))
+                floor = f", {4 * upd / FP32_FLOPS * 1e3:.3f} ms without FMA"
             log(f"[block-kernels] {names[k]} B={B} n={n} w={w}: max_abs_err {errs[k]:.1e}  "
                 f"kernel {ms:.4f} ms (device {dev:.4f} ms)  plain {plain_s}  library "
-                f"{libs[k]:.4f} ms  bound {bms:.5f} ms ({by}), {dev / bms:.1f}x")
+                f"{libs[k]:.4f} ms  bound {bms:.5f} ms ({by}{floor}), {dev / bms:.1f}x")
             rows[k].append({"B": B, "n": n, "w": w, "ms": ms, "device_ms": dev,
                             "plain_ms": plain_ms[k], "bound_ms": bms, "bound_by": by,
                             "library_ms": libs[k], "max_abs_err": errs[k],
@@ -1505,9 +1567,10 @@ def phase_deconv_game(ttc, lu, others, fleet_res):
           and w > lu.MAX_W and lu.route(w) == "block",
           f"the game on the fleet banded LU, hoisted band past w=63: "
           f"{solver.kkt_backend_resolved} {solver._solve_raw.band_mode} {plan.n} {w}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[deconv-game] solver built in {build:.1f} s: nK {plan.n}, RCM w {w} "
         f"({plan.n_blocks} blocks); band mode {solver._solve_raw.band_mode}; K9/K10 route "
-        f"{lu.route(w)}, {lu.launch_plan(plan.n, w, DC_B).smem} bytes of shared memory a CTA")
+        f"{lu.route(w)}: {lu_block_launches(lu, plan.n, w, DC_B, lu.launch_plan(plan.n, w, DC_B, sms))}")
     h, y, _ = deconv_inputs(DC_N, DC_K, DC_B, seed=0)
     params = {ns + "h": h, ns + "y": y}
     half = DC_N // 2
@@ -2921,8 +2984,9 @@ def main() -> int:
         ttc, lu, (fb, dl), dres)
     gwall, gbusy = phase_profile("profile11", lambda: gsolver.solve_many(
         gparams, inits=ginits, mu0=1.0, max_iter=PROFILE11_ITERS),
-        watch=(("K9", r"\blu_factor_solve_block_kernel\b"),
-               ("K10", r"\blu_solve_block_kernel\b")), host_ops=False)
+        watch=(("K9's factor (lu_factor_block_kernel)", r"\blu_factor_block_kernel\b"),
+               ("K10 and K9's solve (lu_solve_block_kernel)", r"\blu_solve_block_kernel\b")),
+        host_ops=False)
     log(f"[profile11] the deconvolution game, its first {PROFILE11_ITERS} iterations: device "
         f"kernel time {gbusy:.4f} s, {1e3 * gbusy / PROFILE11_ITERS:.2f} ms a lockstep "
         f"iteration; host {1e3 * gwall / PROFILE11_ITERS:.1f} ms a lockstep iteration "

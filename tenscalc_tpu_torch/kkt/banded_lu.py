@@ -24,12 +24,18 @@ the two agree to the last bit.
 The kernels read and write the JAX layout itself, instance-contiguous.
 :func:`route` picks the route by width, for every w >= 1: up to
 ``MAX_W`` a warp factors one instance staged in shared memory, and a CTA
-holds ``group`` instances; above, the block route, a CTA an instance
-factoring in place on the output band in device memory.
-:func:`launch_plan` picks the group and, on the warp route, the staging
-by size: the whole band and x in shared memory, or, above the block's
-shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
-n.
+holds ``group`` instances; above, the block route: the factor a CTA of
+``PANEL_THREADS`` an instance, in panels of :func:`block_panel` steps
+whose rows sit in shared memory, and the solve a warp an instance, the
+factor's rows streamed through a shared-memory ring of ``SOLVE_RING``
+rows (K9 launches the factor, then the solve); past w = 1024 for the
+solve (where its register window no longer holds a row's reach) and w =
+7253 for the factor (where a panel of 4 rows outgrows shared memory),
+each phase runs in device memory, a CTA of ``block_threads(w)`` an
+instance.  :func:`launch_plan`
+picks the group and, on the warp route, the staging by size: the whole
+band and x in shared memory, or, above the block's shared-memory cap, a
+ring of ``RING_ROWS`` rows of each, which takes any n.
 
 Rows past n: the JAX entry points pad with identity rows; the kernels
 and the plain versions mask instead.  Band entries that reach past row n
@@ -50,7 +56,8 @@ from .._build import build_shared_library, find_tool
 from .band_assemble import extract_band_lower, extract_band_upper, shifted_cols
 from .dense import equilibration_scale, hdot
 from .fleet_banded import (
-    NVCC_FLAGS, _check_width, _clamp_pivot, _device_kind, _stream, backward_sum, block_tree,
+    NVCC_FLAGS, _check_width, _clamp_pivot, _device_kind, _stream, backward_sum, block_threads,
+    block_tree,
 )
 from .structure import BandedPlan
 
@@ -67,6 +74,23 @@ RING_ROWS = 128  # rows of the band and of x the ring route keeps
 SMEM_MAX = 232_448  # shared memory a block can opt into on Hopper
 # a block's share when two share an SM (each also reserves 1 KB)
 SMEM_TWO_BLOCKS = SMEM_MAX // 2 - 1024
+# the block route (csrc/banded_lu.cu): threads of a factor's CTA, panel
+# steps at most, the floats a warp tile may read past a panel's last
+# slot (at least a 64 x 16 tile's rows and columns), factor rows in a
+# solve warp's ring (in groups of SOLVE_GROUP rows, each group's copies on
+# one mbarrier) and solve instances a CTA at most
+PANEL_THREADS = 512
+PANEL_MAX = 64
+PANEL_PAD = 80
+SOLVE_RING = 32
+SOLVE_GROUP = 8
+SOLVE_MAX_GROUP = 4
+# a lane's leaves of the block solve's tree (block_tree(w) / 32) that the
+# solve kernel (K10, K9's second launch) is instantiated at
+BLOCK_LEAVES = (2, 4, 8, 16, 32)
+# the block route's kernels: the factor in panels and in device memory,
+# the solve at each of BLOCK_LEAVES and in device memory
+BLOCK_KERNELS = 3 + len(BLOCK_LEAVES)
 
 # Kernel launches, one count per kernel; a wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -96,11 +120,61 @@ def instance_bytes(n: int, w: int, ring: bool) -> int:
     return 4 * instance_rows(n, w, ring) * (2 * w + 2)
 
 
+def panel_upper(w: int) -> int:
+    """Where a block-route panel slot's upper columns start: w rounded up
+    to a multiple of 4."""
+    return (w + 3) & ~3
+
+
+def panel_stride(w: int) -> int:
+    """Floats of a block-route panel slot: its w + 1 lower and w upper
+    columns, the stride 1 mod 4 (a step's factors at a 16-byte-aligned
+    place of the matrix are 16-byte aligned in shared memory)."""
+    s = panel_upper(w) + w + 1
+    return s + ((1 - s) & 3)
+
+
+def panel_bytes(w: int, nb: int) -> int:
+    """Shared memory of a block-route factor's panel of nb steps."""
+    return 4 * (nb * panel_stride(w) + PANEL_PAD)
+
+
+def solve_bytes(w: int) -> int:
+    """Shared memory of a block-route solve warp: its ring of SOLVE_RING
+    row slots (a row's 16-byte chunk holding its column 0, then the
+    16-byte-aligned stretch holding w of its columns), its ring of x (a
+    power of two of at least max(w, block_tree(w)) + SOLVE_RING + 2
+    entries) and, for each sweep, an 8-byte mbarrier a group of
+    SOLVE_GROUP rows of the ring."""
+    slot = 4 + ((w + 6) & ~3)
+    xring = 1 << (max(w, block_tree(w)) + SOLVE_RING + 1).bit_length()
+    return 4 * (SOLVE_RING * slot + xring + 4 * (SOLVE_RING // SOLVE_GROUP))
+
+
+def block_smem(w: int, group: int, nb: int, factor: bool) -> int:
+    """Shared memory of a block-route launch of the factor (a panel of nb
+    steps; nb = 0 in device memory: none) or of the solve (``group``
+    warps' rings; group = 0 in device memory: backward_sum's tree of
+    block_tree(w) floats).  The library's ``tc_banded_lu_block_smem``
+    gives the same bytes, which :func:`bind` checks."""
+    if factor:
+        return panel_bytes(w, nb) if nb else 0
+    return group * solve_bytes(w) if group else 4 * block_tree(w)
+
+
+def block_panel(w: int) -> int:
+    """Steps a block-route factor panel takes: the most, a multiple of 4
+    up to PANEL_MAX, whose rows fit the block's shared-memory cap; 0
+    where 4 rows do not (from w = 7253): the factor in device memory."""
+    nb = min(PANEL_MAX, (SMEM_MAX // 4 - PANEL_PAD) // panel_stride(w)) & ~3
+    return nb if nb >= 4 else 0
+
+
 def route(w: int) -> str:
     """The route of K9-K11 at half-bandwidth w, for every w >= 1: 'warp'
     (a warp an instance, staged in shared memory; its lane maps change at
-    w = 16 and 32) to MAX_W, 'block' (a CTA an instance, in place in
-    device memory) above."""
+    w = 16 and 32) to MAX_W, 'block' (the factor a CTA an instance, the
+    solve a warp; see :func:`launch_plan`) above."""
     _check_width(w)
     return "warp" if w <= MAX_W else "block"
 
@@ -111,10 +185,20 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132) -> LaunchPlan:
     not depend on n.  The group is the fewest instances a CTA that lets B
     instances run in one wave at two CTAs an SM (``sms`` SMs), at most
     MAX_GROUP and no more than two CTAs an SM can hold.  On the block
-    route a CTA serves one instance and its shared memory is the
-    reduction tree's block_tree(w) floats."""
+    route ``rows`` is the factor's panel steps (:func:`block_panel`; 0:
+    the factor in device memory), ``group`` the solve's instances a CTA
+    (a warp each: as many as put B on the card at two CTAs an SM; 0 past
+    w = block_threads(w), 1024: the solve in device memory, where a
+    warp's register window no longer holds a row's reach; at (2, 5000,
+    1200) it measured 13.7 against the warp's 21.2 ms), and
+    ``smem`` the factor CTA's (:func:`block_smem`; K9 and K11); a solve
+    CTA (K10, and K9's second launch) takes ``block_smem(w, group, 0,
+    False)``."""
     if route(w) == "block":
-        return LaunchPlan(False, 1, 0, 4 * block_tree(w))
+        nb = block_panel(w)
+        group = (0 if w > block_threads(w) else
+                 min(SOLVE_MAX_GROUP, -(-B // (2 * sms)), SMEM_MAX // solve_bytes(w)))
+        return LaunchPlan(False, group, nb, block_smem(w, group, nb, True))
     ring = instance_bytes(n, w, False) > SMEM_MAX
     per = instance_bytes(n, w, ring)
     group = max(1, min(MAX_GROUP, -(-B // (2 * sms)), SMEM_TWO_BLOCKS // per))
@@ -123,7 +207,14 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132) -> LaunchPlan:
 
 # the compile-time parameters above as the CUDA source's nvcc defines
 DEFINES = [f"-DTC_LU_CHUNK_ROWS={CHUNK_ROWS}", f"-DTC_LU_RING_ROWS={RING_ROWS}",
-           f"-DTC_LU_MAX_GROUP={MAX_GROUP}", f"-DTC_LU_SMEM_MAX={SMEM_MAX}"]
+           f"-DTC_LU_MAX_GROUP={MAX_GROUP}", f"-DTC_LU_SMEM_MAX={SMEM_MAX}",
+           f"-DTC_LU_PANEL_THREADS={PANEL_THREADS}", f"-DTC_LU_PANEL_PAD={PANEL_PAD}",
+           f"-DTC_LU_SOLVE_RING={SOLVE_RING}", f"-DTC_LU_SOLVE_GROUP={SOLVE_GROUP}",
+           f"-DTC_LU_SOLVE_MAX_GROUP={SOLVE_MAX_GROUP}"]
+# widths at which bind() holds block_smem against the library's: the
+# first of the block route, the game's, and each phase's last on its
+# shared-memory design and first in device memory
+SMEM_CHECK_WIDTHS = (64, 381, 1024, 1025, 7252, 7253)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -133,6 +224,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tc_banded_lu_solve.argtypes = [I, I, I, I, P, P, P, I, I, P]
     lib.tc_banded_lu_factor.argtypes = [I, I, I, I, P, P, I, I, Fl, P]
     lib.tc_banded_lu_init.argtypes = []
+    lib.tc_banded_lu_block_smem.argtypes = [I, I, I, I]
+    lib.tc_banded_lu_block_smem.restype = ctypes.c_longlong
     for fn in (lib.tc_banded_lu_factor_solve, lib.tc_banded_lu_solve,
                lib.tc_banded_lu_factor, lib.tc_banded_lu_init,
                lib.tc_banded_lu_max_w):
@@ -141,6 +234,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tc_banded_lu_error_string.restype = ctypes.c_char_p
     if lib.tc_banded_lu_max_w() != MAX_W:
         raise RuntimeError(f"{lib._name}: unexpected kernel width range")
+    for w in SMEM_CHECK_WIDTHS:
+        p = launch_plan(4 * w, w, 1024)
+        plans = ((p.group, p.rows, True), (p.group, p.rows, False))
+        if any(lib.tc_banded_lu_block_smem(w, g, nb, f) != block_smem(w, g, nb, f)
+               for g, nb, f in plans):
+            raise RuntimeError(f"{lib._name}: the block route's shared memory at w={w} "
+                               "differs from block_smem")
     return lib
 
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from .dense import hdot, ldl_factor, ldl_solve
+from .dense import equilibration_scale, hdot, ldl_factor, ldl_solve
 from .dense_ldl import (
     CLAMP,
     FLEET_MAX_N,
@@ -137,14 +137,16 @@ class FleetLDLFactorization:
     inertia from d.
 
     WW is symmetrically Jacobi-equilibrated first, S W S with
-    S = diag(rsqrt(max_k |W[i, k]|)), and factored lazily: the first solve
-    fuses factor and solve.  Congruence keeps the inertia."""
+    S = diag(1 / sqrt(max_k |W[i, k]|)) correctly rounded
+    (:func:`.dense.equilibration_scale`, as the banded adapters), and
+    factored lazily: the first solve fuses factor and solve.  Congruence
+    keeps the inertia."""
 
     def __init__(self, WW: torch.Tensor, n_refine: int = 2):
         self.WW = WW
         self.n_refine = n_refine
         W32 = WW.to(torch.float32)
-        s = torch.rsqrt(torch.clamp(W32.abs().amax(dim=-1), min=1e-30))
+        s = equilibration_scale(W32.abs().amax(dim=-1))
         self.s = s
         self._Ws = s[:, :, None] * W32 * s[:, None, :]
         self.L = self.d = None  # lazy: the first solve fuses factor + solve

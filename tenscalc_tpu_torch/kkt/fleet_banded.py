@@ -54,6 +54,7 @@ from .structure import BandedPlan
 NARROW_W = 16  # a lane an instance up to here, a warp an instance above
 MAX_W = 63  # a warp an instance up to here, a CTA an instance above
 BLOCK_MAX_THREADS = 1024  # threads of a block-route CTA at most
+BLOCK_KERNELS = 3  # the block route's kernels: factor_solve, solve and factor
 # the template widths of csrc/fleet_banded.cu: each narrow width, and the
 # capacities the wide route's kernels are instantiated at (w a run-time
 # argument up to the next capacity)

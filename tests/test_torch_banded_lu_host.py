@@ -24,6 +24,15 @@ from test_torch_fleet_banded_host import build_host_library
 torch.set_num_threads(1)
 
 SOURCE = Path(tlu.__file__).resolve().parents[1] / "csrc" / "banded_lu.cu"
+# the block route's bulk copies (TMA) on the host: an immediate copy, and
+# an mbarrier wait that has already seen its bytes
+BULK_COPIES = [
+    (r"(void bulk_copy\(bool p, float\* dst, const float\* src, unsigned bytes,\s*"
+     r"unsigned long long\* bar\) \{).*?\n\}", r"\1 if (p) std::memcpy(dst, src, bytes); }"),
+    (r"(void cp_async4_if\(bool p, float\* dst, const float\* src\) \{).*?\n\}",
+     r"\1 if (p) *dst = *src; }"),
+    (r"(void bar_wait\(unsigned long long\* bar, unsigned parity\) \{).*?\n\}", r"\1 }"),
+]
 CLAMP = 1e-4  # the adapters' pivot clamp
 # the widths of the old lane map's range and its ends (1, 12, 15), the
 # MPC-MHE fleet's (10), past the old cap (13), the first of the one-lane
@@ -39,7 +48,7 @@ def lib(tmp_path_factory):
         tmp_path_factory.mktemp("banded_lu_host"), SOURCE, tlu.DEFINES,
         [(r"#define TC_FOR_EACH_W\(X\).*?X\(31\)\n", f"#define TC_FOR_EACH_W(X) {only}\n"),
          (r"int tc_banded_lu_max_w\(\) \{ return kMaxW; \}",
-          "int tc_banded_lu_max_w() { return %d; }" % tlu.MAX_W)],
+          "int tc_banded_lu_max_w() { return %d; }" % tlu.MAX_W), *BULK_COPIES],
     ))
 
 
@@ -112,7 +121,8 @@ def test_kernels_on_the_host_equal_plain_versions(lib, w, B, n, G, ring):
 def test_host_launches_refuse_widths_past_the_cap(lib):
     """The C entry points check the width and plan before launching: w = 0
     is on no route, and past the warp route's cap (w = 64 up, the block
-    route) a CTA takes one instance and no ring."""
+    route) a ring, or a factor panel past w (the plan's rows, here
+    40 + 64), is refused."""
     band, rhs = _band(1, 40, 4, seed=1)
     f, x = torch.empty_like(band), torch.empty_like(rhs)
     for w, ring, G in ((0, 0, 1), (tlu.MAX_W + 1, 0, 2), (tlu.MAX_W + 1, 1, 1)):

@@ -3,9 +3,11 @@ banded LDL^T's s (``kkt/fleet_banded.py``) and the banded LU's row and
 column scales r, c (``kkt/banded_lu.py``, from a band and from a dense
 matrix) come from one helper, ``kkt.dense.equilibration_scale``, and
 equal 1/sqrt(norm) formed in float64 and rounded once to float32, bit
-for bit, on inputs where torch's float32 rsqrt is off in the last bit.
-(The fleet dense LDL^T's S in ``kkt/fleet.py`` keeps torch's rsqrt: see
-ROADMAP.md, fault 1.)"""
+for bit, on inputs where torch's float32 rsqrt is off in the last bit;
+so does the fleet dense LDL^T's S (``kkt/fleet.py``), held against the
+JAX package's adapter too, whose ``lax.rsqrt`` on the CPU (XLA's) is
+correctly rounded on most of those inputs and one unit in the last place
+off on the rest."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from tenscalc_tpu_torch import expr as texpr
 from tenscalc_tpu_torch.kkt import banded_lu as tlu
+from tenscalc_tpu_torch.kkt import fleet as tfl
 from tenscalc_tpu_torch.kkt import fleet_banded as tfb
 from tenscalc_tpu_torch.kkt.band_assemble import BandedOperator
 from tenscalc_tpu_torch.kkt.dense import equilibration_scale
@@ -113,3 +116,34 @@ def test_banded_lu_scales_are_correctly_rounded():
     fromband = tlu.FleetBandedLUFromBand(op, plan)
     assert np.array_equal(bits(fromband.r), bits(rref))
     assert np.array_equal(bits(fromband.c), bits(cref))
+
+
+def test_fleet_dense_scale_is_correctly_rounded_and_the_jax_adapters():
+    """The dense fleet adapter's S (kkt/fleet.py) on matrices whose row
+    norms torch's float32 rsqrt misrounds: the correctly rounded scale,
+    bit for bit, and so the JAX package's FleetLDLFactorization(...).s
+    wherever its XLA rsqrt rounds correctly, one unit in the last place
+    from it elsewhere."""
+    import jax.numpy as jnp
+
+    import tenscalc_tpu.kkt.fleet as jfl
+
+    B, n = 4, 300
+    rng = np.random.default_rng(7)
+    norms = off_inputs(B * n, seed=8)[: B * n].reshape(B, n)
+    W = rng.uniform(-0.5, 0.5, (B, n, n)).astype(np.float32)
+    W = (W + W.transpose(0, 2, 1)) * np.minimum(norms[:, :, None], norms[:, None, :])
+    W[:, np.arange(n), np.arange(n)] = norms  # each row's largest entry
+    want = reference(np.abs(W).max(axis=2))
+    assert np.array_equal(np.abs(W).max(axis=2), norms)
+    s = tfl.FleetLDLFactorization(torch.from_numpy(W).double()).s.numpy()
+    assert np.array_equal(bits(s), bits(want))
+    assert rsqrt_is_off(norms)
+    js = np.stack([np.asarray(jfl.FleetLDLFactorization(jnp.asarray(W[b], jnp.float64)).s)
+                   for b in range(B)])
+    jax_right = bits(js) == bits(want)
+    assert np.array_equal(bits(s)[jax_right], bits(js)[jax_right])
+    assert (np.abs(bits(s) - bits(js)) <= 1).all()
+    # most of the rows where torch misrounds, and some where XLA does
+    torch_off = bits(torch.rsqrt(torch.from_numpy(norms)).numpy()) != bits(want)
+    assert (torch_off & jax_right).sum() > 0.5 * torch_off.sum() and not jax_right.all()

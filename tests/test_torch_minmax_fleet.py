@@ -20,6 +20,7 @@ sys.path.insert(0, str(REPO))
 
 import tenscalc_tpu as jtc  # noqa: E402
 import tenscalc_tpu_torch as ttc  # noqa: E402
+from tenscalc_tpu_torch.kkt import fleet as tfl  # noqa: E402
 from tenscalc_tpu_torch.kkt import fleet_banded as tfb  # noqa: E402
 
 torch.set_num_threads(1)
@@ -154,6 +155,61 @@ def _case55(m, **kw):
                     maxConstraints=[d >= -1.0, d <= 1.0, x == u + d], **kw)
 
 
+def _same_elimination(monkeypatch):
+    """The port's dense fleet adapter as the JAX package's runs it on the
+    CPU: one instance through kkt/dense.py's blocked LDL^T (bitwise with
+    the JAX package's ``ldl_factor`` and ``ldl_solve``, clamp 1e-7) in
+    place of K8's and K7's plain versions, and the scale through the JAX
+    package's own float32 ``lax.rsqrt`` (XLA's CPU rsqrt, which is off
+    in the last bit on some rows: 0.9486833 for 1/sqrt(1.1111112) on
+    this game's first KKT) in place of the correctly rounded one."""
+    import jax
+    from jax import lax
+
+    from tenscalc_tpu_torch.kkt import dense as tdense
+
+    def factor_solve(A, b):
+        L, d = tdense.ldl_factor(A, clamp=1e-7)
+        return L, d, tdense.ldl_solve(L, d, b)
+
+    rsqrt = jax.jit(lambda v: lax.rsqrt(jax.numpy.maximum(v, 1e-30)))
+    monkeypatch.setattr(tfl, "fleet_ldl_factor_solve", factor_solve)
+    monkeypatch.setattr(tfl, "fleet_ldl_solve", tdense.ldl_solve)
+    monkeypatch.setattr(tfl, "fleet_ldl_factor", lambda A: tdense.ldl_factor(A, clamp=1e-7))
+    monkeypatch.setattr(tfl, "equilibration_scale",
+                        lambda v: torch.from_numpy(np.array(rsqrt(v.numpy()))))
+
+
+def _record_jax_adapter(monkeypatch, calls):
+    """Each JAX fleet adapter's WW and scale, and each of its float32
+    solves (the first, fused with the factor, and the refinements'):
+    right-hand side, result and the factor's d, in the order the jitted
+    solver makes them."""
+    import jax
+
+    import tenscalc_tpu.kkt.fleet as jfl
+
+    class Recorded(jfl.FleetLDLFactorization):
+        def __init__(self, WW, n_refine=2):
+            super().__init__(WW, n_refine)
+            jax.debug.callback(
+                lambda W, s: calls.append({"WW": np.asarray(W), "s": np.asarray(s),
+                                           "solves": []}), WW, self.s)
+
+        def _solve32(self, rhs):
+            y = super()._solve32(rhs)
+            jax.debug.callback(lambda r, y, d: calls[-1]["solves"].append(
+                tuple(np.asarray(a) for a in (r, y, d))), rhs, y, self.d)
+            return y
+
+    monkeypatch.setattr(jfl, "fleet_kkt_factorize", lambda WW, n_refine=2: Recorded(WW, n_refine))
+
+
+def _bits(a) -> np.ndarray:
+    a = np.ascontiguousarray(a)
+    return a.view(np.int64 if a.dtype == np.float64 else np.int32)
+
+
 def test_small_game_takes_the_fleet_dense_route(monkeypatch):
     """nK = 8 < 64: the fleet dense LDL^T (one instance: K8's and K7's
     plain versions; float32 factor, clamp 1e-7, one float64 refinement),
@@ -161,8 +217,26 @@ def test_small_game_takes_the_fleet_dense_route(monkeypatch):
     both end at status 232 (8 | 32 | 64 | 128) after 201 iterations: the
     clamp lifts u's pivot (addU, ~1e-9, with a zero Hessian) to 1e-7, and
     the refined directions never reach the saddle point.  Held: the same
-    route, status and iterations, and the same iterate to 1e-5."""
+    route, status and iterations, and the port's scale correctly rounded.
+
+    The final iterate is no property of the algorithm: through the 1e7
+    that the clamped pivot puts into the factor, a last-bit change moves
+    it by up to 1e-3 within two iterations.  On the CPU the JAX package
+    factors one instance with its blocked ``ldl_factor`` and the port
+    with K8's plain version: given the same KKT matrix, scale and
+    right-hand side, their first d already differ by 1.0.  So the
+    iterates are held where both sides run the same elimination
+    (:func:`_same_elimination`): every scaled KKT matrix of the JAX solve
+    gives the same factor and float32 solves in the port as in the JAX
+    package's ``ldl_factor`` and ``ldl_solve``, bit for bit; the two
+    solves are bitwise equal through two iterations (then a float64
+    residual, summed in another order, parts them by one unit in the
+    last place, and from the third iteration on they are up to 2.4e-3
+    apart); and over the whole solve they end with the same status and
+    iterations and final iterates 4.08e-5 apart, held to 5e-5."""
     monkeypatch.setenv("TENSCALC_AUTO_FLEET", "1")
+    jax_calls = []
+    _record_jax_adapter(monkeypatch, jax_calls)
     jtc.expr.clear_variables()
     sj = _case55(jtc)
     st = _case55(ttc, device="cpu")
@@ -183,10 +257,68 @@ def test_small_game_takes_the_fleet_dense_route(monkeypatch):
     sol_t = st.solve({}, init=init, mu0=1.0, max_iter=200)
     assert sol_t.status == sol_j.status == 232
     assert sol_t.iters == sol_j.iters == 201
-    for k, v in sol_j.variables.items():
-        np.testing.assert_allclose(sol_t.variables[k], v, atol=1e-5, err_msg=k)
+    for v in sol_t.variables.values():
+        assert np.isfinite(np.asarray(v)).all()
     # the HessD (nD + nGd + nFd = 5) of every trip went to ldl_factor
     assert ldl_calls and set(ldl_calls) == {(1, 5, 5)}
+    # the port's scale is correctly rounded on every KKT matrix of the JAX
+    # solve; XLA's CPU rsqrt, the JAX package's, is not on some
+    assert len(jax_calls) > 200
+    misrounded = 0
+    for k, call in enumerate(jax_calls):
+        WW = torch.from_numpy(call["WW"].copy())[None]
+        norm = np.abs(call["WW"].astype(np.float32)).max(axis=-1)
+        want = (1.0 / np.sqrt(np.maximum(norm, np.float32(1e-30)).astype(np.float64)))
+        own = tfl.FleetLDLFactorization(WW).s[0].numpy()
+        assert np.array_equal(_bits(own), _bits(want.astype(np.float32))), k
+        misrounded += int((_bits(own) != _bits(call["s"])).any())
+    assert misrounded > 0
+    # the same elimination: each adapter call's scaled matrix through the
+    # port's float32 factor and solves and through the JAX package's
+    # ldl_factor and ldl_solve (jitted on their own), bit for bit; the
+    # refinements' float64 residuals are formed apart (their
+    # matrix-vector products summed in other orders), so each solve takes
+    # the JAX solve's own right-hand side
+    import jax
+
+    from tenscalc_tpu.kkt import dense as jdense
+
+    jfactor = jax.jit(lambda A: jdense.ldl_factor(A, clamp=1e-7))
+    jsolve = jax.jit(jdense.ldl_solve)
+    _same_elimination(monkeypatch)
+    in_solver = []  # whether the JAX solve's own values are the same bits
+    for k, call in enumerate(jax_calls):
+        fact = tfl.FleetLDLFactorization(torch.from_numpy(call["WW"].copy())[None])
+        assert np.array_equal(_bits(fact.s[0].numpy()), _bits(call["s"])), k
+        L, d = jfactor(fact._Ws[0].numpy())
+        same = True
+        for r, y_run, _ in call["solves"]:
+            rhs = torch.from_numpy(r.copy())[None]
+            got = fact._solve32(rhs)[0]
+            bs = (fact.s * rhs.to(torch.float32))[0].numpy()
+            want = fact.s[0] * torch.from_numpy(np.asarray(jsolve(L, d, bs)).copy())
+            assert np.array_equal(_bits(got.numpy()), _bits(want.numpy())), k
+            same &= np.array_equal(_bits(got.numpy()), _bits(y_run))
+        assert np.array_equal(_bits(fact.d[0].numpy()), _bits(np.asarray(d))), k
+        in_solver.append(same)
+    # the JAX solve compiles its adapter into one program, where XLA may
+    # fuse the scaling into the factor and round otherwise (it does from
+    # the fourteenth call on): its own values are the same bits through
+    # the first 13 calls
+    assert all(in_solver[:13])
+    # ... and the two solves, bitwise through two iterations
+    for it in (1, 2):
+        a = sj.solve({}, init=init, mu0=1.0, max_iter=it)
+        b = st.solve({}, init=init, mu0=1.0, max_iter=it)
+        assert (a.status, a.iters) == (b.status, b.iters)
+        for k, v in a.variables.items():
+            assert np.array_equal(_bits(np.asarray(b.variables[k])), _bits(np.asarray(v))), k
+    # ... and over the whole solve: the same status and iterations, the
+    # final iterate within 5e-5 of the JAX package's
+    sol_s = st.solve({}, init=init, mu0=1.0, max_iter=200)
+    assert (sol_s.status, sol_s.iters) == (sol_j.status, sol_j.iters) == (232, 201)
+    for k, v in sol_j.variables.items():
+        np.testing.assert_allclose(sol_s.variables[k], v, rtol=0, atol=5e-5, err_msg=k)
 
 
 def _few_maximizers(m, **kw):
