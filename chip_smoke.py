@@ -105,17 +105,20 @@ Phases:
      w = 13, 15, 16 and 31 (B = 1000) and on the ring route at w = 13,
      16, 22 and 31;
  16. the block route (w > 63), [block-kernels]: K1-K3 and K9-K11 at
-     (B, n, w) = (256, 1000, 95), (64, 1200, 127), (16, 2000, 255) and
-     (2, 4000, 999), and K9-K11 at the game's band (256, 3000, 381),
-     bitwise against their plain versions, timed beside their bounds, the
-     plain versions and the library calls on the band expanded to dense,
-     with K9-K11's panel width and each launch's shared memory logged;
-     [deconv]: a fleet of 256 box-bounded
+     (B, n, w) = (256, 1000, 95), (64, 1200, 127), (16, 2000, 255),
+     (2, 4000, 999) and (2, 4100, 1024), and K9-K11 at the game's band
+     (256, 3000, 381) and (1, 7000, 1800), bitwise against their plain
+     versions (and with both phases forced into device memory), timed
+     beside their bounds, the no-FMA floor of the factors, the plain
+     versions and the library calls on the band expanded to dense, with
+     each family's panel width, factor threads and each launch's shared
+     memory logged; [deconv]: a fleet of 256 box-bounded
      deconvolutions through a 96-tap filter (N = 1000, nK = 1000, RCM
      w = 95, the 'hoisted' band) through K1/K2 on the block route, eight
      instances again on the CPU in a spawned process beside the later
      phases ([deconv-cross-check]: status equal, iterations within one,
-     x within 2e-3, J within 1e-3), a profile ([profile10]);
+     x within 2e-3, J within 1e-3), a profile ([profile10]) and from it
+     K1's and K2's shares of the device time;
      [deconv-game]: the same problem as a two-player game (nK = 3000,
      RCM w = 381) through K9/K10 on the block route, held to [deconv]'s
      minimizer (x within 2e-3, J within 1e-3; the instance and entry
@@ -273,19 +276,20 @@ LU_WIDE_SHAPES = ([(512, 286, w) for w in LU_WIDE_WIDTHS]
 # the game's stacked KKT (nK = 3 N) has RCM w = 381
 DC_N, DC_K, DC_B = 1000, 96, 256
 GAME_BAND = (DC_B, 3 * DC_N, 381)
-# the block route (K1-K3: a CTA an instance, in place in device memory;
-# K9-K11: a CTA an instance factoring in panels, a warp an instance
-# solving): the deconvolution fleet's band (B = 256, n = 1000, w = 95),
-# wider bands, and the planner's n/4 limit; K9-K11 also at the game's
-# band, at w = 1024 (the widest warp solve: its window's last entry in
-# the x ring, NL = 32) and at w = 1800 (the solve in device memory, the
-# factor in panels of 16)
+# the block route (a CTA an instance factoring in panels, a warp an
+# instance solving): the deconvolution fleet's band (B = 256, n = 1000,
+# w = 95), wider bands, the planner's n/4 limit and w = 1024 (the widest
+# warp solve: its window's last entry in the x ring, NL = 32); K9-K11
+# also at the game's band and at w = 1800 (the solve in device memory,
+# the factor in panels of 16)
 BLOCK_SHAPES = [(256, 1000, 95), (64, 1200, 127), (16, 2000, 255), (2, 4000, 999)]
-LU_WIDE_BLOCK_SHAPES = [(2, 4100, 1024), (1, 7000, 1800)]
+WIDE_BLOCK_SHAPE = (2, 4100, 1024)
+LU_WIDE_BLOCK_SHAPES = [WIDE_BLOCK_SHAPE, (1, 7000, 1800)]
 BLOCK_CASES = ([(fam, shape) for shape in BLOCK_SHAPES for fam in ("fb", "lu")]
+               + [("fb", WIDE_BLOCK_SHAPE)]
                + [("lu", shape) for shape in (GAME_BAND, *LU_WIDE_BLOCK_SHAPES)])
-# K9-K11's phases in device memory are also forced, through the C entries,
-# at the LU cases up to this many updates (B n w^2)
+# both families' phases in device memory are also forced, through the C
+# entries, at the cases up to this many updates (B n w^2)
 INPLACE_CHECK_UPDATES = 1e10
 DC_MAX_ITER = 100
 # [profile11] traces the game's first iterations (a lockstep iteration of
@@ -309,11 +313,19 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+_CARD: list = []  # card_line's reading
+
+
+def card_line(fresh: bool = False) -> str:
+    """The card's name and power limit as nvidia-smi gives them: read at
+    the first call, and again when ``fresh`` (the phases' logs reuse the
+    first reading, so a slow nvidia-smi on a busy host costs one wait)."""
+    if fresh or not _CARD:
+        _CARD[:] = [subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=120,
+        ).stdout.strip()]
+    return _CARD[0]
 
 
 def timed_call(fn, before=None, spin: bool = False) -> float:
@@ -557,7 +569,16 @@ def phase_dense_kernels(dl, fl, pl):
         el = (xl - x).abs().max().item()
         check(np.isfinite(el) and el <= KERNEL_RTOL * scale,
               f"ldl_solve against {what} at B={B} n={n}: max abs diff {el}")
-        return cuda_ms(lambda: torch.linalg.ldl_solve(LD, piv, rhs), 10 if n <= 200 else 3)
+
+        def solve():
+            return torch.linalg.ldl_solve(LD, piv, rhs)
+
+        # warm from the check above: ten single calls, or three where one
+        # takes over 50 ms (the fleets' batched solves take 0.2-2.3 s a
+        # call, which ten calls each would spend of the run's time limit)
+        times = [timed_call(solve)]
+        reps = 10 if n <= 200 and times[0] < 50 else 3
+        return statistics.median(times + [timed_call(solve) for _ in range(reps - 1)])
 
     for B, n in FLEET_SHAPES:
         A, b = test_sym(B, n, seed=n)
@@ -1236,41 +1257,54 @@ def phase_wide_lu_kernels(lu, recs):
         del band, rhs, f9, x9, x10, f11, pf, px, px10, fo, xo
 
 
-def lu_block_launches(lu, n, w, B, plan) -> str:
-    """K9-K11's launches on the block route: the factor's panel width nb
-    and each kernel's CTAs and shared memory (either phase in device
-    memory where the plan says 0)."""
-    ssmem = lu.block_smem(w, plan.group, plan.rows, False)
-    factor = (f"a CTA of {lu.PANEL_THREADS} threads an instance, panels of nb = "
-              f"{plan.rows} steps" if plan.rows else
-              f"in device memory (a CTA of {lu.block_threads(w)} threads an instance)")
+def block_launches(fam, mod, w, B, plan) -> str:
+    """K1-K3's (fam 'fb') or K9-K11's ('lu') launches on the block route:
+    the factor's panel width nb, its threads and each kernel's CTAs and
+    shared memory (either phase in device memory where the plan says 0)."""
+    names = ("K3, K1", "K2, K1") if fam == "fb" else ("K11, K9", "K10, K9")
+    threads = plan.stride if fam == "fb" else mod.PANEL_THREADS
+    ssmem = mod.block_smem(w, plan.group, plan.rows, False)
+    factor = (f"a CTA of {threads} threads an instance, panels of nb = {plan.rows} steps"
+              if plan.rows else
+              f"in device memory (a CTA of {mod.block_threads(w)} threads an instance)")
     solve = (f"{plan.group} instance(s) (a warp each) a CTA, {-(-B // plan.group)} CTAs"
              if plan.group else
-             f"in device memory (a CTA of {lu.block_threads(w)} threads an instance), {B} CTAs")
-    return (f"the factor (K11, K9's first launch) {factor}, {B} CTAs, {plan.smem} bytes of "
-            f"shared memory a CTA; the solve (K10, K9's second launch) {solve}, "
+             f"in device memory (a CTA of {mod.block_threads(w)} threads an instance), {B} CTAs")
+    return (f"the factor ({names[0]}'s first launch) {factor}, {B} CTAs, {plan.smem} bytes of "
+            f"shared memory a CTA; the solve ({names[1]}'s second launch) {solve}, "
             f"{ssmem} bytes a CTA")
 
 
-def lu_inplace_check(lu, band, rhs, w, clamp, pf, px, px2) -> None:
-    """K9-K11 with both block-route phases in device memory (panel 0 and
-    group 0, which the plan takes only past w = 7252 and w = 1024),
-    forced through the C entries at a narrower band: bitwise against the
-    plain versions.  These launches are checks: no wrapper counts them."""
-    lib = lu._lib_on(band.device)
+def inplace_check(fam, mod, band, rhs, w, clamp, pf, px, px2) -> None:
+    """K1-K3 (fam 'fb') or K9-K11 ('lu') with both block-route phases in
+    device memory (panel 0 and group 0, which the plan takes only past
+    w = 7252 and w = 1024), forced through the C entries at a narrower
+    band: bitwise against the plain versions.  These launches are checks:
+    no wrapper counts them."""
+    lib = mod._lib_on(band.device)
     B, n, _ = band.shape
     f, x, x2, f3 = (torch.full_like(t, float("nan")) for t in (band, rhs, rhs, band))
-    s = lu._stream(band)
-    rcs = (lib.tc_banded_lu_factor_solve(w, 0, 0, 0, band.data_ptr(), rhs.data_ptr(),
-                                         f.data_ptr(), x.data_ptr(), n, B, clamp, s),
-           lib.tc_banded_lu_solve(w, 0, 0, 0, pf.data_ptr(), rhs.data_ptr(), x2.data_ptr(),
-                                  n, B, s),
-           lib.tc_banded_lu_factor(w, 0, 0, 0, band.data_ptr(), f3.data_ptr(), n, B, clamp, s))
+    s = mod._stream(band)
+    if fam == "fb":
+        a = (w, 0, 0, 0, 0)
+        rcs = (lib.tc_fleet_banded_factor_solve(*a, band.data_ptr(), rhs.data_ptr(),
+                                                f.data_ptr(), x.data_ptr(), n, B, clamp, s),
+               lib.tc_fleet_banded_solve(*a, pf.data_ptr(), rhs.data_ptr(), x2.data_ptr(),
+                                         n, B, s),
+               lib.tc_fleet_banded_factor(*a, band.data_ptr(), f3.data_ptr(), n, B, clamp, s))
+    else:
+        a = (w, 0, 0, 0)
+        rcs = (lib.tc_banded_lu_factor_solve(*a, band.data_ptr(), rhs.data_ptr(),
+                                             f.data_ptr(), x.data_ptr(), n, B, clamp, s),
+               lib.tc_banded_lu_solve(*a, pf.data_ptr(), rhs.data_ptr(), x2.data_ptr(),
+                                      n, B, s),
+               lib.tc_banded_lu_factor(*a, band.data_ptr(), f3.data_ptr(), n, B, clamp, s))
     torch.cuda.synchronize()
+    what = "K1-K3" if fam == "fb" else "K9-K11"
     check(rcs == (0, 0, 0) and same_bits(f, pf) and same_bits(x, px) and same_bits(x2, px2)
-          and same_bits(f3, pf), f"K9-K11 in device memory at B={B} n={n} w={w}: rc {rcs}, "
+          and same_bits(f3, pf), f"{what} in device memory at B={B} n={n} w={w}: rc {rcs}, "
           "not bitwise")
-    log(f"[block-kernels] B={B} n={n} w={w} K9-K11 with both phases in device memory "
+    log(f"[block-kernels] B={B} n={n} w={w} {what} with both phases in device memory "
         "(forced): bitwise equal to the plain versions")
 
 
@@ -1323,13 +1357,9 @@ def phase_block_kernels(fb, lu):
                 keys[1]: (x2 - px2).abs().max().item(), keys[2]: (f3 - pf).abs().max().item()}
         check(all(e == 0.0 for e in errs.values()), f"block route errors {errs}")
         check(bool((f3[..., 0].abs() > clamp).all()), "no clamp fired in the factor")
-        if fam == "fb":
-            launches = (f"a CTA of {fb.block_threads(w)} threads an instance, {B} CTAs, "
-                        f"{plan.smem} bytes of shared memory a CTA")
-        else:
-            launches = lu_block_launches(lu, n, w, B, plan)
-            if B * n * w * w <= INPLACE_CHECK_UPDATES:
-                lu_inplace_check(lu, band, rhs, w, clamp, pf, px, px2)
+        launches = block_launches(fam, mod, w, B, plan)
+        if B * n * w * w <= INPLACE_CHECK_UPDATES:
+            inplace_check(fam, mod, band, rhs, w, clamp, pf, px, px2)
         log(f"[block-kernels] B={B} n={n} w={w} {'K1-K3' if fam == 'fb' else 'K9-K11'}: "
             f"block route, {launches}; bitwise equal to the plain versions (max abs err 0.0)")
         scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
@@ -1367,11 +1397,14 @@ def phase_block_kernels(fb, lu):
             plain_s = (f"{plain_ms[k]:.1f} ms (one call, host clock)"
                        if plain_ms[k] is not None else "not timed")
             floor = ""
-            if fam == "lu" and k != keys[1]:
+            if k != keys[1]:
                 # the factor's floor under the kernels' contract: each of its
-                # sum over steps of min(w, n-1-c)^2 updates a product rounded,
-                # then a subtraction, two FP32 instructions (no FMA)
-                upd = B * sum(min(w, n - 1 - c) ** 2 for c in range(n))
+                # updates (the LU's sum over steps of min(w, n-1-c)^2; the
+                # LDL's lower triangle, min(w, n-1-c)(min(w, n-1-c) + 1) / 2)
+                # a product rounded, then a subtraction, two FP32
+                # instructions (no FMA)
+                m = [min(w, n - 1 - c) for c in range(n)]
+                upd = B * sum(v * v if fam == "lu" else v * (v + 1) // 2 for v in m)
                 floor = f", {4 * upd / FP32_FLOPS * 1e3:.3f} ms without FMA"
             log(f"[block-kernels] {names[k]} B={B} n={n} w={w}: max_abs_err {errs[k]:.1e}  "
                 f"kernel {ms:.4f} ms (device {dev:.4f} ms)  plain {plain_s}  library "
@@ -1414,6 +1447,9 @@ def cpu_side(fn, args):
     return out, time.perf_counter() - t0
 
 
+CPU_POOLS: list = []  # every CPU side's pool, ended when the run ends
+
+
 def start_cpu_side(fn, *args):
     """``fn(*args)``, the CPU side of a cross-check (the port on the CPU:
     the plain versions of the kernels), in a spawned process of its own
@@ -1421,6 +1457,7 @@ def start_cpu_side(fn, *args):
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(1)
+    CPU_POOLS.append(pool)
     return pool, pool.apply_async(cpu_side, (fn, args))
 
 
@@ -1483,10 +1520,11 @@ def phase_deconv(ttc, fb, others):
           and (plan.n, plan.bandwidth) == (DC_N, DC_K - 1) and fb.route(plan.bandwidth) == "block",
           f"fleet banded, hoisted band (1000, w=95) on the block route: "
           f"{solver.kkt_backend_resolved} {solver._solve_raw.band_mode} {plan.n} {plan.bandwidth}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[deconv] solver built in {build:.1f} s: nU {solver.nU} nF {solver.nF}; nK {plan.n}, "
         f"RCM w {plan.bandwidth} ({plan.n_blocks} blocks); band mode "
-        f"{solver._solve_raw.band_mode}; K1/K2 route {fb.route(plan.bandwidth)}, "
-        f"{fb.block_threads(plan.bandwidth)} threads an instance")
+        f"{solver._solve_raw.band_mode}; K1/K2 route {fb.route(plan.bandwidth)}: "
+        f"{block_launches('fb', fb, plan.bandwidth, DC_B, fb.launch_plan(plan.n, plan.bandwidth, DC_B, sms))}")
     h, y, xtrue = deconv_inputs(DC_N, DC_K, DC_B, seed=0)
     params = {ns + "h": h, ns + "y": y}
     inits = {ns + "x": np.full((DC_B, DC_N), 0.5)}
@@ -1570,7 +1608,7 @@ def phase_deconv_game(ttc, lu, others, fleet_res):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[deconv-game] solver built in {build:.1f} s: nK {plan.n}, RCM w {w} "
         f"({plan.n_blocks} blocks); band mode {solver._solve_raw.band_mode}; K9/K10 route "
-        f"{lu.route(w)}: {lu_block_launches(lu, plan.n, w, DC_B, lu.launch_plan(plan.n, w, DC_B, sms))}")
+        f"{lu.route(w)}: {block_launches('lu', lu, w, DC_B, lu.launch_plan(plan.n, w, DC_B, sms))}")
     h, y, _ = deconv_inputs(DC_N, DC_K, DC_B, seed=0)
     params = {ns + "h": h, ns + "y": y}
     half = DC_N // 2
@@ -1825,7 +1863,8 @@ def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
     patterns find, with their share of the device time.  ``host_ops=False``
     traces the device alone (a long solve's host operators take minutes
     to collect).  Returns the profiled wall time and the device kernel
-    time (s)."""
+    time (s), and the watched kernels' shares of that time, in the
+    order of ``watch``."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1848,12 +1887,14 @@ def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
         f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[{label}]   {v / 1e3:9.3f} ms  {k[:90]}")
+    shares = []
     for name, pattern in watch:
         us = sum(v for k, v in dev_us.items() if re.search(pattern, k))
         check(us > 0, f"the profiler saw {name}")
-        log(f"[{label}] {name}: {us / 1e3:.3f} ms, {us / 1e6 / busy:.4f} of the "
+        shares.append(us / 1e6 / busy)
+        log(f"[{label}] {name}: {us / 1e3:.3f} ms, {shares[-1]:.4f} of the "
             f"device kernel time")
-    return wall, busy
+    return wall, busy, shares
 
 
 def phase_mpcmhe(mm, fb, lu):
@@ -2950,7 +2991,7 @@ def main() -> int:
         mpc_quadcopter, fb, (lu, dl))
     quad_check = start_quadcopter_cross_check(cparams, cinits, cres)
     elapsed("[profile9]")
-    cwall, cbusy = phase_profile("profile9", lambda: csolver.solve_many(
+    cwall, cbusy, _ = phase_profile("profile9", lambda: csolver.solve_many(
         cparams, inits=cinits, mu0=1e-1, max_iter=PROFILE9_ITERS),
         watch=(("K1", r"\bfactor_solve_wide_kernel<"), ("K2", r"\bsolve_wide_kernel<")),
         host_ops=False)
@@ -2970,19 +3011,23 @@ def main() -> int:
     dc_idx, dc_p, dc_i = deconv_cross_check_inputs(dparams, dinits, dres)
     deconv_side = start_cpu_side(deconv_cpu, dc_p, dc_i)
     tutorials_side = start_cpu_side(tutorials_cpu)
-    pwall, pbusy = phase_profile("profile10", lambda: dsolver.solve_many(
+    pwall, pbusy, dshares = phase_profile("profile10", lambda: dsolver.solve_many(
         dparams, inits=dinits, mu0=1.0, max_iter=DC_MAX_ITER),
-        watch=(("K1", r"\bfactor_solve_block_kernel\b"), ("K2", r"\bsolve_block_kernel\b")),
+        watch=(("K1's factor (factor_block_kernel)", r"\bfactor_block_kernel\b"),
+               ("K2 and K1's solve (solve_block_kernel)", r"\bsolve_block_kernel<")),
         host_ops=False)
     log(f"[profile10] the deconvolution fleet: device kernel time {pbusy:.4f} s a solve, "
         f"{1e3 * pbusy / dc_lock:.2f} ms a lockstep iteration; host "
         f"{1e3 * dc_wall / dc_lock:.1f} ms a lockstep iteration unprofiled "
         f"({1e3 * pwall / dc_lock:.1f} profiled)")
+    log(f"[deconv] the fleet's kernels' device shares ([profile10]): K1's factor "
+        f"{dshares[0]:.4f}, the solves (K1's and K2's, one kernel) {dshares[1]:.4f}; "
+        f"K1 and K2 together {sum(dshares):.4f}")
     del dsolver
     elapsed("the deconvolution game")
     gsolver, gparams, ginits, dg_launches, dg_wall, dg_lock = phase_deconv_game(
         ttc, lu, (fb, dl), dres)
-    gwall, gbusy = phase_profile("profile11", lambda: gsolver.solve_many(
+    gwall, gbusy, _ = phase_profile("profile11", lambda: gsolver.solve_many(
         gparams, inits=ginits, mu0=1.0, max_iter=PROFILE11_ITERS),
         watch=(("K9's factor (lu_factor_block_kernel)", r"\blu_factor_block_kernel\b"),
                ("K10 and K9's solve (lu_solve_block_kernel)", r"\blu_solve_block_kernel\b")),
@@ -3020,6 +3065,7 @@ def main() -> int:
     # slice 3: the dense KKT path (sls constrained least squares)
     elapsed("slice 3")
     dense_recs = phase_dense_kernels(dl, fl, pl)
+    elapsed("[sls-single]")
     single_launches = phase_sls_single(sls, dl, (fb, lu))
     ssolver, sdata, sres, fleet_launches = phase_sls_fleet(
         "sls-fleet", sls, dl, (fb, lu), "slsf_", SLS_B, SLS_N, seed=0)
@@ -3033,13 +3079,16 @@ def main() -> int:
     check(wsolver.kkt_backend_resolved == "fleet" and wsolver.kkt_plan is None
           and wide_launches["fleet_factor"] > 0 and wide_launches["fleet_solve"] > 0,
           f"n={WIDE_N} unbanded through K4/K5: {wide_launches}")
+    elapsed("[sls-pallas]")
     pallas_launches = phase_sls_pallas(sls, dl, (fb, lu))
+    elapsed("[profile3]")
     phase_profile("profile3", lambda: solve_sls_fleet(ssolver, "slsf_", sdata))
 
     # the min-max slice: K1/K2 on the saddle KKT, K3 on the HessD inertia
     elapsed("the min-max slice")
     mmsolver, mmparams, mminits, mmres, mm_launches = phase_minmax(ttc, fb, (lu, dl))
     minmax_side = start_cpu_side(minmax_cpu, mmparams, mminits)
+    elapsed("[profile4]")
     phase_profile("profile4", lambda: mmsolver.solve_many(
         mmparams, inits=mminits, mu0=1.0, max_iter=60),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<"),
@@ -3055,7 +3104,7 @@ def main() -> int:
     uni_side = start_cpu_side(nonconvex_cpu, "mpc_unicycle", {"T": UNI_T, "ns": "buni_"},
                               UNI_CHECKS, uparams, uinits, uni_card, 200)
     elapsed("[profile7]")
-    pwall, pbusy = phase_profile("profile7", lambda: usolver.solve_many(
+    pwall, pbusy, _ = phase_profile("profile7", lambda: usolver.solve_many(
         uparams, inits=uinits, mu0=1e-1, max_iter=PROFILE7_ITERS),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")), host_ops=False)
     log(f"[profile7] the unicycle fleet, its first {PROFILE7_ITERS} iterations: device kernel "
@@ -3075,7 +3124,7 @@ def main() -> int:
                               {"T": PUR_T, "L": PUR_L, "ns": "pur_"}, PUR_CHECKS, pparams,
                               pinits, pur_card, 300)
     elapsed("[profile8]")
-    qwall, qbusy = phase_profile("profile8", lambda: psolver.solve_many(
+    qwall, qbusy, _ = phase_profile("profile8", lambda: psolver.solve_many(
         pparams, inits=pinits, mu0=1e-1, max_iter=300),
         watch=(("K9", r"\blu_factor_solve_kernel<"), ("K10", r"\blu_solve_kernel<")),
         host_ops=False)
@@ -3161,7 +3210,7 @@ def main() -> int:
     finish_quadcopter_cross_check(*quad_check)
     elapsed("the end")
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(card_line(fresh=True))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3169,4 +3218,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:  # a failed phase leaves no CPU side running
+        for cpu_pool in CPU_POOLS:
+            cpu_pool.terminate()
+    sys.exit(code)

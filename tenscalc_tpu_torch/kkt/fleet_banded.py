@@ -21,10 +21,15 @@ The kernels read and write the JAX layout itself, instance-contiguous.
 ``NARROW_W`` a lane runs one instance's elimination, a CTA is one warp
 serving ``group`` instances staged in shared memory; above, up to
 ``MAX_W``, a warp runs one instance (a lane a row of the window) and a
-CTA is that warp (group 1); above ``MAX_W`` the block route, a CTA of
-:func:`block_threads` threads an instance, factoring in place on the
-output band in device memory (no width cap: the planner's bands reach
-n/4).  :func:`launch_plan` picks the group (the fewest that fill the
+CTA is that warp (group 1); above ``MAX_W`` the block route (no width
+cap: the planner's bands reach n/4): the factor a CTA of
+:func:`panel_threads` an instance, in panels of :func:`block_panel`
+steps whose rows sit in shared memory, and the solve a warp an instance,
+the factor's rows streamed through a shared-memory ring of
+``SOLVE_RING`` rows (K1 launches the factor, then the solve); past
+w = 1024 for the solve and w = 7252 for the factor each phase runs in
+device memory, a CTA of :func:`block_threads` an instance.
+:func:`launch_plan` picks the group (the fewest that fill the
 card in one wave) and, on the lane and warp routes, the staging by size:
 the whole band and x in shared memory, or, above the block's
 shared-memory cap, a ring of ``RING_ROWS`` rows of each, which takes any
@@ -52,9 +57,8 @@ from .dense import equilibration_scale, hdot
 from .structure import BandedPlan
 
 NARROW_W = 16  # a lane an instance up to here, a warp an instance above
-MAX_W = 63  # a warp an instance up to here, a CTA an instance above
-BLOCK_MAX_THREADS = 1024  # threads of a block-route CTA at most
-BLOCK_KERNELS = 3  # the block route's kernels: factor_solve, solve and factor
+MAX_W = 63  # a warp an instance up to here, the block route above
+BLOCK_MAX_THREADS = 1024  # threads of backward_sum's tree (and of a device-memory CTA) at most
 # the template widths of csrc/fleet_banded.cu: each narrow width, and the
 # capacities the wide route's kernels are instantiated at (w a run-time
 # argument up to the next capacity)
@@ -65,6 +69,24 @@ MAX_GROUP = 32  # instances a CTA, a lane of its one warp each
 CHUNK_ROWS = 64  # rows a copy into shared memory moves
 RING_ROWS = 256  # rows of the band and of x the ring route keeps
 SMEM_MAX = 232_448  # shared memory a block can opt into on Hopper
+# the block route (csrc/fleet_banded.cu): threads of a factor's CTA at
+# most, panel steps at most, the floats a warp tile may read past a
+# panel's last slot (at least a 64 x 16 tile's rows and columns), factor
+# rows in a solve warp's ring (in groups of SOLVE_GROUP rows, each
+# group's copies on one mbarrier) and solve instances a CTA at most
+PANEL_MAX_THREADS = 512
+PANEL_REGS = 128  # registers a factor thread may take under the kernel's launch bound
+PANEL_MAX = 48
+PANEL_PAD = 80
+SOLVE_RING = 32
+SOLVE_GROUP = 8
+SOLVE_MAX_GROUP = 4
+# a lane's leaves of the block solve's tree (block_tree(w) / 32) that the
+# solve kernel (K2, K1's second launch) is instantiated at
+BLOCK_LEAVES = (2, 4, 8, 16, 32)
+# the block route's kernels: the factor in panels and in device memory,
+# the solve at each of BLOCK_LEAVES and in device memory
+BLOCK_KERNELS = 3 + len(BLOCK_LEAVES)
 
 # CTAs (of one warp) a launch plan puts on an SM side by side, one on each
 # of its four schedulers: the lanes of a warp run their chains in
@@ -96,9 +118,10 @@ def route(w: int) -> str:
 
 
 def block_threads(w: int) -> int:
-    """Threads of a block-route CTA: one an offset 1..w of the window,
-    whole warps, at most BLOCK_MAX_THREADS (a thread takes every
-    BLOCK_MAX_THREADS-th offset above)."""
+    """Threads of backward_sum's block-route tree, and of a block-route
+    CTA in device memory: one an offset 1..w of the window, whole warps,
+    at most BLOCK_MAX_THREADS (a thread takes every BLOCK_MAX_THREADS-th
+    offset above)."""
     return min(32 * -(-w // 32), BLOCK_MAX_THREADS)
 
 
@@ -137,6 +160,10 @@ def backward_sum(prods: torch.Tensor) -> torch.Tensor:
 
 
 class LaunchPlan(NamedTuple):
+    """A launch's plan.  On the block route: ``group`` the solve's
+    instances a CTA (a warp each; 0: in device memory), ``rows`` the
+    factor's panel steps (0: in device memory), ``stride`` the factor
+    CTA's threads, ``smem`` the factor CTA's shared memory."""
     ring: bool  # rows through a ring (True) or all staged (False)
     group: int  # instances a CTA, a lane each
     rows: int  # rows of the band and entries of x an instance keeps
@@ -162,6 +189,77 @@ def instance_bytes(n: int, w: int, ring: bool) -> int:
     return 4 * instance_floats(n, w, ring)
 
 
+def panel_upper(w: int) -> int:
+    """Where a block-route panel slot's products e = d r start: w rounded
+    up to a multiple of 4."""
+    return (w + 3) & ~3
+
+
+def panel_stride(w: int) -> int:
+    """Floats of a block-route panel slot: d and r_1..r_w, then e_1..e_w
+    from panel_upper(w), the stride 1 mod 4 (a step's factors at a
+    16-byte-aligned place of the matrix are 16-byte aligned in shared
+    memory)."""
+    s = panel_upper(w) + w + 1
+    return s + ((1 - s) & 3)
+
+
+def panel_bytes(w: int, nb: int) -> int:
+    """Shared memory of a block-route factor's panel of nb steps."""
+    return 4 * (nb * panel_stride(w) + PANEL_PAD)
+
+
+def solve_bytes(w: int) -> int:
+    """Shared memory of a block-route solve warp: its ring of SOLVE_RING
+    row slots (a row's 16-byte chunk holding its d, then the
+    16-byte-aligned stretch holding its r_1..r_w), its ring of x (a power
+    of two of at least max(w, block_tree(w)) + SOLVE_RING + 2 entries)
+    and, for each sweep, an 8-byte mbarrier a group of SOLVE_GROUP rows of
+    the ring."""
+    slot = 4 + ((w + 6) & ~3)
+    xring = 1 << (max(w, block_tree(w)) + SOLVE_RING + 1).bit_length()
+    return 4 * (SOLVE_RING * slot + xring + 4 * (SOLVE_RING // SOLVE_GROUP))
+
+
+def block_smem(w: int, group: int, nb: int, factor: bool) -> int:
+    """Shared memory of a block-route launch of the factor (a panel of nb
+    steps; nb = 0 in device memory: none) or of the solve (``group``
+    warps' rings; group = 0 in device memory: backward_sum's tree of
+    block_tree(w) floats).  The library's ``tc_fleet_banded_block_smem``
+    gives the same bytes, which :func:`bind` checks."""
+    if factor:
+        return panel_bytes(w, nb) if nb else 0
+    return group * solve_bytes(w) if group else 4 * block_tree(w)
+
+
+def block_panel(w: int) -> int:
+    """Steps a block-route factor panel takes: the most, a multiple of 4
+    up to PANEL_MAX, whose rows fit the block's shared-memory cap; 0
+    where 4 rows do not (from w = 7253): the factor in device memory."""
+    nb = min(PANEL_MAX, (SMEM_MAX // 4 - PANEL_PAD) // panel_stride(w)) & ~3
+    return nb if nb >= 4 else 0
+
+
+def trailing_tiles(w: int) -> int:
+    """Warp tiles (64 x 16) of a block-route panel's rank-nb update of the
+    trailing triangle (its w rows and columns, the lower triangle)."""
+    rows = -(-w // 64)
+    return sum(rows - q * 16 // 64 for q in range(-(-w // 16)))
+
+
+def panel_threads(w: int, B: int, sms: int = 132) -> int:
+    """Threads of a block-route factor CTA: a warp a tile of the rank-nb
+    update (one pass over the trailing triangle), from 4 warps (the
+    left-looking panel's w + 1 entries a row then take one or two passes)
+    to PANEL_MAX_THREADS, and no more than let the ceil(B / sms) CTAs an
+    SM that put B on the card in one wave share its 65536 registers at
+    PANEL_REGS a thread.  At the deconvolution fleet's (B = 256, w = 95:
+    ten tiles) that is 256 threads, two CTAs an SM; PANEL_MAX_THREADS
+    there would take two waves (fleet_banded_ablation.py --plans)."""
+    fit = 65536 // (PANEL_REGS * 32 * -(-B // sms))
+    return 32 * max(4, min(PANEL_MAX_THREADS // 32, trailing_tiles(w), fit))
+
+
 def launch_plan(n: int, w: int, B: int, sms: int = 132,
                 group: Optional[int] = None) -> LaunchPlan:
     """Route and group of a launch.  The group is the fewest instances a
@@ -170,13 +268,22 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132,
     instance); ``group`` overrides it (a measurement's choice).  The
     group's bands are staged whole while they fit the block cap together,
     else they go through the ring, whose size does not depend on n.  On
-    the block route (w > MAX_W) a CTA factors one instance in place in
-    device memory and stages nothing: its shared memory is the reduction
-    tree's block_tree(w) floats."""
+    the block route (w > MAX_W; see :class:`LaunchPlan`) the factor takes
+    panels of :func:`block_panel` steps on a CTA of :func:`panel_threads`
+    (panel 0 from w = 7253, where 4 rows outgrow shared memory: the
+    factor in device memory), and the solve a warp an instance, as many
+    a CTA as put B on the card at two CTAs an SM (``group`` overrides
+    it); group 0 past w = block_threads(w), 1024, where a warp's register
+    window no longer holds a row's reach: the solve in device memory."""
     if route(w) == "block":
-        if group not in (None, 1):
-            raise ValueError(f"group {group} outside 1..1 at n={n}, w={w}")
-        return LaunchPlan(False, 1, 0, 0, 4 * block_tree(w))
+        nb = block_panel(w)
+        most = 0 if w > block_threads(w) else min(SOLVE_MAX_GROUP, SMEM_MAX // solve_bytes(w))
+        if group is None:
+            group = min(most, -(-B // (2 * sms)))
+        elif not (group == 0 or 1 <= group <= most):
+            raise ValueError(f"group {group} outside 0..{most} at n={n}, w={w}")
+        return LaunchPlan(False, group, nb, panel_threads(w, B, sms),
+                          block_smem(w, group, nb, True))
     wide = w > NARROW_W
     want = (1 if wide else max(1, min(MAX_GROUP, -(-B // (sms * SM_SLOTS))))
             if group is None else group)
@@ -191,6 +298,47 @@ def launch_plan(n: int, w: int, B: int, sms: int = 132,
                       instance_floats(n, w, ring), group * per)
 
 
+# the compile-time parameters above as the CUDA source's nvcc defines
+DEFINES = [f"-DTC_FB_CHUNK_ROWS={CHUNK_ROWS}", f"-DTC_FB_RING_ROWS={RING_ROWS}",
+           f"-DTC_FB_MAX_GROUP={MAX_GROUP}", f"-DTC_FB_SMEM_MAX={SMEM_MAX}",
+           f"-DTC_FB_PANEL_THREADS={PANEL_MAX_THREADS}", f"-DTC_FB_PANEL_PAD={PANEL_PAD}",
+           f"-DTC_FB_SOLVE_RING={SOLVE_RING}", f"-DTC_FB_SOLVE_GROUP={SOLVE_GROUP}",
+           f"-DTC_FB_SOLVE_MAX_GROUP={SOLVE_MAX_GROUP}"]
+# widths at which bind() holds block_smem against the library's: the
+# first of the block route, the deconvolution fleet's, and each phase's
+# last on its shared-memory design and first in device memory
+SMEM_CHECK_WIDTHS = (64, 95, 1024, 1025, 7252, 7253)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and result types of the library's C entry points, and the
+    block route's shared memory checked against :func:`block_smem`."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tc_fleet_banded_factor_solve.argtypes = [I, I, I, I, I, P, P, P, P, I, I, Fl, P]
+    lib.tc_fleet_banded_solve.argtypes = [I, I, I, I, I, P, P, P, I, I, P]
+    lib.tc_fleet_banded_factor.argtypes = [I, I, I, I, I, P, P, I, I, Fl, P]
+    lib.tc_fleet_banded_init.argtypes = []
+    lib.tc_fleet_banded_check_reciprocal.argtypes = [P, P]
+    lib.tc_fleet_banded_block_smem.argtypes = [I, I, I, I]
+    lib.tc_fleet_banded_block_smem.restype = ctypes.c_longlong
+    for fn in (lib.tc_fleet_banded_factor_solve, lib.tc_fleet_banded_solve,
+               lib.tc_fleet_banded_factor, lib.tc_fleet_banded_init,
+               lib.tc_fleet_banded_max_w, lib.tc_fleet_banded_check_reciprocal):
+        fn.restype = ctypes.c_int
+    lib.tc_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tc_cuda_error_string.restype = ctypes.c_char_p
+    if lib.tc_fleet_banded_max_w() != MAX_W:
+        raise RuntimeError(f"{lib._name}: unexpected kernel width range")
+    for w in SMEM_CHECK_WIDTHS:
+        p = launch_plan(4 * w, w, 1024)
+        plans = ((p.group, p.rows, True), (p.group, p.rows, False))
+        if any(lib.tc_fleet_banded_block_smem(w, g, nb, f) != block_smem(w, g, nb, f)
+               for g, nb, f in plans):
+            raise RuntimeError(f"{lib._name}: the block route's shared memory at w={w} "
+                               "differs from block_smem")
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     """Build (at first use) and bind the CUDA library; the constants above
     are its compile-time parameters."""
@@ -199,26 +347,9 @@ def _load() -> ctypes.CDLL:
         nvcc = find_tool("nvcc", ["/usr/local/cuda/bin"])
         # the wide route's kernels take most of the build: their
         # optimization runs on four threads
-        flags = [*NVCC_FLAGS, "-split-compile=4", f"-DTC_FB_CHUNK_ROWS={CHUNK_ROWS}",
-                 f"-DTC_FB_RING_ROWS={RING_ROWS}", f"-DTC_FB_MAX_GROUP={MAX_GROUP}",
-                 f"-DTC_FB_SMEM_MAX={SMEM_MAX}"]
-        path = LIB_PATH = build_shared_library("fleet_banded.cu", nvcc, flags)
-        lib = ctypes.CDLL(str(path))
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_fleet_banded_factor_solve.argtypes = [I, I, I, I, I, P, P, P, P, I, I, Fl, P]
-        lib.tc_fleet_banded_solve.argtypes = [I, I, I, I, I, P, P, P, I, I, P]
-        lib.tc_fleet_banded_factor.argtypes = [I, I, I, I, I, P, P, I, I, Fl, P]
-        lib.tc_fleet_banded_init.argtypes = []
-        lib.tc_fleet_banded_check_reciprocal.argtypes = [P, P]
-        for fn in (lib.tc_fleet_banded_factor_solve, lib.tc_fleet_banded_solve,
-                   lib.tc_fleet_banded_factor, lib.tc_fleet_banded_init,
-                   lib.tc_fleet_banded_max_w, lib.tc_fleet_banded_check_reciprocal):
-            fn.restype = ctypes.c_int
-        lib.tc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tc_cuda_error_string.restype = ctypes.c_char_p
-        if lib.tc_fleet_banded_max_w() != MAX_W:
-            raise RuntimeError(f"{path}: unexpected kernel width range")
-        _lib = lib
+        path = LIB_PATH = build_shared_library(
+            "fleet_banded.cu", nvcc, [*NVCC_FLAGS, "-split-compile=4", *DEFINES])
+        _lib = bind(ctypes.CDLL(str(path)))
     return _lib
 
 

@@ -2,14 +2,15 @@
 (K9-K11), run on the CPU under the host emulation of
 tests/test_torch_fleet_banded_host.py and held bitwise against the plain
 versions: the quick check of an edit to the block route without a card.
-Only one width of the warp routes is instantiated (the block route is not
-a template).  The emulation runs a CTA's threads as threads; to keep it
-cheap, K1-K3's CTA thread cap is lowered to 64 in the source and in the
-plain versions' order alike, so a thread takes several offsets of the
-window, and the block LU factor's CTA to 64 threads (two warps, so tiles
-of its rank-nb update go to both); K9-K11 keep the card's tree (their
-solve is a warp, or past w = 1024 a CTA in device memory, as on the
-card).  K9-K11 run at the plan's panel width and at narrow
+Only one width of the warp routes is instantiated (the block route's
+widths are run-time arguments).  The emulation runs a CTA's threads as
+threads, so both families keep the card's tree (their solve is a warp,
+or past w = 1024 a CTA in device memory, as on the card); K1-K3 run at
+the plan itself (a factor CTA of 128-352 threads at these widths), and,
+to keep it cheap, the block LU factor's CTA is lowered to 64 threads
+(two warps, so tiles of its rank-nb update go to both).  K1-K3's own
+cases (panels, phases in device memory, the plan past each switch) are
+in tests/test_torch_block_route_fb_host.py.  K9-K11 run at the plan's panel width and at narrow
 panels of 8 and 12 steps (many panels, the trailing square's far edge in
 every one), with n not a multiple of the panel, n below it, w past n,
 nonzero entries reaching past the last row, extreme magnitudes, clamped
@@ -44,7 +45,6 @@ FB_ONLY = [(r"#define TC_FOR_EACH_W\(X\).*?X\(16\)\n", "#define TC_FOR_EACH_W(X)
 LU_ONLY = [(r"#define TC_FOR_EACH_W\(X\).*?X\(31\)\n", "#define TC_FOR_EACH_W(X) X(10)\n"),
            (r"#define TC_FOR_EACH_CAP\(X\)[^\n]*\n", "#define TC_FOR_EACH_CAP(X) X(47)\n"),
            *BULK_COPIES]
-SMALL_CTA = 64  # the emulated CTA's thread cap (1024 on the card)
 SMALL_PANEL_CTA = 64  # the emulated block LU factor's threads (PANEL_THREADS on the card)
 # (B, n, w, extreme magnitudes): the first width of the block route, one
 # past a hundred (two offsets a thread under the small cap), a band
@@ -53,25 +53,17 @@ CASES = [(2, 150, 64, False), (2, 230, 100, True), (1, 101, 100, False), (1, 40,
          (3, 90, 64, True)]
 
 
-def tfb_bind(lib):
-    """K1-K3's C entries' argument types (as the binding sets them)."""
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tc_fleet_banded_factor_solve.argtypes = [I, I, I, I, I, P, P, P, P, I, I, Fl, P]
-    lib.tc_fleet_banded_solve.argtypes = [I, I, I, I, I, P, P, P, I, I, P]
-    lib.tc_fleet_banded_factor.argtypes = [I, I, I, I, I, P, P, I, I, Fl, P]
-    return lib
+def fb_host_library(d: Path) -> ctypes.CDLL:
+    """fleet_banded.cu under the emulation, bound as the binding binds it
+    (which holds the block route's shared memory against block_smem)."""
+    return tfb.bind(build_host_library(d, CSRC / "fleet_banded.cu", tfb.DEFINES,
+                                       [*FB_ONLY, *BULK_COPIES]))
 
 
 @pytest.fixture(scope="module")
 def fb_lib(tmp_path_factory):
-    """fleet_banded.cu with the CTA's thread cap lowered to SMALL_CTA."""
-    cap = (r"constexpr int kBlockMaxThreads = 1024;",
-           f"constexpr int kBlockMaxThreads = {SMALL_CTA};")
-    return tfb_bind(build_host_library(
-        tmp_path_factory.mktemp("fb_block_host"), CSRC / "fleet_banded.cu",
-        [f"-DTC_FB_CHUNK_ROWS={tfb.CHUNK_ROWS}", f"-DTC_FB_RING_ROWS={tfb.RING_ROWS}",
-         f"-DTC_FB_MAX_GROUP={tfb.MAX_GROUP}", f"-DTC_FB_SMEM_MAX={tfb.SMEM_MAX}"],
-        [*FB_ONLY, cap]))
+    """fleet_banded.cu with the card's tree and the plan's factor CTAs."""
+    return fb_host_library(tmp_path_factory.mktemp("fb_block_host"))
 
 
 @pytest.fixture(scope="module")
@@ -84,13 +76,8 @@ def lu_full_tree(tmp_path_factory):
         [*defines, f"-DTC_LU_PANEL_THREADS={SMALL_PANEL_CTA}"], LU_ONLY))
 
 
-@pytest.fixture
-def small_cta(monkeypatch):
-    monkeypatch.setattr(tfb, "BLOCK_MAX_THREADS", SMALL_CTA)
-
-
 @pytest.mark.parametrize("B,n,w,extreme", CASES)
-def test_fleet_banded_block_route_equals_plain_versions(fb_lib, small_cta, B, n, w, extreme):
+def test_fleet_banded_block_route_equals_plain_versions(fb_lib, B, n, w, extreme):
     lib, clamp = fb_lib, 1e-7
     band, rhs = fb_band(B, n, w, seed=B + n + w, extreme=extreme)
     p = min(n - 1, w // 2)  # a zero pivot no earlier step touches
@@ -99,6 +86,7 @@ def test_fleet_banded_block_route_equals_plain_versions(fb_lib, small_cta, B, n,
         band[:, c, p - c] = 0.0
     plan = tfb.launch_plan(n, w, B)
     assert tfb.route(w) == "block" and (plan.ring, plan.group) == (False, 1)
+    assert (plan.rows, plan.stride) == (tfb.block_panel(w), tfb.panel_threads(w, B))
     args = (w, int(plan.ring), plan.group, plan.rows, plan.stride)
     pf, px = tfb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)
     px2 = tfb.fleet_banded_solve_plain(pf, rhs, w)
@@ -274,18 +262,35 @@ def test_banded_lu_block_route_on_the_full_tree(lu_full_tree, B, n, w):
 
 def test_block_route_refuses_a_plan_it_does_not_take(fb_lib, lu_full_tree):
     """Past w = 63 the C entry points refuse, before launching, a plan the
-    block route does not take: K1-K3 a ring or more than one instance a
-    CTA; K9-K11 a ring, a panel that is neither 0 (in device memory) nor
-    a multiple of 4 from 4 up to w, or outgrows shared memory, K10
-    groups outside 0..4, or a warp's solve (a group above 0) past
-    w = 1024."""
+    block route does not take: a ring; a panel that is neither 0 (in
+    device memory) nor a multiple of 4 from 4 up to w, or outgrows shared
+    memory; a solve group outside 0..4, or a warp's solve (a group above
+    0) past w = 1024; and for K1-K3 a factor CTA that is not whole warps
+    from 32 to PANEL_MAX_THREADS."""
     fb, lu = fb_lib, lu_full_tree
     band, rhs = fb_band(2, 150, 64, seed=1, extreme=False)
     f, x = torch.empty_like(band), torch.empty_like(rhs)
-    for ring, G in ((1, 1), (0, 2), (0, 0)):
-        assert fb.tc_fleet_banded_factor_solve(64, ring, G, 0, 0, band.data_ptr(),
+    for ring, G, nb, T in ((1, 1, 32, 128), (1, 0, 0, 128), (0, 1, 6, 128), (0, 1, 2, 128),
+                           (0, 1, 68, 128), (0, -1, 32, 128), (0, 5, 32, 128), (0, 1, 32, 0),
+                           (0, 1, 32, 48), (0, 1, 32, tfb.PANEL_MAX_THREADS + 32)):
+        assert fb.tc_fleet_banded_factor_solve(64, ring, G, nb, T, band.data_ptr(),
                                                rhs.data_ptr(), f.data_ptr(), x.data_ptr(),
                                                150, 2, 1e-7, None) != 0
+        # K2 takes no panel and K3 no group: each refuses only its own
+        bad_solve = ring != 0 or not 0 <= G <= tfb.SOLVE_MAX_GROUP
+        bad_factor = (ring != 0 or not (nb == 0 or (nb % 4 == 0 and 4 <= nb <= 64))
+                      or not (T % 32 == 0 and 32 <= T <= tfb.PANEL_MAX_THREADS))
+        assert (fb.tc_fleet_banded_solve(64, ring, G, nb, T, band.data_ptr(), rhs.data_ptr(),
+                                         x.data_ptr(), 150, 2, None) != 0) == bad_solve
+        assert (fb.tc_fleet_banded_factor(64, ring, G, nb, T, band.data_ptr(), f.data_ptr(),
+                                          150, 2, 1e-7, None) != 0) == bad_factor
+    big = ((tfb.SMEM_MAX // 4 - tfb.PANEL_PAD) // tfb.panel_stride(999)) // 4 * 4 + 4
+    assert tfb.panel_bytes(999, big) > tfb.SMEM_MAX >= tfb.panel_bytes(999, big - 4)
+    assert fb.tc_fleet_banded_factor(999, 0, 1, big, 128, band.data_ptr(), f.data_ptr(), 2000,
+                                     1, 1e-7, None) != 0
+    for G in (1, 2):
+        assert fb.tc_fleet_banded_solve(1025, 0, G, 0, 0, band.data_ptr(), rhs.data_ptr(),
+                                        x.data_ptr(), 4, 1, None) != 0
     lband, lrhs = lu_band(1, 150, 64, seed=1)
     lf, lx = torch.empty_like(lband), torch.empty_like(lrhs)
     for ring, G, nb in ((1, 1, 0), (1, 0, 0), (1, 1, 64), (0, 1, 6), (0, 1, 2), (0, 1, 68),

@@ -177,8 +177,7 @@ def build_host_library(d: Path, source: Path, defines, extra=()) -> ctypes.CDLL:
 def lib(tmp_path_factory):
     h = build_host_library(
         tmp_path_factory.mktemp("fleet_banded_host"), SOURCE,
-        [f"-DTC_FB_CHUNK_ROWS={tfb.CHUNK_ROWS}", f"-DTC_FB_RING_ROWS={tfb.RING_ROWS}",
-         f"-DTC_FB_MAX_GROUP={tfb.MAX_GROUP}", f"-DTC_FB_SMEM_MAX={tfb.SMEM_MAX}"],
+        tfb.DEFINES,
         [(r'asm\("rcp\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(d\)\);',
           "y = 1.0f / d;")],
     )
