@@ -127,10 +127,36 @@ Phases:
      instance in float64 on the card against the CPU's (1e-8 relative),
      solve_result() against solve(); [tutorials]: the seven tutorials
      at their defaults on the card against the port on the CPU (within
-     1e-8 relative), the CPU side in a spawned process.
+     1e-8 relative), the CPU side in a spawned process;
+ 17. the apps and the rest of the examples: [l1l2] bench.py's l1l2 row
+     (examples/l1l2estimation, N = 200, f32, gradTolerance 0.2,
+     desiredDualityGap 5e-3, mu0 = 1, max_iter = 60: nK = 996, RCM
+     w = 10, the 'hoisted' band, K1/K2 on the lane route, no K3) with its
+     plan, status, iterations, launches a lockstep iteration, the warm
+     solve's wall time (median of 10) and the mean position error, and
+     the same solve on the CPU (status equal, iterations within one,
+     position within 2e-3); [l1l2-fleet] 1024 estimations, instance i
+     from make_data(seed=i), in one solve_many (the band (1024, 996, 11)),
+     all at status 0, with solves/s, a profile ([profile12]: host and
+     device ms a lockstep iteration, idle share, K1's and K2's shares),
+     and eight instances on the CPU (status equal, iterations within one,
+     position 1e-2, J 1e-3 relative); [l1l2-kernels] K1/K2 at that band,
+     bitwise, timed beside their bounds, plain versions and the library
+     calls on the band expanded to dense, and K1 on each band the fleet's
+     solve gave it; [lasso] one Lasso fit at 200
+     features x 2000 points in f32 (nK = 401: K8/K7 on the tiles route),
+     the support recovered, and the CPU's fit (W and c within 2e-3);
+     [apps] the Mpc app's closed loop (tests/test_apps.py:52),
+     examples/mpc_lti's, examples/mpc_fleet at B = 64, T = 20, 20
+     periods, the Mpcmhe app at T = 12, L = 16 and tests/test_apps.py:323's
+     Sysid with its forecast and parameter_std (torch.func.hessian in
+     float64 on the card), each with its backend and launches, all held
+     against the port on the CPU in one spawned process (mpc_fleet's
+     first period within 2e-3, its loop within 1e-2).  [mls] builds
+     bench.py's two mls rows through examples/mls.py at k = 1.
 
 Every cross-check's CPU side (phases 4, 8, 11, 12, 14, 15, the
-quadcopter's, [deconv]'s and [tutorials]') runs in a spawned process of
+quadcopter's, [deconv]'s, [tutorials]' and phase 17's) runs in a spawned process of
 its own (start_cpu_side) beside the card's later phases, and is held
 once the card's phases are done.
 
@@ -2864,29 +2890,31 @@ def phase_flops_cross_check(flops):
             f"card {a.iters} cpu {r.iters}, max |dx| {dx:.3e}, J rel diff {dJ:.3e}")
 
 
-def phase_mls(sls, dl, others):
+def phase_mls(mls, dl, others):
     """bench.py's bench_mls rows (N = 100, n = 8; x0 = 0.02 rand, mu0 = 1,
-    max_iter = 20): min ||A x - b||^2 / N without and with 0 <= x <= 0.05."""
-    N, n = 100, 8
-    rng = np.random.default_rng(0)
-    A, b, x0 = rng.random((N, n)), rng.random(N), 0.02 * rng.random(n)
+    max_iter = 20): min ||A x - b||^2 / N without and with 0 <= x <= 0.05,
+    built by examples/mls.py at k = 1 (bench.py builds them with sls's
+    vector builders: the same problems, the same iterations, 2 and 7)."""
     total = {k: 0 for k in dl.LAUNCHES}
-    for row, build, ns in (("unconstrained", sls.build_unconstrained, "bmlu_"),
-                           ("constrained", sls.build_constrained, "bmlc_")):
-        solver = build(N=N, n=n, ns=ns, dtype="float32")
-        params = {ns + "A": A, ns + "b": b}
-        solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)  # warm-up
+    for row, constrained, ns, want in (("unconstrained", False, "bmlu_", 2),
+                                       ("constrained", True, "bmlc_", 7)):
+        solver = mls.build_solver(N=100, n=8, k=1, constrained=constrained, ns=ns,
+                                  dtype="float32")
+        params, init = mls.bench_inputs(ns=ns)
+        solver.solve(params, init=init, mu0=1.0, max_iter=20)  # warm-up
         reset_counts(dl, *others)
-        sol = solver.solve(params, init={ns + "x": x0}, mu0=1.0, max_iter=20)
+        sol = solver.solve(params, init=init, mu0=1.0, max_iter=20)
         n_l, c_l = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
-        check(sol.status == 0, f"mls {row}: {sol.describe()}")
+        check(sol.status == 0 and sol.iters == want,
+              f"mls {row}: {sol.describe()}, {sol.iters} iterations (want {want})")
         check(n_l["ldl_factor_solve"] > 0 and not any(v for m in others
                                                     for v in m.LAUNCHES.values()),
               f"mls {row} through K8: {n_l}")
         for k in total:
             total[k] += n_l[k]
-        log(f"[mls] {row} (nF={solver.nF}, KKT {solver.nU + solver.nG} rows): status 0, "
-            f"{sol.iters} iterations, {sol.time:.4f} s; launches {n_l}; per iteration "
+        log(f"[mls] {row} (examples/mls.py at k = 1; nF={solver.nF}, KKT "
+            f"{solver.nU + solver.nG} rows): status 0, {sol.iters} iterations, "
+            f"{sol.time:.4f} s; launches {n_l}; per iteration "
             f"{per_iteration(n_l, sol.iters, c_l)}")
     return total
 
@@ -2929,6 +2957,655 @@ def phase_slseq(slseq, dl, others):
         f"{per_iteration(n_l, sol.iters, c_l)}; max |x - oracle| {ex:.3e}, |Cx - d| {eq:.3e}; "
         f"the CPU: {r.iters} iterations, max |dx| {dx:.3e}, J rel diff {dJ:.3e}")
     return n_l, solver, params, init
+
+
+# ---------------------------------------------------------------------------
+# slice 19: the apps and the rest of the examples
+# ---------------------------------------------------------------------------
+
+# bench.py's l1l2 row (examples/l1l2estimation, N = 200, f32): nU = 996,
+# nF = 796, the condensed KKT's RCM band w = 10, K1/K2 on the lane route;
+# its fleet (the scenario sweep of PERF.md §1): B estimations, instance i
+# from make_data(N, seed=i)
+L12_N, L12_B, L12_W = 200, 1024, 10
+L12_CHECKS = np.arange(0, L12_B, L12_B // 8)
+L12_BAND = (L12_B, 996, L12_W)
+L12_POS_ATOL = 2e-3  # the reference's float32 cross-backend tolerance
+# the fleet's cross-check: with bench.py's gradTolerance of 0.2 an f32
+# solve stops anywhere in a tolerance ball whose positions span more
+# than 2e-3 on this ill-conditioned problem: an instance's card and CPU
+# positions part by 6.5e-3 at J equal to 5.2e-7 relative (measured on
+# one H100), so the fleet's positions are held to 1e-2 and J to F_RTOL
+L12_FLEET_POS_ATOL = 1e-2
+L12_ERR_BOUND = 0.6  # tests/test_f32_robustness.py's bound on |position - truth|
+# [lasso]: one fit at 200 features x 2000 points in f32 (nK = 401: K8/K7
+# on the tiles route); this fit's f32 gradient floor is 2.1e-4 .. 2.7e-4
+# (the port on the CPU), above the default gradTolerance of 1e-4
+LASSO_F, LASSO_P, LASSO_GRAD_TOL = 200, 2000, 1e-3
+# [apps]: the Mpc app's closed loop (tests/test_apps.py:52), mpc_lti's,
+# run_fleet(B, T, n_steps), the Mpcmhe app at the DC-motor MPC-MHE size
+# and tests/test_apps.py:323's Sysid, each in float64 against the port on
+# the CPU; closed-loop states and controls within APP_ATOL (a control
+# pinned at its bound follows the last bits of the final barrier
+# parameter: 3.2e-6 between the port and the JAX package on the CPU);
+# mpc_fleet's first period's controls within U_ATOL (a per-instance plant
+# can take a different second step on the last bits of the first: 2.4e-4
+# between the two packages on the CPU), its whole loop within
+# APP_FLEET_ATOL: each period's solves stop inside their exit tolerances,
+# on the card and the CPU up to 8.7e-3 apart in u, and the loop carries
+# each period's difference into the next state (measured on one H100)
+APP_FLEET = (64, 20, 20)
+APP_FLEET_ATOL = 1e-2
+MMAPP_T, MMAPP_L = 12, 16
+APP_ATOL = 1e-5
+SYSID_RTOL = 1e-8
+
+
+def phase_l1l2(l12, fb, others):
+    """bench.py's l1l2 row (bench.py:405-469) on the card through
+    optimize(): N = 200, f32, gradTolerance 0.2, desiredDualityGap 5e-3,
+    mu0 = 1, max_iter = 60, from bench.py's inits; its plan, status,
+    iterations, K1/K2 launches a lockstep iteration (no K3, no other
+    kernel), the warm solve's wall time (median of 10) and the mean
+    position error against the true trajectory."""
+    ns = "bl12_"
+    t0 = time.perf_counter()
+    solver = l12.build_l1l2(N=L12_N, ns=ns, **l12.BENCH_OPTIONS)
+    build = time.perf_counter() - t0
+    plan = solver.kkt_plan
+    check(solver.device.type == "cuda", "the default device is the card")
+    check((solver.nU, solver.nF, solver.nG) == (996, 796, 0),
+          f"l1l2 sizes {(solver.nU, solver.nF, solver.nG)}")
+    check(solver.kkt_backend_resolved == "fleet_banded"
+          and solver._solve_raw.band_mode == "hoisted"
+          and (plan.n, plan.bandwidth) == (996, L12_W) and fb.route(L12_W) == "lane",
+          f"fleet banded, hoisted band (996, w={L12_W}) on the lane route: "
+          f"{solver.kkt_backend_resolved} {solver._solve_raw.band_mode} {plan.n} "
+          f"{plan.bandwidth}")
+    params, init, true_pos = l12.bench_inputs(L12_N, ns)
+
+    def solve():
+        return solver.solve(params, init=init, mu0=l12.BENCH_MU0, max_iter=l12.BENCH_MAX_ITER)
+
+    solve()  # warm-up (first-call allocations)
+    reset_counts(fb, *others)
+    sol = solve()
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the l1l2 path: {[m.LAUNCHES for m in others]}")
+    check(sol.status == 0, f"l1l2: {sol.describe()}")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0 and launches["factor"] == 0,
+          f"K1 and K2 on the l1l2 path, no K3: {launches}")
+    pos = np.asarray(sol.outputs["position"], float)
+    check(pos.shape == (L12_N,) and np.isfinite(pos).all(), "finite positions")
+    err = float(np.abs(pos - true_pos).mean())
+    check(err < L12_ERR_BOUND, f"mean position error {err:.4f} below {L12_ERR_BOUND}")
+    walls = [solve().time for _ in range(10)]
+    lockstep = sol.iters - 1
+    log(f"[l1l2] N={L12_N} f32: built in {build:.1f} s; nU {solver.nU} nF {solver.nF}; nK "
+        f"{plan.n}, RCM w {plan.bandwidth}; band mode {solver._solve_raw.band_mode}; K1/K2 "
+        f"route {fb.route(plan.bandwidth)}; status 0, {sol.iters} iterations; warm solve "
+        f"{statistics.median(walls):.4f} s (median of 10; {min(walls):.4f}..{max(walls):.4f}; "
+        f"{card_line()}); launches {launches}; per lockstep iteration K1 "
+        f"{launches['factor_solve'] / lockstep:.2f} K2 {launches['solve'] / lockstep:.2f}; mean "
+        f"|position - truth| {err:.4f}")
+    return solver, params, init, sol, launches
+
+
+def l1l2_cpu(params, init):
+    """[l1l2-cross-check]'s CPU side: the single solve."""
+    from tenscalc_tpu_torch.examples import l1l2estimation as l12
+
+    cpu = l12.build_l1l2(N=L12_N, ns="bl12_", device="cpu", **l12.BENCH_OPTIONS)
+    sol = cpu.solve(params, init=init, mu0=l12.BENCH_MU0, max_iter=l12.BENCH_MAX_ITER)
+    return sol.status, sol.iters, np.asarray(sol.outputs["position"], float)
+
+
+def finish_l1l2_cross_check(out, sol):
+    """The card's single solve against the port on the CPU: status equal,
+    iterations within one, position within L12_POS_ATOL."""
+    (status, iters, pos), seconds = out
+    dp = float(np.abs(np.asarray(sol.outputs["position"], float) - pos).max())
+    check(status == sol.status and abs(iters - sol.iters) <= 1,
+          f"l1l2 card status {sol.status} ({sol.iters} it), CPU {status} ({iters} it)")
+    check(dp <= L12_POS_ATOL, f"l1l2 position within {L12_POS_ATOL} ({dp:.3e})")
+    log(f"[l1l2-cross-check] the CPU's solve in {seconds:.1f} s: status {status}, iterations "
+        f"card {sol.iters} cpu {iters}, max |d position| {dp:.3e}")
+
+
+def phase_l1l2_fleet(solver, l12, fb, others):
+    """1024 l1l2 estimations in one solve_many, instance i from
+    make_data(N, seed=i): the band (1024, 996, 11) through K1/K2, every
+    instance at status 0; iterations, solves/s, launches a lockstep
+    iteration."""
+    ns = "bl12_"
+    params, inits, true_pos = l12.fleet_inputs(L12_B, L12_N, ns)
+
+    def run(max_iter=l12.BENCH_MAX_ITER):
+        res = solver.solve_many(params, inits=inits, mu0=l12.BENCH_MU0, max_iter=max_iter)
+        torch.cuda.synchronize()
+        return res
+
+    run(max_iter=2)  # warm-up (first-call allocations at this B)
+    reset_counts(fb, *others)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          f"no K4-K11 on the l1l2 fleet's path: {[m.LAUNCHES for m in others]}")
+    check(launches["factor_solve"] > 0 and launches["solve"] > 0 and launches["factor"] == 0,
+          f"K1 and K2 on the l1l2 fleet's path, no K3: {launches}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(tuple(res.u.shape) == (L12_B, solver.nU) and bool(torch.isfinite(res.u).all()),
+          "finite u of the expected shape")
+    check(int((status == 0).sum()) == L12_B,
+          f"all {L12_B} instances at status 0 (got {np.bincount(status)})")
+    pos = res.u[:, solver.packing.slice_of(ns + "position")].cpu().numpy()
+    err = np.abs(pos - true_pos).mean(axis=1)
+    lockstep = int(iters.max()) - 1  # the last trip only runs the exit tests
+    # the bands K1 factored in that solve, for [l1l2-kernels] (a solve
+    # again, its launches after the counts were read)
+    bands, entry = [], fb.fleet_banded_factor_solve_batched
+
+    def keep(band, b, w, clamp=0.0):
+        bands.append((band.clone(), b.clone(), clamp))
+        return entry(band, b, w, clamp)
+
+    fb.fleet_banded_factor_solve_batched = keep
+    try:
+        run()
+    finally:
+        fb.fleet_banded_factor_solve_batched = entry
+    log(f"[l1l2-fleet] B={L12_B} N={L12_N} f32, band {L12_BAND[0]}x{L12_BAND[1]}x"
+        f"{L12_BAND[2] + 1}: status 0 for all; iterations max {iters.max()} mean "
+        f"{iters.mean():.2f}; wall {wall:.4f} s, {L12_B / wall:.1f} solves/s, host "
+        f"{1e3 * wall / lockstep:.1f} ms a lockstep iteration ({card_line()}); launches "
+        f"{launches}; per lockstep iteration K1 {launches['factor_solve'] / lockstep:.2f} K2 "
+        f"{launches['solve'] / lockstep:.2f}; mean |position - truth| a fleet mean "
+        f"{err.mean():.4f}, max {err.max():.4f}")
+    return params, inits, res, launches, wall, lockstep, bands
+
+
+def l1l2_fleet_cpu(params, inits):
+    """[l1l2-fleet-cross-check]'s CPU side: those instances of the fleet."""
+    from tenscalc_tpu_torch.examples import l1l2estimation as l12
+
+    cpu = l12.build_l1l2(N=L12_N, ns="bl12_", device="cpu", **l12.BENCH_OPTIONS)
+    return numpy_result(cpu.solve_many(params, inits=inits, mu0=l12.BENCH_MU0,
+                                       max_iter=l12.BENCH_MAX_ITER))
+
+
+def l1l2_fleet_cross_check_inputs(params, inits):
+    sub_p = {k: (v[L12_CHECKS] if np.ndim(v) >= 1 else v) for k, v in params.items()}
+    return sub_p, {k: v[L12_CHECKS] for k, v in inits.items()}
+
+
+def finish_l1l2_fleet_cross_check(out, res, sl):
+    """Eight of the fleet's instances against the port on the CPU: status
+    equal, iterations within one, position (``sl`` of u) within
+    L12_FLEET_POS_ATOL, J (the objective) within F_RTOL relative."""
+    r, seconds = out
+    idx = L12_CHECKS
+    st, it = res.status.cpu().numpy()[idx], res.iters.cpu().numpy()[idx]
+    dp = np.abs(res.u.cpu().numpy()[idx][:, sl] - r.u[:, sl]).max(axis=1)
+    f = res.f.cpu().numpy()[idx]
+    df = np.abs(f - r.f) / np.abs(r.f)
+    log(f"[l1l2-fleet-cross-check] instances {idx.tolist()} on the CPU in {seconds:.1f} s: "
+        f"status card {st.tolist()} cpu {r.status.tolist()}; iterations card {it.tolist()} "
+        f"cpu {r.iters.tolist()}; max |d position| an instance "
+        f"{np.array2string(dp, precision=3)}; J rel diff an instance "
+        f"{np.array2string(df, precision=2)}")
+    check(np.array_equal(st, r.status), f"l1l2 fleet status card {st} cpu {r.status}")
+    check(bool((np.abs(it - r.iters) <= 1).all()),
+          f"l1l2 fleet iterations card {it} cpu {r.iters}")
+    check(bool((dp <= L12_FLEET_POS_ATOL).all() and (df <= F_RTOL).all()),
+          f"l1l2 fleet position within {L12_FLEET_POS_ATOL} ({dp.max():.3e}), J within "
+          f"{F_RTOL} ({df.max():.3e})")
+
+
+def phase_l1l2_kernels(fb, recs, bands):
+    """K1 and K2 at the l1l2 fleet's band (1024, 996, 10) on the lane
+    route: bitwise against their plain versions, timed beside their
+    bounds, the plain versions and the library calls on the band
+    expanded to dense (K1: lu_factor_ex(pivot=False) then lu_solve; K2:
+    lu_solve on K1's factor as an LU); the rows go into the records'
+    main_shapes.  Then K1 on each band the fleet's solve gave it
+    (``bands``: its equilibrated, permuted KKT bands, one a lockstep
+    iteration): bitwise against the plain version on the first and the
+    last, its device time on each."""
+    B, n, w = L12_BAND
+    clamp = 1e-7
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fb.launch_plan(n, w, B, sms)
+    band, rhs = test_band(B, n, w, seed=n + w)
+    f1, x1 = fb.fleet_banded_factor_solve_batched(band, rhs, w, clamp)
+    x2 = fb.fleet_banded_solve_batched(f1, rhs, w)
+    pf, px = fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)
+    px2 = fb.fleet_banded_solve_plain(pf, rhs, w)
+    torch.cuda.synchronize()
+    check(same_bits(f1, pf) and same_bits(x1, px) and same_bits(x2, px2),
+          f"K1/K2 at B={B} n={n} w={w}: not bitwise")
+    log(f"[l1l2-kernels] B={B} n={n} w={w}: route {fb.route(w)} "
+        f"{'ring' if plan.ring else 'staged'}, {plan.group} instances (a lane each) a CTA of "
+        f"one warp, {-(-B // plan.group)} CTAs, {plan.smem} bytes of shared memory a CTA; "
+        f"bitwise equal to the plain versions")
+    scale = max(pf.abs().max().item(), px.abs().max().item(), 1.0)
+    Ad = ldl_dense(band)
+    Ad = Ad + Ad.tril(-1).mT
+    piv = torch.arange(1, n + 1, dtype=torch.int32, device="cuda").repeat(B, 1)
+    libs = {"factor_solve": library_pair(Ad, rhs, x1, scale, 3)[0]}
+    del Ad
+    LU = ldl_as_lu(f1)
+    libs["solve"] = library_check(
+        lambda: torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0], x2, scale,
+        f"lu_solve against K2 at B={B} n={n} w={w}", 3)[0]
+    del LU
+    fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
+    runs = {
+        "factor_solve": (lambda: fb.launch_factor_solve(band, rhs, fbo, xo, w, clamp),
+                         lambda: fb.fleet_banded_factor_solve_plain(band, rhs, w, clamp)),
+        "solve": (lambda: fb.launch_solve(f1, rhs, xo, w),
+                  lambda: fb.fleet_banded_solve_plain(pf, rhs, w)),
+    }
+    errs = {"factor_solve": max((f1 - pf).abs().max().item(), (x1 - px).abs().max().item()),
+            "solve": (x2 - px2).abs().max().item()}
+    for k, (kern, plain) in runs.items():
+        bms, by = bound(k, B, n, w)
+        row = wide_row("l1l2-kernels", NAMES, k, B, n, w, errs[k], kern, bms, by, libs[k],
+                       cuda_ms(plain, 1))
+        row["path"] = "l1l2-fleet"
+        recs[k].setdefault("main_shapes", []).append(row)
+        recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], errs[k])
+    del band, rhs, f1, x1, x2, pf, px, px2, fbo, xo
+    times = []
+    for i, (band, rhs, cl) in enumerate(bands):
+        fbo, xo = torch.empty_like(band), torch.empty_like(rhs)
+        if i in (0, len(bands) - 1):
+            fb.launch_factor_solve(band, rhs, fbo, xo, w, cl)
+            pf, px = fb.fleet_banded_factor_solve_plain(band, rhs, w, cl)
+            check(same_bits(fbo, pf) and same_bits(xo, px),
+                  f"K1 on the fleet's band of lockstep iteration {i + 1}: not bitwise")
+        times.append(cuda_ms(lambda: fb.launch_factor_solve(band, rhs, fbo, xo, w, cl), 10,
+                             spin=True))
+    def spread(t):  # entries below the normal range, and the nonzero range
+        a = t.abs()
+        nz = a[a > 0]
+        return (int(((a > 0) & (a < 2.0 ** -126)).sum()),
+                f"{float(nz.min()):.1e}..{float(nz.max()):.1e}")
+
+    last = bands[-1]
+    fl, _ = fb.fleet_banded_factor_solve_plain(last[0], last[1], w, last[2])
+    # the random band with the last band's zeros: a quotient with a zero
+    # numerator leaves __fdiv_rn's fast path
+    zband, zrhs = test_band(B, n, w, seed=n + w)
+    zband = torch.where(last[0] == 0, 0.0, zband)
+    fbo, xo = torch.empty_like(zband), torch.empty_like(zrhs)
+    t_zero = cuda_ms(lambda: fb.launch_factor_solve(zband, zrhs, fbo, xo, w, 1e-7), 10,
+                     spin=True)
+    log(f"[l1l2-kernels] K1 on the {len(bands)} bands of the fleet's solve (bitwise on the "
+        f"first and the last), device ms a lockstep iteration: "
+        f"{', '.join(f'{t:.4f}' for t in times)}; the last band's subnormal entries and "
+        f"nonzero magnitudes {spread(last[0])}, its factor's {spread(fl)}; its zero share "
+        f"{float((last[0] == 0).float().mean()):.4f} (of the factor "
+        f"{float((fl == 0).float().mean()):.4f}); K1 on the random band with those zeros "
+        f"{t_zero:.4f} ms")
+
+
+def lasso_data():
+    """[lasso]'s data: 10 of 200 weights nonzero (1..2 in magnitude, either
+    sign), Gaussian features, y = X w + 1 + N(0, 0.01^2), numpy seed 0;
+    returns (X, y, w, support)."""
+    rng = np.random.default_rng(0)
+    w = np.zeros(LASSO_F)
+    support = rng.choice(LASSO_F, 10, replace=False)
+    w[support] = rng.uniform(1.0, 2.0, 10) * rng.choice([-1.0, 1.0], 10)
+    X = rng.standard_normal((LASSO_P, LASSO_F))
+    return X, X @ w + 1.0 + 0.01 * rng.standard_normal(LASSO_P), w, support
+
+
+def phase_lasso(ttc, dl, others):
+    """One Lasso.fit (apps/lasso.py) at 200 features x 2000 points in f32,
+    l1weight 1: the fleet dense LDL^T at nK = 401, K8 and K7 on the tiles
+    route, no other kernel; status 0 and the support recovered as
+    tests/test_apps.py:109 checks it."""
+    lasso = ttc.Lasso(LASSO_F, LASSO_P, name="blas", dtype="float32",
+                      gradTolerance=LASSO_GRAD_TOL)
+    s = lasso.solver
+    nK = s.nU + s.nG
+    check(s.device.type == "cuda" and s.kkt_backend_resolved == "fleet" and nK == 401
+          and dl.factor_plan(nK, 1).route == "tiles",
+          f"the Lasso on the card's fleet dense backend at nK = 401 (tiles route): "
+          f"{s.kkt_backend_resolved} {nK}")
+    X, y, w, support = lasso_data()
+    lasso.fit(X, y, l1weight=1.0)  # warm-up
+    reset_counts(dl, *others)
+    sol = lasso.fit(X, y, l1weight=1.0)
+    n_l, c_l = dict(dl.LAUNCHES), dict(dl.CUDA_LAUNCHES)
+    check(not any(v for m in others for v in m.LAUNCHES.values()),
+          "no banded kernel on the Lasso's path")
+    check(sol.status == 0, f"lasso: {sol.describe()}")
+    check(n_l["ldl_factor_solve"] > 0 and n_l["ldl_solve"] > 0
+          and n_l["fleet_factor"] == n_l["fleet_solve"] == n_l["ldl_factor"] == 0,
+          f"the Lasso through K8 and K7 alone: {n_l}")
+    W, c = np.asarray(sol.outputs["W"], float), float(sol.outputs["c"])
+    off = np.ones(LASSO_F, bool)
+    off[support] = False
+    dw = float(np.abs(W[support] - w[support]).max())
+    check(dw < 0.2 and float(np.abs(W[off]).max()) < 0.1 and abs(c - 1.0) < 0.2,
+          f"the support recovered: |dW| {dw:.3e} on it, {np.abs(W[off]).max():.3e} off it, "
+          f"c {c:.4f}")
+    log(f"[lasso] {LASSO_F} features x {LASSO_P} points f32 (gradTolerance "
+        f"{LASSO_GRAD_TOL}): nK {nK}, backend {s.kkt_backend_resolved}, route "
+        f"{dl.factor_plan(nK, 1).route}; status 0, {sol.iters} iterations, {sol.time:.4f} s; "
+        f"max |W - w| on the support {dw:.3e}, off it {np.abs(W[off]).max():.3e}, c {c:.6f}; "
+        f"launches {n_l}; per iteration {per_iteration(n_l, sol.iters, c_l)}")
+    return sol, n_l
+
+
+def lasso_cpu():
+    """[lasso-cross-check]'s CPU side: the same fit."""
+    import tenscalc_tpu_torch as ttc
+
+    X, y, _, _ = lasso_data()
+    sol = ttc.Lasso(LASSO_F, LASSO_P, name="blas", dtype="float32",
+                    gradTolerance=LASSO_GRAD_TOL, device="cpu").fit(X, y, l1weight=1.0)
+    return sol.status, sol.iters, np.asarray(sol.outputs["W"], float), float(sol.outputs["c"])
+
+
+def finish_lasso_cross_check(out, sol):
+    (status, iters, W, c), seconds = out
+    dw = float(np.abs(np.asarray(sol.outputs["W"], float) - W).max())
+    dc = abs(float(sol.outputs["c"]) - c)
+    check(status == sol.status and abs(iters - sol.iters) <= 1,
+          f"lasso card status {sol.status} ({sol.iters} it), CPU {status} ({iters} it)")
+    check(dw <= U_ATOL and dc <= U_ATOL, f"lasso W within {U_ATOL} ({dw:.3e}), c ({dc:.3e})")
+    log(f"[lasso-cross-check] the CPU's fit in {seconds:.1f} s: status {status}, iterations "
+        f"card {sol.iters} cpu {iters}, max |dW| {dw:.3e}, |dc| {dc:.3e}")
+
+
+def build_app_mpc(ttc, **options):
+    """tests/test_apps.py's DC-motor Mpc (T = 15, forward-Euler dynamics,
+    |u| <= 1, |x| <= 0.45); its state derivative works on Exprs and on
+    numpy."""
+    T, ns = 15, "bapm_"
+    x = ttc.variable(ns + "x", (2, T))
+    u = ttc.variable(ns + "u", (1, T))
+    ref = ttc.variable(ns + "ref", (1, T))
+    p = ttc.variable(ns + "p", ())
+    k = ttc.variable(ns + "k", ())
+
+    def f(xs, us, ref_, p_, k_):
+        x2 = xs[1:2, :]
+        if isinstance(xs, ttc.Expr) or isinstance(us, ttc.Expr):
+            return ttc.concat([x2, p_ * x2 + k_ * us], axis=0)
+        return np.concatenate([x2, np.asarray(p_) * x2 + np.asarray(k_) * us], axis=0)
+
+    Ts = 0.1
+    J = (ttc.tsIntegral(((x[0:1, :] - ref) ** 2).sum(axis=0), Ts)
+         + (1 / 50.0) * ttc.tsIntegral((u ** 2).sum(axis=0), Ts))
+    return ttc.Mpc(objective=J, control_variable=u, state_variable=x, state_derivative=f,
+                   sample_time=Ts, parameters=[ref, p, k],
+                   constraints=[u >= -1.0, u <= 1.0, x >= -0.45, x <= 0.45],
+                   output_expressions={"J": J}, **options)
+
+
+def app_mpc_loop(mpc, steps=15):
+    """tests/test_apps.py:52's closed loop: 15 steps, the plant by RK23."""
+    T, Ts, ns = mpc.T, mpc.sample_time_value, "bapm_"
+    mpc.set_parameter(ns + "p", -2.0)
+    mpc.set_parameter(ns + "k", 1.0)
+    mpc.set_initial_state(0.0, [0.2, 0.1])
+    u_warm = 0.01 * np.random.default_rng(0).random((1, T))
+    t = 0.0
+    for _ in range(steps):
+        mpc.set_parameter(ns + "ref",
+                          -0.3 * np.sign(np.sin(0.5 * (t + np.arange(T) * Ts)))[None, :])
+        state = mpc.set_solver_warm_start(u_warm)
+        mpc.set_solver_state_start(np.clip(state[:, 1:], -0.42, 0.42))
+        sol = mpc.solve(mu0=1e-3, max_iter=100)
+        if sol.status != 0:
+            break
+        t, u_warm, _ = mpc.apply_controls(sol)
+    return mpc.get_history()
+
+
+def build_app_mpcmhe(ttc, **options):
+    """The DC motor's MPC-MHE game through the Mpcmhe app at the
+    MPC-MHE cell's size (T = 12, L = 16; examples/mpcmhe_dcmotor's plant,
+    weights and bounds, lambda_n = 20 as bench.py's fleet): trapezoidal
+    dynamics dx = [x2; p x2 + k (u + d)], y = x1."""
+    T, L, ns = MMAPP_T, MMAPP_L, "bmha_"
+    Ts, p, k = 0.05, -2.0, 1.0
+    x = ttc.variable(ns + "x", (2, L + T + 1))
+    y = ttc.variable(ns + "yPast", (1, L + 1))
+    up = ttc.variable(ns + "uPast", (1, L))
+    uf = ttc.variable(ns + "uFuture", (1, T))
+    d = ttc.variable(ns + "d", (1, L + T))
+    ref = ttc.variable(ns + "ref", (1, T))
+
+    def f(xs, us, ds, *_):
+        if isinstance(xs, ttc.Expr):
+            return ttc.concat([xs[1:2, :], p * xs[1:2, :] + k * (us + ds)], axis=0)
+        return np.concatenate([xs[1:2, :], p * xs[1:2, :] + k * (us + ds)], axis=0)
+
+    J = (ttc.tsIntegral(((x[0:1, L + 1:] - ref) ** 2).sum(axis=0), Ts)
+         + (1 / 50.0) * ttc.tsIntegral((uf ** 2).sum(axis=0), Ts)
+         - 50.0 * ttc.tsIntegral((d ** 2).sum(axis=0), Ts)
+         - 20.0 * ttc.tsIntegral(((x[0:1, : L + 1] - y) ** 2).sum(axis=0), Ts))
+    return ttc.Mpcmhe(objective=J, state_variable=x, past_output_variable=y,
+                      past_control_variable=up, future_control_variable=uf,
+                      disturbance_variable=d, state_derivative=f,
+                      output_function=lambda xs, *_: xs[0:1], sample_time=Ts,
+                      backward_horizon=L, forward_horizon=T, parameters=[ref],
+                      control_constraints=[uf >= -5.0, uf <= 5.0],
+                      disturbance_constraints=[d >= -10.0, d <= 10.0],
+                      scaleCost=0.0, scaleInequalities=False, **options)
+
+
+def app_mpcmhe_solve(mhe):
+    """One game solve from seeded past windows (numpy seed 0)."""
+    T, L = MMAPP_T, MMAPP_L
+    rng = np.random.default_rng(0)
+    u_past = 0.1 * rng.standard_normal((1, L))
+    y_past = (0.05 * np.sin(0.5 * (np.arange(-L, 1) * 0.05))[None, :]
+              + 0.02 * rng.standard_normal((1, L + 1)))
+    mhe.set_parameter("bmha_ref", np.sign(np.sin(0.5 * np.arange(T) * 0.05))[None, :])
+    return mhe.solve(y_past, u_past, mu0=1e-3, max_iter=100)
+
+
+def sysid_data():
+    """tests/test_apps.py:323's data (numpy seed 0): x+ = 0.9 x + 0.5 u
+    + N(0, 0.05^2), y = x + N(0, 0.1^2), N = 40."""
+    rng = np.random.default_rng(0)
+    N = 40
+    u_seq = rng.standard_normal((1, N))
+    x_seq = np.zeros((1, N))
+    for k in range(N - 1):
+        x_seq[0, k + 1] = 0.9 * x_seq[0, k] + 0.5 * u_seq[0, k] + 0.05 * rng.standard_normal()
+    return u_seq, x_seq + 0.1 * rng.standard_normal((1, N))
+
+
+def build_app_sysid(ttc, **options):
+    return ttc.Sysid(f=lambda x, u, a: a * x + 0.5 * u, g=lambda x, a: x, n_states=1,
+                     n_outputs=1, n_inputs=1, horizon=40,
+                     parameters=[ttc.ParameterSpec("a", (), lower=-2.0, upper=2.0)],
+                     name="bsid", noise_std=0.1, disturbance_std=0.05,
+                     forecast_instants=[5, 20, 35], **options)
+
+
+def phase_apps(ttc, fb, lu, dl):
+    """[apps]: each app's entry point on the card in float64 (the apps'
+    default), its backend and launches read around it: the Mpc app's
+    closed loop, examples/mpc_lti's, examples/mpc_fleet.run_fleet(64, 20,
+    20 periods), the Mpcmhe app's game at T = 12, L = 16 and a Sysid fit
+    with its forecast and parameter_std.  Returns what finish_apps holds
+    against the CPU, and the launches by path."""
+    from tenscalc_tpu_torch.examples import mpc_fleet, mpc_lti
+
+    mods = (fb, lu, dl)
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+        return r, time.perf_counter() - t0
+
+    ttc.clear_variables()
+    mpc = build_app_mpc(ttc)
+    check(mpc.solver.device.type == "cuda", "the Mpc app's default device is the card")
+    hist, sec = counted("mpc", lambda: app_mpc_loop(mpc))
+    check(hist["status"].shape == (15,) and (hist["status"] == 0).all(),
+          f"the Mpc app's closed loop at status 0: {hist['status']}")
+    check(hist["x"].shape == (2, 16) and (np.abs(hist["x"]) <= 0.47).all()
+          and (np.abs(hist["u"]) <= 1 + 1e-6).all(), "its states and controls in the box")
+    out["mpc"] = hist
+    log(f"[apps] Mpc app (T=15, nK {mpc.solver.nU + mpc.solver.nG}, backend "
+        f"{mpc.solver.kkt_backend_resolved}): 15 steps at status 0 in {sec:.2f} s, iterations "
+        f"{hist['iter'].tolist()}; launches {launches['mpc']}")
+
+    ttc.clear_variables()
+    lti = mpc_lti.build_solver()
+    hist, sec = counted("mpc_lti", lambda: mpc_lti.run_closed_loop(lti))
+    check(len(hist["x"]) == 30 and (hist["status"] == 0).all()
+          and (np.abs(hist["x"][:, 0]) <= 0.4 + 1e-6).all(),
+          f"mpc_lti's closed loop: statuses {set(hist['status'].tolist())}")
+    out["mpc_lti"] = hist
+    log(f"[apps] examples/mpc_lti (T=20, delay 1, backend {lti.kkt_backend_resolved}): 30 "
+        f"steps at status 0 in {sec:.2f} s; launches {launches['mpc_lti']}")
+
+    ttc.clear_variables()
+    B, T, steps = APP_FLEET
+    hist, sec = counted("mpc_fleet", lambda: mpc_fleet.run_fleet(B=B, T=T, n_steps=steps))
+    check(hist["status"].shape == (steps, B) and (hist["status"] == 0).all(),
+          f"mpc_fleet: every plant at status 0 in every period ({hist['status'].shape})")
+    check(np.abs(hist["x"]).max() < 0.45, "mpc_fleet's states inside the box")
+    out["mpc_fleet"] = hist
+    log(f"[apps] examples/mpc_fleet B={B} T={T} {steps} periods: all at status 0 in "
+        f"{sec:.2f} s ({B * steps / sec:.1f} solves/s over the loop), max iterations a period "
+        f"{hist['iters_max'].tolist()}; launches {launches['mpc_fleet']}")
+
+    ttc.clear_variables()
+    mhe = build_app_mpcmhe(ttc)
+    sol, sec = counted("mpcmhe", lambda: app_mpcmhe_solve(mhe))
+    check(sol.status == 0, f"the Mpcmhe app's solve: status {sol.status}")
+    check(np.isfinite(sol.state).all() and (np.abs(sol.control) <= 5 + 1e-6).all(),
+          "its state finite, its controls in their box")
+    plan = getattr(mhe.solver, "kkt_plan", None)
+    out["mpcmhe"] = (sol.status, sol.iter, sol.control, sol.state)
+    log(f"[apps] Mpcmhe app (T={MMAPP_T}, L={MMAPP_L}, backend "
+        f"{mhe.solver.kkt_backend_resolved}, RCM w "
+        f"{plan.bandwidth if plan is not None else None}): status 0, {sol.iter} iterations, "
+        f"{sec:.2f} s; launches {launches['mpcmhe']}")
+
+    ttc.clear_variables()
+    sid = build_app_sysid(ttc)
+    u_seq, y_seq = sysid_data()
+    (sol, est), sec = counted("sysid", lambda: sid.fit(u_seq, y_seq, x0=y_seq, mu0=1.0))
+    check(sol.status == 0, f"the Sysid fit: {sol.describe()}")
+    t0 = time.perf_counter()
+    rep = sid.forecast(sol, u_seq, y_seq)
+    std = sid.parameter_std(sol)
+    torch.cuda.synchronize()
+    sec_h = time.perf_counter() - t0
+    check(rep["H_sign"] > 0 and np.isfinite(rep["logMarginal"]), "the forecast's Hessian")
+    out["sysid"] = ({k: sol.variables[k] for k in sol.variables}, sol.status, sol.iters, rep,
+                    std)
+    log(f"[apps] Sysid (N=40, soft dynamics, backend {sid.solver.kkt_backend_resolved}): "
+        f"status 0, {sol.iters} iterations, a {float(est['a']):.6f}, {sec:.2f} s; launches "
+        f"{launches['sysid']}; forecast and parameter_std (torch.func.hessian, float64, on "
+        f"the card) in {sec_h:.2f} s: std {rep['std'].ravel().tolist()}, logMarginal "
+        f"{rep['logMarginal']:.6f}, std(a) {float(std['theta']['a']):.6e}")
+    return out, launches
+
+
+def apps_cpu(card_sysid_vars):
+    """[apps-cross-check]'s CPU side: every [apps] drive again on the CPU;
+    the Sysid's forecast and parameter_std also at the card's solution."""
+    import tenscalc_tpu_torch as ttc
+    from tenscalc_tpu_torch.examples import mpc_fleet, mpc_lti
+
+    out = {}
+    ttc.clear_variables()
+    out["mpc"] = app_mpc_loop(build_app_mpc(ttc, device="cpu"))
+    ttc.clear_variables()
+    out["mpc_lti"] = mpc_lti.run_closed_loop(mpc_lti.build_solver(device="cpu"))
+    ttc.clear_variables()
+    B, T, steps = APP_FLEET
+    out["mpc_fleet"] = mpc_fleet.run_fleet(B=B, T=T, n_steps=steps, device="cpu")
+    ttc.clear_variables()
+    sol = app_mpcmhe_solve(build_app_mpcmhe(ttc, device="cpu"))
+    out["mpcmhe"] = (sol.status, sol.iter, sol.control, sol.state)
+    ttc.clear_variables()
+    sid = build_app_sysid(ttc, device="cpu")
+    u_seq, y_seq = sysid_data()
+    sol, _ = sid.fit(u_seq, y_seq, x0=y_seq, mu0=1.0)
+    at_card = SimpleNamespace(variables=card_sysid_vars)
+    out["sysid"] = (sol.variables, sol.status, sol.iters,
+                    sid.forecast(at_card, u_seq, y_seq), sid.parameter_std(at_card))
+    return out
+
+
+def finish_apps(card, out):
+    """The card's [apps] against the port on the CPU, every comparison
+    logged before any is held: statuses equal, iterations within one,
+    the Mpc app's and mpc_lti's closed-loop states and controls within
+    APP_ATOL; mpc_fleet's first period's controls within U_ATOL and the
+    whole loop's states and controls within APP_FLEET_ATOL; the Mpcmhe
+    app's controls and states within APP_ATOL; the Sysid's estimates
+    within APP_ATOL and its forecast and parameter_std at the card's
+    solution within SYSID_RTOL relative."""
+    cpu, seconds = out
+    parts, held = [], []
+
+    def hold(cond, msg):
+        held.append((bool(cond), msg))
+
+    for name in ("mpc", "mpc_lti"):
+        a, b = card[name], cpu[name]
+        hold(np.array_equal(a["status"], b["status"]), f"{name}: statuses card against CPU")
+        if "iter" in a:
+            hold((np.abs(a["iter"] - b["iter"]) <= 1).all(),
+                 f"{name}: iterations card {a['iter']} cpu {b['iter']}")
+        d = max(float(np.abs(a["x"] - b["x"]).max()), float(np.abs(a["u"] - b["u"]).max()))
+        hold(d <= APP_ATOL, f"{name}: states and controls within {APP_ATOL} ({d:.3e})")
+        parts.append(f"{name} max |dx|, |du| {d:.3e}")
+    a, b = card["mpc_fleet"], cpu["mpc_fleet"]
+    hold(np.array_equal(a["status"], b["status"]), "mpc_fleet: statuses card against CPU")
+    hold((np.abs(a["iters_max"] - b["iters_max"]) <= 1).all(),
+         f"mpc_fleet: max iterations card {a['iters_max']} cpu {b['iters_max']}")
+    du_p = np.abs(a["u"] - b["u"]).reshape(len(a["u"]), -1).max(axis=1)
+    dx = float(np.abs(a["x"] - b["x"]).max())
+    hold(du_p[0] <= U_ATOL, f"mpc_fleet: the first period's u within {U_ATOL} ({du_p[0]:.3e})")
+    hold(du_p.max() <= APP_FLEET_ATOL and dx <= APP_FLEET_ATOL,
+         f"mpc_fleet: u ({du_p.max():.3e}) and x ({dx:.3e}) within {APP_FLEET_ATOL}")
+    parts.append(f"mpc_fleet max |du| a period {np.array2string(du_p, precision=1)}, max "
+                 f"|dx| {dx:.3e}")
+    (sa, ia, ca, xa), (sb, ib, cb, xb) = card["mpcmhe"], cpu["mpcmhe"]
+    d = max(float(np.abs(ca - cb).max()), float(np.abs(xa - xb).max()))
+    hold(sa == sb and abs(ia - ib) <= 1 and d <= APP_ATOL,
+         f"Mpcmhe app: status {sa}/{sb}, iterations {ia}/{ib}, max diff {d:.3e}")
+    parts.append(f"Mpcmhe app iterations {ia}/{ib}, max |du|, |dx| {d:.3e}")
+    (va, sa, ia, ra, stda), (vb, sb, ib, rb, stdb) = card["sysid"], cpu["sysid"]
+    dv = max(float(np.abs(np.asarray(va[k]) - np.asarray(vb[k])).max()) for k in va)
+    hold(sa == sb and abs(ia - ib) <= 1 and dv <= APP_ATOL,
+         f"Sysid: status {sa}/{sb}, iterations {ia}/{ib}, estimates {dv:.3e}")
+    rel = 0.0
+    for k in ("mean", "std", "logJoint", "logMarginal", "logdetH"):
+        x, y = np.asarray(ra[k], float), np.asarray(rb[k], float)
+        rel = max(rel, float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300)))
+    for x, y in ((stda["theta"]["a"], stdb["theta"]["a"]), (stda["x"], stdb["x"])):
+        rel = max(rel, float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300)))
+    hold(rel <= SYSID_RTOL, f"Sysid's Laplace Hessians card against CPU: {rel:.3e} relative")
+    parts.append(f"Sysid iterations {ia}/{ib}, estimates {dv:.3e}, forecast and "
+                 f"parameter_std at the card's solution {rel:.3e} relative")
+    log(f"[apps-cross-check] on the CPU in {seconds:.1f} s beside the other phases: "
+        + "; ".join(parts))
+    for cond, msg in held:
+        check(cond, msg)
 
 
 def main() -> int:
@@ -3038,6 +3715,37 @@ def main() -> int:
         f"profiled ({1e3 * dg_wall / dg_lock:.1f} unprofiled over the whole solve)")
     del gsolver
     torch.cuda.empty_cache()
+    # slice 19, its CPU sides beside the later phases: bench.py's l1l2 row
+    # and a fleet of 1024 estimations (K1/K2 on the lane route), one Lasso
+    # fit (K8/K7 at n = 401), the apps
+    from tenscalc_tpu_torch.examples import l1l2estimation as l12
+
+    elapsed("the l1l2 slice")
+    lsolver, lparams, linit, lsol, l12_launches = phase_l1l2(l12, fb, (lu, dl))
+    l12_side = start_cpu_side(l1l2_cpu, lparams, linit)
+    lfparams, lfinits, lfres, l12f_launches, lf_wall, lf_lock, lbands = phase_l1l2_fleet(
+        lsolver, l12, fb, (lu, dl))
+    l12f_side = start_cpu_side(l1l2_fleet_cpu, *l1l2_fleet_cross_check_inputs(lfparams, lfinits))
+    lpwall, lpbusy, lshares = phase_profile("profile12", lambda: lsolver.solve_many(
+        lfparams, inits=lfinits, mu0=l12.BENCH_MU0, max_iter=l12.BENCH_MAX_ITER),
+        watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")), host_ops=False)
+    log(f"[profile12] the l1l2 fleet: device kernel time {lpbusy:.4f} s a solve, "
+        f"{1e3 * lpbusy / lf_lock:.2f} ms a lockstep iteration; host "
+        f"{1e3 * lf_wall / lf_lock:.1f} ms a lockstep iteration unprofiled "
+        f"({1e3 * lpwall / lf_lock:.1f} profiled); K1 {lshares[0]:.4f} and K2 {lshares[1]:.4f} "
+        f"of the device time")
+    l12_pos = lsolver.packing.slice_of("bl12_position")
+    del lsolver
+    phase_l1l2_kernels(fb, recs, lbands)
+    del lbands
+    torch.cuda.empty_cache()
+    elapsed("[lasso]")
+    lasso_sol, lasso_launches = phase_lasso(ttc, dl, (fb, lu))
+    lasso_side = start_cpu_side(lasso_cpu)
+    elapsed("[apps]")
+    apps_card, apps_launches = phase_apps(ttc, fb, lu, dl)
+    apps_side = start_cpu_side(apps_cpu, apps_card["sysid"][0])
+    reset_counts(fb, lu, dl)  # the later phases read their counts from 0
     elapsed("the rest of the API")
     phase_api(mpc)
     elapsed("the tutorials")
@@ -3140,7 +3848,9 @@ def main() -> int:
     flops_launches, (fsolver, fparams, finit) = phase_flops(flops, dl, (fb, lu))
     phase_flops_backends(flops, dl, (fb, lu))
     phase_flops_cross_check(flops)
-    mls_launches = phase_mls(sls, dl, (fb, lu))
+    from tenscalc_tpu_torch.examples import mls
+
+    mls_launches = phase_mls(mls, dl, (fb, lu))
     slseq_launches, qsolver, qparams, qinit = phase_slseq(slseq, dl, (fb, lu))
     # the tiles route: K8's factor launches, K8's solve, K7
     k87 = (("K8's factor (tile_factor_kernel)", r"\btile_factor_kernel\b"),
@@ -3150,6 +3860,7 @@ def main() -> int:
                                                     max_iter=60), watch=k87)
     phase_profile("profile6", lambda: qsolver.solve(qparams, init=qinit, mu0=1.0,
                                                     max_iter=60), watch=k87)
+
 
     # launches: the count on the path that runs the kernel;
     # entry_point_launches: the count of the separate drive of a kernel
@@ -3170,16 +3881,19 @@ def main() -> int:
         "fleet_solve": fleet_launches["fleet_solve"],
         "ldl_factor": pallas_launches["ldl_factor"],
         # K7/K8: every one-instance path that runs them, each read alone:
-        # the sls single solves, the flops curve, mls and slseq
+        # the sls single solves, the flops curve, mls, slseq and the Lasso
         **{k: single_launches[k] + flops_launches[k] + mls_launches[k] + slseq_launches[k]
-           for k in ("ldl_solve", "ldl_factor_solve")},
+           + lasso_launches[k] for k in ("ldl_solve", "ldl_factor_solve")},
     }
     # K1/K2: the flagship's counts and shapes (the min-max path's counts
     # are in its [minmax] line); K3: the min-max HessD inertia, its only
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
     fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches,
-                "quadcopter": quad_launches, "deconv": dc_launches}
+                "quadcopter": quad_launches, "deconv": dc_launches, "l1l2": l12_launches,
+                "l1l2_fleet": l12f_launches,
+                **{f"app_{p}": {k: c.get(k, 0) for k in fb.LAUNCHES}
+                   for p, c in apps_launches.items()}}
     # block_route: each kernel's rows at BLOCK_SHAPES ([block-kernels])
     kernels = [
         {**entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k]),
@@ -3194,7 +3908,8 @@ def main() -> int:
         {**entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],
                  lu_entry_launches.get(k), lu_recs[k]),
          "launches_by_path": {"mpcmhe": lu_launches[k], "pursuit": pur_launches[k],
-                              "deconv_game": dg_launches[k]},
+                              "deconv_game": dg_launches[k],
+                              "app_mpcmhe": apps_launches["mpcmhe"].get(k, 0)},
          "block_route": block_rows[k]}
         for k in ("lu_factor_solve", "lu_solve", "lu_factor")
     ]
@@ -3208,6 +3923,10 @@ def main() -> int:
     finish_deconv_cross_check(dc_idx, collect_cpu_side(deconv_side), dres)
     finish_tutorials(tutorials_card, collect_cpu_side(tutorials_side))
     finish_quadcopter_cross_check(*quad_check)
+    finish_l1l2_cross_check(collect_cpu_side(l12_side), lsol)
+    finish_l1l2_fleet_cross_check(collect_cpu_side(l12f_side), lfres, l12_pos)
+    finish_lasso_cross_check(collect_cpu_side(lasso_side), lasso_sol)
+    finish_apps(apps_card, collect_cpu_side(apps_side))
     elapsed("the end")
     print(json.dumps({"kernels": kernels}))
     print(card_line(fresh=True))

@@ -102,6 +102,11 @@ from .api import (
     optimize,
 )
 from .parallel.batch import solve_batched
+from .apps.mpc import Mpc
+from .apps.mpcmhe import Mpcmhe
+from .apps.lasso import Lasso
+from .apps.nlss import NLSS
+from .apps.sysid import Sysid, ParameterSpec
 
 __all__ = [
     "Constraint", "Expr", "Tconstant", "Teye", "Tones", "Tvariable", "Tzeros",
@@ -121,4 +126,5 @@ __all__ = [
     "SolverOptions", "SolverStatus", "describe_status", "OptimizeSolver", "Solution",
     "optimize", "minmax", "equilibrium", "solve_batched", "compute", "compute_object",
     "ComputeFunction", "ComputeObject",
+    "Mpc", "Mpcmhe", "Lasso", "NLSS", "Sysid", "ParameterSpec",
 ]
