@@ -153,11 +153,32 @@ Phases:
      float64 on the card), each with its backend and launches, all held
      against the port on the CPU in one spawned process (mpc_fleet's
      first period within 2e-3, its loop within 1e-2).  [mls] builds
-     bench.py's two mls rows through examples/mls.py at k = 1.
+     bench.py's two mls rows through examples/mls.py at k = 1;
+ 18. the structured KKT backends and the mesh paths (plain PyTorch:
+     batched LU factors and solves; each phase logs statuses, iterations,
+     solves/s, host and device ms and CUDA launches a lockstep iteration,
+     and checks that its adapters' tensors are on the card): [tridiag] the
+     flagship fleet (T = 30, B = 1024, f32) on kkt_backend='tridiag',
+     held against the card's fleet_banded flagship (u within 2e-3 where
+     both converge); [minmax-tridiag] bench.py's min-max fleet on
+     'tridiag'; [auto-cpu-branch] under TENSCALC_AUTO_FLEET=0, bench.py's
+     l1l2 row resolved to 'tridiag' (status 0, mean position error under
+     0.6, its warm latency) and tests/test_planner.py:44's Sysid to
+     'arrow' (a within 5e-3); [cyclic] the flagship fleet in float64 on
+     'cyclic'; [spike] the flagship fleet on 'spike' over a virtual mesh
+     of 4 x cuda:0; each with eight instances (the l1l2 solve) again on
+     the CPU in a spawned process (status equal; f32: iterations within
+     one, u within 2e-3; f64: iterations equal and u within 1e-6 where
+     both converge); [mesh] the flagship fleet on 'auto' (K1/K2) through
+     solve_many(mesh=...) on make_mesh() and on 4 x cuda:0, each held
+     against the unsharded fleet (statuses equal, iterations within one,
+     u within 2e-3; the bitwise-equal count logged), and measure_scaling
+     at 1, 2 and 4 entries of cuda:0 with 256 instances an entry (its
+     solves/s no target: one card).
 
 Every cross-check's CPU side (phases 4, 8, 11, 12, 14, 15, the
-quadcopter's, [deconv]'s, [tutorials]' and phase 17's) runs in a spawned process of
-its own (start_cpu_side) beside the card's later phases, and is held
+quadcopter's, [deconv]'s, [tutorials]', phase 17's and phase 18's) runs in
+a spawned process of its own (start_cpu_side) beside the card's later phases, and is held
 once the card's phases are done.
 
 It prints a JSON line of the kernels, the card's name and power limit,
@@ -1883,6 +1904,26 @@ def phase_cross_check(out, res):
         f"cpu {r.iters.tolist()}")
 
 
+def device_profile(fn, host_ops: bool = False):
+    """One call of ``fn`` under the profiler (with the host's operators
+    if ``host_ops``): (wall s, device kernel s, kernel launches, device
+    us by kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: operator events also carry their kernels' time
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(kern), "the profiler saw device kernels")
+    dev_us = {e.key: e.self_device_time_total for e in kern}
+    return wall, sum(dev_us.values()) / 1e6, sum(e.count for e in kern), dev_us
+
+
 def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
     """One solve (a fleet's or one instance's) under the profiler: the device's busy and idle
     shares, the top ten kernels, and the kernels whose names ``watch``'s
@@ -1893,22 +1934,7 @@ def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
     order of ``watch``."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] if host_ops else []
-    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_fleet()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # kernel events only: operator events also carry their kernels' time
-    dev_us = {
-        e.key: e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    }
-    check(bool(dev_us), "the profiler saw device kernels")
-    busy = sum(dev_us.values()) / 1e6
+    wall, busy, _, dev_us = device_profile(run_fleet, host_ops)
     log(f"[{label}] a solve under the profiler: wall {wall:.4f} s, device "
         f"kernel time {busy:.4f} s, device idle share {1 - busy / wall:.3f}")
     for k, v in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
@@ -2194,9 +2220,10 @@ def phase_sls_pallas(sls, dl, others):
     return {k: n_one[k] + n_fleet[k] for k in n_one}
 
 
-def build_minmax(ttc, ns: str, device=None):
+def build_minmax(ttc, ns: str, device=None, **options):
     """bench.py:809-865's saddle problem: a horizon-chain minimizer with a
-    bilinear coupling to a strongly concave maximizer, both bounded."""
+    bilinear coupling to a strongly concave maximizer, both bounded;
+    ``options`` go to minmax() (``kkt_backend``)."""
     u = ttc.variable(ns + "u", (MM_N,))
     d = ttc.variable(ns + "d", (MM_N,))
     p = ttc.parameter(ns + "p", (MM_N,))
@@ -2208,7 +2235,7 @@ def build_minmax(ttc, ns: str, device=None):
     return ttc.minmax(
         objective=f, minOptimizationVariables=[u], maxOptimizationVariables=[d],
         minConstraints=[u >= -2.0, u <= 2.0], maxConstraints=[d >= -2.0, d <= 2.0],
-        parameters=[p], dtype="float32", device=device,
+        parameters=[p], dtype="float32", device=device, **options,
     )
 
 
@@ -3608,6 +3635,441 @@ def finish_apps(card, out):
         check(cond, msg)
 
 
+# ---------------------------------------------------------------------------
+# slice 20: the structured KKT backends and the mesh paths (plain PyTorch:
+# batched LU factors and solves, products, eigvalsh; no hand-written kernel
+# but K1/K2 in the [mesh] fleet)
+# ---------------------------------------------------------------------------
+
+# the min-max fleet on 'tridiag' and the structured flagship fleets: the
+# CPU sides solve these instances again
+STRUCT_CHECKS = FLEET_CHECKS
+# [tridiag]'s and [cyclic]'s cross-checks: at the flagship's default
+# tolerances u is not determined to U_ATOL on part of the fleet (the
+# card's 'tridiag' and 'fleet_banded' answers part by up to 9.2e-3 at
+# objectives 3.3e-5 apart, the card's and the CPU's 'tridiag' by 1.02e-2
+# at 4.1e-6, and [cyclic]'s CPU side logs the CPU's own float64 'cyclic'
+# and 'dense' answers up to 7.4e-3 apart), so these hold the objective
+# within J_RTOL and u within STRUCT_U_ATOL, and count the instances on
+# one path (iterations equal, u within F64_U_ATOL)
+STRUCT_U_ATOL = 2e-2
+F64_U_ATOL = 1e-6
+# the virtual meshes: four entries of the card ([spike], [mesh])
+MESH_VIRTUAL = 4
+# measure_scaling's weak-scaling sweep on a virtual list of cuda:0 entries
+SCALE_PER_DEVICE, SCALE_COUNTS = 256, (1, 2, 4)
+# tests/test_planner.py:44's Sysid: a within this of the truth (0.8)
+SYSID_A_ATOL = 5e-3
+
+
+def _tensors(x):
+    """Every tensor in x: a tensor, or tuples, lists and dicts of them."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+
+
+@contextlib.contextmanager
+def factor_placement(*classes):
+    """While open, every adapter of ``classes`` built records the device
+    types of the tensors it holds; yields (device types, adapters built)."""
+    types, built = set(), [0]
+    saved = [(c, c.__init__) for c in classes]
+
+    def wrap(orig):
+        def init(self, *args, **kwargs):
+            orig(self, *args, **kwargs)
+            built[0] += 1
+            types.update(t.device.type for t in _tensors(list(vars(self).values())))
+        return init
+
+    for c, orig in saved:
+        c.__init__ = wrap(orig)
+    try:
+        yield types, built
+    finally:
+        for c, orig in saved:
+            c.__init__ = orig
+
+
+def struct_fleet(label, solver, run, classes, kmods, B, kernels_allowed=()):
+    """A fleet phase of slice 20: a warm-up, a timed solve (its adapters'
+    tensors on the card; no hand-written kernel but ``kernels_allowed``),
+    a profiled solve; logs statuses, iterations, solves/s, host and device
+    ms and CUDA launches a lockstep iteration.  Returns the timed result
+    and the hand-written kernels' launches."""
+    run()  # warm-up (first-call allocations)
+    reset_counts(*kmods)
+    with factor_placement(*classes) as (types, built):
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    kern = {k: v for m in kmods for k, v in m.LAUNCHES.items() if v}
+    check(built[0] > 0 and types == {"cuda"},
+          f"[{label}] its factors on the card: {built[0]} built, on {sorted(types)}")
+    check(set(kern) <= set(kernels_allowed), f"[{label}] hand-written kernels: {kern}")
+    status, iters = res.status.cpu().numpy(), res.iters.cpu().numpy()
+    check(bool(torch.isfinite(res.u).all()), f"[{label}] finite u")
+    lockstep = max(int(iters.max()) - 1, 1)  # the last trip only runs the exit tests
+    pwall, busy, n_launch, _ = device_profile(run)
+    log(f"[{label}] B={B}: backend {solver.kkt_backend_resolved}; statuses "
+        f"{ {int(a): int(c) for a, c in zip(*np.unique(status, return_counts=True))} }; "
+        f"iterations max {iters.max()} "
+        f"mean {iters.mean():.2f}; wall {wall:.4f} s, {B / wall:.1f} solves/s; a lockstep "
+        f"iteration: host {1e3 * wall / lockstep:.2f} ms, device {1e3 * busy / lockstep:.3f} ms "
+        f"(profiled wall {pwall:.4f} s, device idle {1 - busy / pwall:.3f}), CUDA launches "
+        f"{n_launch / lockstep:.1f}; hand-written kernels a lockstep iteration "
+        f"{ {k: round(v / lockstep, 2) for k, v in kern.items()} }; adapters built "
+        f"{built[0]}, on {sorted(types)}; {card_line()}")
+    return res, kern
+
+
+def _sync(res):
+    """``res`` once the card is done."""
+    torch.cuda.synchronize()
+    return res
+
+
+def structured_cpu(case, params, inits):
+    """The CPU side of slice 20's cross-checks: the port on the CPU on the
+    same inputs (the instances the card's phase picked)."""
+    import tenscalc_tpu_torch as ttc
+    from tenscalc_tpu_torch.examples import mpc_dcmotor as mpc
+    from tenscalc_tpu_torch.parallel import Mesh, virtual_devices
+
+    if case == "minmax-tridiag":
+        cpu = build_minmax(ttc, "bmt_", device="cpu", kkt_backend="tridiag")
+        return numpy_result(cpu.solve_many(params, inits=inits, mu0=1.0, max_iter=60))
+    if case == "l1l2":
+        from tenscalc_tpu_torch.examples import l1l2estimation as l12
+
+        os.environ["TENSCALC_AUTO_FLEET"] = "0"
+        cpu = l12.build_l1l2(N=L12_N, ns="bl12a_", device="cpu", **l12.BENCH_OPTIONS)
+        sol = cpu.solve(params, init=inits, mu0=l12.BENCH_MU0, max_iter=l12.BENCH_MAX_ITER)
+        return (cpu.kkt_backend_resolved, sol.status, sol.iters,
+                np.asarray(sol.outputs["position"], float))
+    backend, dtype = {"tridiag": ("tridiag", "float32"), "cyclic": ("cyclic", "float64"),
+                      "spike": ("spike", "float32")}[case]
+    kw = ({"kkt_mesh": Mesh(virtual_devices("cpu", MESH_VIRTUAL), ("stages",))}
+          if case == "spike" else {})
+    ns = f"f{case[:3]}_"
+    cpu = mpc.build_solver(T=FLEET_T, namespace=ns, dtype=dtype, kkt_backend=backend,
+                           device="cpu", **kw)
+    out = numpy_result(cpu.solve_many(params, inits=inits, mu0=1e-3, max_iter=100))
+    if case != "cyclic":
+        return out
+    # the spread of the float64 answers between two backends on the CPU
+    dense = mpc.build_solver(T=FLEET_T, namespace=ns, dtype=dtype, kkt_backend="dense",
+                             device="cpu")
+    return out, numpy_result(dense.solve_many(params, inits=inits, mu0=1e-3, max_iter=100))
+
+
+def fleet_subset(params, inits, ns, idx, batched=("ref", "xinit")):
+    """The instances ``idx`` of a flagship fleet's inputs."""
+    return ({k: (v[idx] if k in {ns + b for b in batched} else v) for k, v in params.items()},
+            {k: v[idx] for k, v in inits.items()})
+
+
+def finish_struct_cross_check(label, out, res, idx, f64, u_atol=U_ATOL, u_cols=None):
+    """A card fleet's instances ``idx`` against the port on the CPU: status
+    equal, iterations within one, u within ``u_atol``; where ``u_atol``
+    is STRUCT_U_ATOL, also the objective within J_RTOL.  ``f64``: the CPU
+    side also solved the instances on 'dense', whose spread from its
+    'cyclic' answers is logged."""
+    r, seconds = out
+    spread = None
+    if f64:
+        r, dense = r
+        spread = np.abs(r.u - dense.u).max(axis=1)
+    card = numpy_result(res, idx)
+    sl = slice(None) if u_cols is None else slice(0, u_cols)
+    du = np.abs(r.u[:, sl] - card.u[:, sl]).max(axis=1)
+    dj = np.abs(r.f - card.f) / np.abs(r.f)
+    same = (r.iters == card.iters) & (du <= F64_U_ATOL)
+    log(f"[{label}-cross-check] {len(idx)} instances on the CPU ({seconds:.1f} s): status card "
+        f"{card.status.tolist()} cpu {r.status.tolist()}; iterations card {card.iters.tolist()} "
+        f"cpu {r.iters.tolist()}; |du| {np.array2string(du, precision=3)}; objective rel diff "
+        f"max {dj.max():.3e}; one path (iterations equal, u within {F64_U_ATOL}) on "
+        f"{int(same.sum())} of {len(idx)}"
+        + ("" if spread is None else "; the CPU's 'cyclic' against its 'dense' |du| "
+           f"{np.array2string(spread, precision=3)}"))
+    check((r.status == card.status).all(), f"[{label}] status equal")
+    check((np.abs(r.iters - card.iters) <= 1).all(), f"[{label}] iterations within one")
+    check((du <= u_atol).all(), f"[{label}] u within {u_atol} ({du.max():.3e})")
+    if u_atol == STRUCT_U_ATOL:
+        check((dj <= J_RTOL).all(), f"[{label}] objective within {J_RTOL} ({dj.max():.3e})")
+
+
+def phase_tridiag(ttc, mpc, flag_res, kmods):
+    """[tridiag]: the flagship fleet (T = 30, B = 1024, f32, the flagship
+    options) on kkt_backend='tridiag', its u held against the card's own
+    fleet_banded flagship where both converge."""
+    from tenscalc_tpu_torch.kkt.tridiag import TridiagFactorization
+
+    ns = "ftri_"
+    t0 = time.perf_counter()
+    solver = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32", kkt_backend="tridiag")
+    check(solver.device.type == "cuda", "[tridiag] the solver on the card")
+    check(solver.kkt_backend_resolved == "tridiag" and solver.kkt_plan.block == 4,
+          "[tridiag] 'tridiag', blocks of 4")
+    log(f"[tridiag] built in {time.perf_counter() - t0:.1f} s; plan n {solver.kkt_plan.n}, "
+        f"s {solver.kkt_plan.block}, {solver.kkt_plan.n_blocks} blocks")
+    params, inits = mpc.fleet_inputs(FLEET_T, FLEET_B, ns, seed=0)
+    res, _ = struct_fleet("tridiag", solver, lambda: _sync(solver.solve_many(
+        params, inits=inits, mu0=1e-3, max_iter=100)), (TridiagFactorization,), kmods, FLEET_B)
+    status = res.status.cpu().numpy()
+    check(int((status == 0).sum()) == FLEET_B, f"[tridiag] all at status 0: {np.bincount(status)}")
+    both = (status == 0) & (flag_res.status.cpu().numpy() == 0)
+    du = (res.u - flag_res.u).abs().amax(dim=1).cpu().numpy()[both]
+    dj = ((res.f - flag_res.f).abs() / flag_res.f.abs()).cpu().numpy()[both]
+    log(f"[tridiag] against the card's fleet_banded flagship: {int(both.sum())} both at status "
+        f"0; |du| median {np.median(du):.3e}, max {du.max():.3e}, {int((du > U_ATOL).sum())} "
+        f"above {U_ATOL}, {int((du == 0).sum())} bitwise; objective rel diff max {dj.max():.3e}")
+    # two float32 factorizations stop at different points of the default
+    # tolerances' ball, where u is not determined to U_ATOL on part of
+    # the fleet: the objective is held, u logged
+    check((dj <= J_RTOL).all(), f"[tridiag] objective within {J_RTOL} of the fleet_banded "
+          f"flagship ({dj.max():.3e})")
+    sub = fleet_subset(params, inits, ns, STRUCT_CHECKS)
+    return res, start_cpu_side(structured_cpu, "tridiag", *sub)
+
+
+def phase_minmax_tridiag(ttc, kmods):
+    """[minmax-tridiag]: bench.py's min-max fleet (n = 80, B = 1024, f32)
+    on kkt_backend='tridiag' (the saddle KKT by the block-tridiagonal
+    LDL^T, its inertia from the Schur blocks)."""
+    from tenscalc_tpu_torch.kkt.tridiag import TridiagFactorization
+
+    ns = "bmt_"
+    t0 = time.perf_counter()
+    solver = build_minmax(ttc, ns, kkt_backend="tridiag")
+    check(solver.device.type == "cuda", "[minmax-tridiag] the solver on the card")
+    check(solver.kkt_backend_resolved == "tridiag" and solver._solve_raw.band_mode is None,
+          "[minmax-tridiag] 'tridiag', no band mode")
+    log(f"[minmax-tridiag] built in {time.perf_counter() - t0:.1f} s; plan n "
+        f"{solver.kkt_plan.n}, s {solver.kkt_plan.block}, {solver.kkt_plan.n_blocks} blocks")
+    params, inits = minmax_inputs(ns, MM_B)
+    res, _ = struct_fleet("minmax-tridiag", solver, lambda: _sync(solver.solve_many(
+        params, inits=inits, mu0=1.0, max_iter=60)), (TridiagFactorization,), kmods, MM_B)
+    status = res.status.cpu().numpy()
+    check(int((status == 0).sum()) == MM_B, f"[minmax-tridiag] all at status 0: "
+          f"{np.bincount(status)}")
+    sub = ({k: v[MM_CHECKS] for k, v in params.items()},
+           {k: v[MM_CHECKS] for k, v in inits.items()})
+    return res, start_cpu_side(structured_cpu, "minmax-tridiag", *sub)
+
+
+def planner_sysid(ttc):
+    """tests/test_planner.py:44's Sysid (a, b global: an arrow over the
+    horizon's band) and its clean data."""
+    sysid = ttc.Sysid(
+        f=lambda x, u, a, b: a * x + b * u, g=lambda x, a, b: x,
+        n_states=1, n_outputs=1, n_inputs=1, horizon=40,
+        parameters=[ttc.ParameterSpec("a", (), lower=0.0, upper=1.0),
+                    ttc.ParameterSpec("b", (), lower=-2.0, upper=2.0)])
+    rng = np.random.default_rng(0)
+    N = 40
+    u_seq = rng.standard_normal((1, N))
+    x_seq = np.zeros((1, N))
+    for k in range(N - 1):
+        x_seq[0, k + 1] = 0.8 * x_seq[0, k] + 0.5 * u_seq[0, k]
+    return sysid, u_seq, x_seq + 1e-3 * rng.standard_normal((1, N))
+
+
+def phase_auto_cpu_branch(ttc, kmods):
+    """[auto-cpu-branch]: 'auto' under TENSCALC_AUTO_FLEET=0 (the JAX
+    package's non-fleet branch) on the card: bench.py's l1l2 row resolves
+    to 'tridiag' (status 0, mean position error under 0.6, its warm
+    latency), tests/test_planner.py:44's Sysid to 'arrow' (a within
+    5e-3)."""
+    from tenscalc_tpu_torch.examples import l1l2estimation as l12
+    from tenscalc_tpu_torch.kkt.arrow import ArrowFactorization
+    from tenscalc_tpu_torch.kkt.tridiag import TridiagFactorization
+
+    before = os.environ.get("TENSCALC_AUTO_FLEET")
+    os.environ["TENSCALC_AUTO_FLEET"] = "0"
+    try:
+        ns = "bl12a_"
+        t0 = time.perf_counter()
+        solver = l12.build_l1l2(N=L12_N, ns=ns, **l12.BENCH_OPTIONS)
+        build = time.perf_counter() - t0
+        sysid, u_seq, y_seq = planner_sysid(ttc)
+    finally:
+        if before is None:
+            os.environ.pop("TENSCALC_AUTO_FLEET")
+        else:
+            os.environ["TENSCALC_AUTO_FLEET"] = before
+    check(solver.device.type == "cuda", "[auto-cpu-branch] the solver on the card")
+    check(solver.kkt_backend_resolved == "tridiag",
+          f"[auto-cpu-branch] l1l2 resolves to 'tridiag': {solver.kkt_backend_resolved}")
+    check(sysid.solver.kkt_backend_resolved == "arrow",
+          f"[auto-cpu-branch] the Sysid resolves to 'arrow': {sysid.solver.kkt_backend_resolved}")
+    params, init, true_pos = l12.bench_inputs(L12_N, ns)
+
+    def solve():
+        sol = solver.solve(params, init=init, mu0=l12.BENCH_MU0, max_iter=l12.BENCH_MAX_ITER)
+        torch.cuda.synchronize()
+        return sol
+
+    solve()  # warm-up
+    reset_counts(*kmods)
+    with factor_placement(TridiagFactorization) as (types, built):
+        sol = solve()
+    check(built[0] > 0 and types == {"cuda"}, f"[auto-cpu-branch] l1l2's factors on the "
+          f"card: {built[0]}, {sorted(types)}")
+    check(not any(v for m in kmods for v in m.LAUNCHES.values()),
+          "[auto-cpu-branch] no hand-written kernel on 'tridiag'")
+    check(sol.status == 0, f"[auto-cpu-branch] l1l2: {sol.describe()}")
+    pos = np.asarray(sol.outputs["position"], float)
+    err = float(np.abs(pos - true_pos).mean())
+    check(np.isfinite(pos).all() and err < L12_ERR_BOUND,
+          f"[auto-cpu-branch] mean position error {err:.4f} below {L12_ERR_BOUND}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve()
+        walls.append(time.perf_counter() - t0)
+    lockstep = max(sol.iters - 1, 1)
+    pwall, busy, n_launch, _ = device_profile(solve)
+    wall = statistics.median(walls)
+    log(f"[auto-cpu-branch] l1l2 N={L12_N} f32 (TENSCALC_AUTO_FLEET=0): built in {build:.1f} s, "
+        f"backend tridiag, s {solver.kkt_plan.block}, {solver.kkt_plan.n_blocks} blocks; status "
+        f"0, {sol.iters} iterations; warm solve {wall:.4f} s (median of 3, "
+        f"{min(walls):.4f}..{max(walls):.4f}), {1 / wall:.2f} solves/s; a lockstep iteration: "
+        f"host {1e3 * wall / lockstep:.2f} ms, device {1e3 * busy / lockstep:.3f} ms (profiled "
+        f"wall {pwall:.4f} s), CUDA launches {n_launch / lockstep:.1f}; mean |position - truth| "
+        f"{err:.4f}; {card_line()}")
+    reset_counts(*kmods)
+    with factor_placement(ArrowFactorization) as (types, built):
+        t0 = time.perf_counter()
+        fit, est = sysid.fit(u_seq, y_seq, x0=y_seq)
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+    check(built[0] > 0 and types == {"cuda"}, f"[auto-cpu-branch] the Sysid's arrow factors "
+          f"on the card: {built[0]}, {sorted(types)}")
+    check(fit.ok and abs(float(est["a"]) - 0.8) <= SYSID_A_ATOL,
+          f"[auto-cpu-branch] Sysid: {fit.describe()}, a {float(est['a']):.6f}")
+    log(f"[auto-cpu-branch] Sysid (horizon 40): backend arrow, n_arrow "
+        f"{sysid.solver.kkt_plan.n_arrow}; status 0, {fit.iters} iterations, {fwall:.3f} s; a "
+        f"{float(est['a']):.6f} b {float(est['b']):.6f} (truth 0.8, 0.5)")
+    return sol, start_cpu_side(structured_cpu, "l1l2", params, init)
+
+
+def finish_auto_cpu_branch(out, sol):
+    (backend, status, iters, pos), seconds = out
+    dp = float(np.abs(np.asarray(sol.outputs["position"], float) - pos).max())
+    check(backend == "tridiag" and status == sol.status and abs(iters - sol.iters) <= 1,
+          f"[auto-cpu-branch] l1l2 card status {sol.status} ({sol.iters} it), CPU {backend} "
+          f"{status} ({iters} it)")
+    check(dp <= L12_POS_ATOL, f"[auto-cpu-branch] l1l2 position within {L12_POS_ATOL} ({dp:.3e})")
+    log(f"[auto-cpu-branch-cross-check] the CPU's l1l2 solve ({seconds:.1f} s): {backend}, "
+        f"status {status}, iterations card {sol.iters} cpu {iters}, max |d position| {dp:.3e}")
+
+
+def phase_cyclic(mpc, kmods):
+    """[cyclic]: the flagship fleet (T = 30, B = 1024) in float64 on
+    kkt_backend='cyclic' (block cyclic reduction, refactored at every
+    solve)."""
+    from tenscalc_tpu_torch.kkt.cyclic import CyclicFactorization
+
+    ns = "fcyc_"
+    t0 = time.perf_counter()
+    solver = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float64", kkt_backend="cyclic")
+    check(solver.device.type == "cuda", "[cyclic] the solver on the card")
+    check(solver.kkt_backend_resolved == "cyclic", "[cyclic] 'cyclic'")
+    log(f"[cyclic] built in {time.perf_counter() - t0:.1f} s")
+    params, inits = mpc.fleet_inputs(FLEET_T, FLEET_B, ns, seed=0)
+    res, _ = struct_fleet("cyclic", solver, lambda: _sync(solver.solve_many(
+        params, inits=inits, mu0=1e-3, max_iter=100)), (CyclicFactorization,), kmods, FLEET_B)
+    status = res.status.cpu().numpy()
+    check(int((status == 0).sum()) == FLEET_B, f"[cyclic] all at status 0: {np.bincount(status)}")
+    return res, start_cpu_side(structured_cpu, "cyclic",
+                               *fleet_subset(params, inits, ns, STRUCT_CHECKS))
+
+
+def phase_spike(mpc, kmods):
+    """[spike]: the flagship fleet (T = 30, B = 1024, f32) on
+    kkt_backend='spike' over a virtual mesh of 4 x cuda:0."""
+    from tenscalc_tpu_torch.kkt.spike import SpikeFactorization
+    from tenscalc_tpu_torch.parallel import Mesh, virtual_devices
+
+    ns = "fspi_"
+    mesh = Mesh(virtual_devices("cuda:0", MESH_VIRTUAL), ("stages",))
+    t0 = time.perf_counter()
+    solver = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32", kkt_backend="spike",
+                              kkt_mesh=mesh)
+    check(solver.device.type == "cuda", "[spike] the solver on the card")
+    check(solver.kkt_backend_resolved == "spike", "[spike] 'spike'")
+    log(f"[spike] built in {time.perf_counter() - t0:.1f} s; mesh {mesh}")
+    params, inits = mpc.fleet_inputs(FLEET_T, FLEET_B, ns, seed=0)
+    res, _ = struct_fleet("spike", solver, lambda: _sync(solver.solve_many(
+        params, inits=inits, mu0=1e-3, max_iter=100)), (SpikeFactorization,), kmods, FLEET_B)
+    status = res.status.cpu().numpy()
+    check(int((status == 0).sum()) == FLEET_B, f"[spike] all at status 0: {np.bincount(status)}")
+    return res, start_cpu_side(structured_cpu, "spike",
+                               *fleet_subset(params, inits, ns, STRUCT_CHECKS))
+
+
+def phase_mesh(mpc, solver, params, inits, flag_res, fb, kmods):
+    """[mesh]: the flagship fleet on 'auto' (K1/K2) through
+    solve_many(mesh=...): on make_mesh() (the card's devices), then on a
+    virtual mesh of 4 x cuda:0, each held against the unsharded fleet;
+    then measure_scaling over 1, 2 and 4 entries of cuda:0 with 256
+    instances an entry (its solves/s measure no scaling: one card)."""
+    from tenscalc_tpu_torch.interop import inits_from_numpy
+    from tenscalc_tpu_torch.kkt.fleet_banded import FleetBandedFromBand
+    from tenscalc_tpu_torch.parallel import make_mesh, virtual_devices
+    from tenscalc_tpu_torch.parallel.scaling import measure_scaling
+
+    ref = numpy_result(flag_res)
+    launches = {}
+    for name, mesh in (("make_mesh()", make_mesh()),
+                       (f"{MESH_VIRTUAL} x cuda:0",
+                        make_mesh(MESH_VIRTUAL, devices=virtual_devices("cuda:0", MESH_VIRTUAL)))):
+        check(all(d.type == "cuda" for d in mesh.devices), f"[mesh] {name} on the card")
+        res, kern = struct_fleet(f"mesh {name}", solver, lambda: _sync(solver.solve_many(
+            params, inits=inits, mu0=1e-3, max_iter=100, mesh=mesh)), (FleetBandedFromBand,),
+            kmods, FLEET_B, kernels_allowed=("factor_solve", "solve"))
+        check(kern.get("factor_solve", 0) > 0 and kern.get("solve", 0) > 0,
+              f"[mesh] K1 and K2 on the sharded fleet: {kern}")
+        launches = kern if not launches else launches
+        r = numpy_result(res)
+        du = np.abs(r.u - ref.u).max(axis=1)
+        check((r.status == ref.status).all() and (np.abs(r.iters - ref.iters) <= 1).all()
+              and (du <= U_ATOL).all(),
+              f"[mesh] {name}: statuses equal, iterations within one, u within {U_ATOL} of the "
+              f"unsharded fleet ({du.max():.3e})")
+        log(f"[mesh] {name} ({mesh.size} entries, {len(mesh.groups())} device): against the "
+            f"unsharded fleet, statuses equal, max |du| {du.max():.3e}, "
+            f"{int((du == 0).sum())} of {FLEET_B} instances bitwise, iterations equal on "
+            f"{int((r.iters == ref.iters).sum())}")
+    ns = solver.namespace
+    dt = solver.opts.torch_dtype
+
+    def make_batch(B):
+        p, i = mpc.fleet_inputs(FLEET_T, B, ns, seed=0)
+        penv = {k: np.broadcast_to(np.asarray(v), (B,) + np.shape(v)).copy()
+                if k not in (ns + "ref", ns + "xinit") else v for k, v in p.items()}
+        return inits_from_numpy(solver, i, B, solver.device, dt), penv
+
+    rows = measure_scaling(solver, make_batch, per_device_batch=SCALE_PER_DEVICE,
+                           device_counts=SCALE_COUNTS, mu0=1e-3, max_iter=100, reps=1,
+                           devices=virtual_devices("cuda:0", max(SCALE_COUNTS)))
+    check([r["devices"] for r in rows] == list(SCALE_COUNTS)
+          and all(r["converged"] == r["batch"] for r in rows),
+          f"[mesh] measure_scaling converged at every count: {rows}")
+    for r in rows:
+        log(f"[mesh] measure_scaling on {r['devices']} x cuda:0, B {r['batch']}: "
+            f"{r['solves_per_s']:.1f} solves/s, efficiency {r['efficiency']:.3f} (a virtual "
+            f"mesh on one card: no target), {r['converged']} converged")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3760,6 +4222,23 @@ def main() -> int:
         params, inits=inits, mu0=1e-3, max_iter=100),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")))
 
+    # slice 20: the structured backends and the mesh paths, their CPU
+    # sides beside the later phases
+    kmods = (fb, lu, dl)
+    elapsed("slice 20's [tridiag]")
+    tri_res, tri_side = phase_tridiag(ttc, mpc, res, kmods)
+    elapsed("[minmax-tridiag]")
+    mmt_res, mmt_side = phase_minmax_tridiag(ttc, kmods)
+    elapsed("[auto-cpu-branch]")
+    acb_sol, acb_side = phase_auto_cpu_branch(ttc, kmods)
+    elapsed("[cyclic]")
+    cyc_res, cyc_side = phase_cyclic(mpc, kmods)
+    elapsed("[spike]")
+    spk_res, spk_side = phase_spike(mpc, kmods)
+    elapsed("[mesh]")
+    mesh_launches = phase_mesh(mpc, solver, params, inits, res, fb, kmods)
+    torch.cuda.empty_cache()
+
     elapsed("slice 2")
     lu_recs = phase_lu_kernels(lu)
     phase_wide_lu_kernels(lu, lu_recs)
@@ -3889,7 +4368,8 @@ def main() -> int:
     # are in its [minmax] line); K3: the min-max HessD inertia, its only
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
-    fb_paths = {"flagship": launches, "minmax": mm_launches, "unicycle": uni_launches,
+    fb_paths = {"flagship": launches, "mesh": mesh_launches, "minmax": mm_launches,
+                "unicycle": uni_launches,
                 "quadcopter": quad_launches, "deconv": dc_launches, "l1l2": l12_launches,
                 "l1l2_fleet": l12f_launches,
                 **{f"app_{p}": {k: c.get(k, 0) for k in fb.LAUNCHES}
@@ -3897,7 +4377,7 @@ def main() -> int:
     # block_route: each kernel's rows at BLOCK_SHAPES ([block-kernels])
     kernels = [
         {**entry(NAMES[k], SOURCE, REPLACES[k], fb_launches[k], entry_launches.get(k), recs[k]),
-         "launches_by_path": {p: c[k] for p, c in fb_paths.items()},
+         "launches_by_path": {p: c.get(k, 0) for p, c in fb_paths.items()},
          "block_route": block_rows[k]}
         for k in ("factor_solve", "solve", "factor")
     ] + [
@@ -3927,6 +4407,15 @@ def main() -> int:
     finish_l1l2_fleet_cross_check(collect_cpu_side(l12f_side), lfres, l12_pos)
     finish_lasso_cross_check(collect_cpu_side(lasso_side), lasso_sol)
     finish_apps(apps_card, collect_cpu_side(apps_side))
+    finish_struct_cross_check("tridiag", collect_cpu_side(tri_side), tri_res, STRUCT_CHECKS,
+                              f64=False, u_atol=STRUCT_U_ATOL)
+    finish_struct_cross_check("minmax-tridiag", collect_cpu_side(mmt_side), mmt_res, MM_CHECKS,
+                              f64=False, u_cols=MM_N)
+    finish_auto_cpu_branch(collect_cpu_side(acb_side), acb_sol)
+    finish_struct_cross_check("cyclic", collect_cpu_side(cyc_side), cyc_res, STRUCT_CHECKS,
+                              f64=True, u_atol=STRUCT_U_ATOL)
+    finish_struct_cross_check("spike", collect_cpu_side(spk_side), spk_res, STRUCT_CHECKS,
+                              f64=False)
     elapsed("the end")
     print(json.dumps({"kernels": kernels}))
     print(card_line(fresh=True))

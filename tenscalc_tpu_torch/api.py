@@ -3,25 +3,34 @@
 :func:`optimize` takes a symbolic objective, optimization variables,
 constraints, parameters and output expressions, and returns an
 :class:`OptimizeSolver` whose ``solve`` runs the primal-dual IPM on one
-instance and whose ``solve_many`` runs a fleet.  The solver runs on the
-card (``device=None`` means ``"cuda"``) unless the caller asks for the
-CPU; without CUDA it raises rather than quietly running on the CPU.
+instance and whose ``solve_many`` runs a fleet (split over a device mesh
+with ``mesh=``).  The solver runs on the card (``device=None`` means
+``"cuda"``) unless the caller asks for the CPU; without CUDA it raises
+rather than quietly running on the CPU.
 
-For minimization, ``kkt_backend='auto'`` resolves the same way on every
-device, as the JAX package does with ``TENSCALC_AUTO_FLEET=1``: the
-fleet banded LDL^T (``'fleet_banded'``) when the condensed KKT has at
-least 64 rows and a worthwhile band, else the fleet dense LDL^T
-(``'fleet'``); the condensed KKT's rows count nU + nG, the large
-Newton matrix's nU + nG + nF.  ``'pallas'`` factors with the
-single-instance dense LDL^T, ``'dense'`` with the JAX package's dense
-backend (:func:`.kkt.dense.kkt_factorize`: a pivoted LU, or an LDL^T
-for inertia) and ``'ldl'`` with its blocked LDL^T
-(``kkt_factorize(force_ldl=True)``).  :func:`minmax` builds a min-max solver
-(:mod:`tenscalc_tpu_torch.ipm.minmax`) whose symmetric saddle KKT goes to
-the same fleet LDL^T backends, or with ``kkt_backend='dense'`` to an
-unpivoted dense LDL^T; :func:`equilibrium` builds a two-player Nash
-solver (:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose unsymmetric KKT
-goes to the fleet banded LU (``'fleet_banded_lu'``).
+For minimization, ``kkt_backend='auto'`` resolves as the JAX package's
+``TENSCALC_AUTO_FLEET=1`` branch on every device when that variable is
+'1' or unset: the fleet banded LDL^T (``'fleet_banded'``) when the KKT
+has at least 64 rows and a worthwhile band, else the fleet dense LDL^T
+(``'fleet'``); the condensed KKT's rows count nU + nG, the large Newton
+matrix's nU + nG + nF.  With ``TENSCALC_AUTO_FLEET=0`` it takes the JAX
+package's other branch: the block-tridiagonal LDL^T (``'tridiag'``,
+:mod:`.kkt.tridiag`) of a worthwhile band, else arrow-plus-band
+(``'arrow'``, :mod:`.kkt.arrow`) where a few dense rows hide a band,
+else ``'dense'``.  The other values: ``'tridiag'``, ``'cyclic'`` (block
+cyclic reduction, :mod:`.kkt.cyclic`) and ``'spike'`` (the banded solve
+split over ``kkt_mesh``, :mod:`.kkt.spike`), each ``'dense'`` below 64
+KKT rows; ``'pallas'`` the single-instance dense LDL^T, ``'dense'`` the
+JAX package's dense backend (:func:`.kkt.dense.kkt_factorize`: a
+pivoted LU, or an LDL^T for inertia) and ``'ldl'`` its blocked LDL^T
+(``kkt_factorize(force_ldl=True)``).  :func:`minmax` builds a min-max
+solver (:mod:`tenscalc_tpu_torch.ipm.minmax`) whose symmetric saddle KKT
+goes to the same fleet LDL^T backends, to ``'tridiag'``, or with
+``kkt_backend='dense'`` to an unpivoted dense LDL^T; :func:`equilibrium`
+builds a two-player Nash solver
+(:mod:`tenscalc_tpu_torch.ipm.equilibrium`) whose unsymmetric KKT goes to
+the fleet banded LU (``'fleet_banded_lu'``) or the block-tridiagonal LU
+(``'tridiag_lu'``).
 """
 
 from __future__ import annotations
@@ -50,6 +59,16 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to solve on the CPU"
         )
     return device
+
+
+def _prefer_fleet() -> bool:
+    """Whether ``kkt_backend='auto'`` takes the fleet kernels: the JAX
+    package's switch ``TENSCALC_AUTO_FLEET``, read as it reads it ('1'
+    or '0').  Unset, the port takes the fleet kernels on every device
+    (the JAX package's TPU branch; on its CPU it would take '0')."""
+    import os
+
+    return os.environ.get("TENSCALC_AUTO_FLEET") != "0"
 
 
 def full_precision_matmul() -> None:
@@ -225,16 +244,11 @@ class OptimizeSolver(SolverBase):
                  parameters: Sequence[Variable] = (),
                  outputExpressions: Optional[Mapping[str, Expr]] = None,
                  options: Optional[SolverOptions] = None,
-                 device=None, **option_kwargs):
+                 device=None, kkt_mesh=None, **option_kwargs):
         self.opts = (
             (options or SolverOptions()).replace(**option_kwargs).resolved("optimize")
         )
-        if self.opts.kkt_backend in ("tridiag", "cyclic", "spike"):
-            item = "M11" if self.opts.kkt_backend == "tridiag" else "M16"
-            raise NotImplementedError(
-                f"kkt_backend={self.opts.kkt_backend!r} is not ported yet "
-                f"(ROADMAP item {item})"
-            )
+        self.kkt_mesh = kkt_mesh
         self.device = resolve_device(device)
         full_precision_matmul()
         dt = self.opts.torch_dtype
@@ -264,6 +278,26 @@ class OptimizeSolver(SolverBase):
         self.kkt_backend_resolved = None
         self.kkt_plan = None
         self._plan_structure()
+        if self.opts.verboseLevel >= 2:
+            self._report_kkt_plan()
+
+    def _report_kkt_plan(self) -> None:
+        """The planner's line (JAX ``api.py:292-312``): the sizes, the
+        Newton matrix's variant, the backend and the plan's statistics."""
+        small = self.opts.smallerNewtonMatrix
+        nK = self.nU + self.nG + (0 if small else self.nF)
+        msg = (
+            f"[kkt plan] nU={self.nU} nG={self.nG} nF={self.nF} nK={nK} "
+            f"variant={'condensed' if small else 'large'} "
+            f"backend={self.kkt_backend_resolved}"
+        )
+        plan = self.kkt_plan
+        if plan is not None:
+            for attr in ("bandwidth", "block", "n_blocks", "n_arrow"):
+                v = getattr(plan, attr, None)
+                if v is not None:
+                    msg += f" {attr}={v}"
+        print(msg)
 
     def _param_deps(self, dt):
         """Parameter-value dependencies of the hoisted H, Fu and Gu."""
@@ -298,13 +332,15 @@ class OptimizeSolver(SolverBase):
         return h_deps, fu_deps, gu_deps
 
     def _plan_structure(self) -> None:
-        """Pick the KKT backend (JAX ``api.py:243-290``): ``'dense'`` and
-        ``'ldl'`` as named; else probe the KKT sparsity pattern on the CPU
-        and plan the RCM band, the fleet banded LDL^T where the band is
-        worthwhile, else the fleet dense LDL^T (JAX ``api.py:334-409``,
-        its ``auto_fleet`` branch)."""
-        from .ipm.solver import BandKKT
-        from .kkt.fleet_banded import FleetBandedFromBand, fleet_banded_kkt_factorize
+        """Pick the KKT backend (JAX ``api.py:243-471``): ``'dense'``,
+        ``'ldl'``, ``'pallas'`` and ``'fleet'`` as named; else, from 64 KKT
+        rows, probe the KKT sparsity pattern on the CPU and plan the RCM
+        band.  ``'fleet_banded'`` and the fleet branch of ``'auto'`` take
+        the fleet banded LDL^T of a worthwhile band, else the fleet dense
+        LDL^T; ``'tridiag'``, ``'cyclic'`` and ``'spike'`` are installed
+        on the plan worthwhile or not; the other branch of ``'auto'``
+        takes ``'tridiag'`` of a worthwhile band, else ``'arrow'`` of a
+        worthwhile arrow plan, else ``'dense'``."""
         from .kkt.structure import plan_banded, probe_pattern
 
         backend = self.opts.kkt_backend
@@ -324,9 +360,16 @@ class OptimizeSolver(SolverBase):
         if backend == "pallas":
             self._use_pallas()
             return
-        nK = self.nU + self.nG + (0 if self.opts.smallerNewtonMatrix else self.nF)
-        if backend == "fleet" or nK < 64:
+        if backend == "fleet":
             self._use_fleet_dense()
+            return
+        fleet = backend == "fleet_banded" or (backend == "auto" and _prefer_fleet())
+        nK = self.nU + self.nG + (0 if self.opts.smallerNewtonMatrix else self.nF)
+        if nK < 64:  # too small for a structured path to matter
+            if fleet:
+                self._use_fleet_dense()
+            else:
+                self._install_backend(None, "dense")
             return
         dt = self.opts.torch_dtype
         assemble_dense = dense_kkt(self._fns, self.nU, self.nF, self.nG, self.opts)
@@ -346,7 +389,54 @@ class OptimizeSolver(SolverBase):
             )
             return WW.numpy()
 
-        plan = plan_banded(probe_pattern(assemble, nK))
+        # a probe failure raises, under every backend
+        pattern = probe_pattern(assemble, nK)
+        plan = plan_banded(pattern)
+        if fleet:
+            self._use_fleet_banded(plan)
+            return
+        if not plan.worthwhile and backend == "auto":
+            # no band: look for a band under a few dense rows (global
+            # variables coupling every stage)
+            from .kkt.arrow import ArrowFactorization, plan_arrow
+
+            aplan = plan_arrow(pattern)
+            if aplan is not None and aplan.worthwhile:
+                self.kkt_plan = aplan
+                self._install_backend(lambda WW: ArrowFactorization(WW, aplan), "arrow")
+                return
+        if backend == "spike":
+            from .kkt.spike import SpikeFactorization
+
+            mesh = self.kkt_mesh
+            if mesh is None:
+                raise ValueError("kkt_backend='spike' requires kkt_mesh=Mesh(...)")
+            axis = "stages" if "stages" in mesh.axis_names else mesh.axis_names[0]
+            self.kkt_plan = plan
+            self._install_backend(
+                lambda WW: SpikeFactorization(WW, plan, mesh, axis=axis), "spike")
+            return
+        if not plan.worthwhile and backend not in ("tridiag", "cyclic"):
+            self._install_backend(None, "dense")
+            return
+        self.kkt_plan = plan
+        if backend == "cyclic":
+            from .kkt.cyclic import CyclicFactorization
+
+            self._install_backend(lambda WW: CyclicFactorization(WW, plan), "cyclic")
+        else:
+            from .kkt.tridiag import tridiag_factorize
+
+            self._install_backend(lambda WW: tridiag_factorize(WW, plan), "tridiag")
+
+    def _use_fleet_banded(self, plan) -> None:
+        """The fleet banded LDL^T of a worthwhile band (band modes hand
+        over the band they assembled; the problems without inequalities
+        and the large Newton matrix their dense KKT, JAX
+        ``api.py:419-424``), else the fleet dense LDL^T."""
+        from .ipm.solver import BandKKT
+        from .kkt.fleet_banded import FleetBandedFromBand, fleet_banded_kkt_factorize
+
         if not plan.worthwhile:
             self._use_fleet_dense()
             return
@@ -354,9 +444,6 @@ class OptimizeSolver(SolverBase):
         n_ref = self.opts.refine_for("fleet_banded")
 
         def kkt(WW):
-            # the band modes hand over the band they assembled; the
-            # problems without inequalities and the large Newton matrix
-            # their dense KKT (JAX api.py:419-424)
             if isinstance(WW, BandKKT):
                 return FleetBandedFromBand(WW, plan, n_refine=n_ref)
             return fleet_banded_kkt_factorize(WW, plan, n_refine=n_ref)
@@ -419,14 +506,16 @@ class OptimizeSolver(SolverBase):
     def solve_many(self, parameters: Mapping[str, Any],
                    inits: Optional[Mapping[str, Any]] = None,
                    mu0: float = 1.0, max_iter: Optional[int] = None,
-                   addEye2Hessian=(1e-9, 1e-9)) -> IPMResult:
+                   addEye2Hessian=(1e-9, 1e-9), mesh=None) -> IPMResult:
         """A fleet: every batched parameter/init leaf has a leading batch
-        dimension; a parameter in its declared shape is shared."""
+        dimension; a parameter in its declared shape is shared.  With
+        ``mesh`` (:func:`tenscalc_tpu_torch.parallel.make_mesh`) the fleet
+        is split over its devices."""
         from .parallel.batch import solve_batched
 
         return solve_batched(
             self, parameters, inits=inits, mu0=mu0, max_iter=max_iter,
-            addEye2Hessian=addEye2Hessian,
+            addEye2Hessian=addEye2Hessian, mesh=mesh,
         )
 
     def solve_result(self, parameters: Optional[Mapping[str, Any]] = None,
@@ -538,12 +627,13 @@ def optimize(objective: Expr, optimizationVariables: Sequence[Variable],
              parameters: Sequence[Variable] = (),
              outputExpressions: Optional[Mapping[str, Expr]] = None,
              options: Optional[SolverOptions] = None, device=None,
-             **option_kwargs) -> OptimizeSolver:
+             kkt_mesh=None, **option_kwargs) -> OptimizeSolver:
     """Create a constrained-minimization solver on ``device`` (the card
-    when None)."""
+    when None); ``kkt_mesh`` is the mesh of ``kkt_backend='spike'``."""
     return OptimizeSolver(
         objective, optimizationVariables, constraints, parameters,
-        outputExpressions, options, device=device, **option_kwargs,
+        outputExpressions, options, device=device, kkt_mesh=kkt_mesh,
+        **option_kwargs,
     )
 
 

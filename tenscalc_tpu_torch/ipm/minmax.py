@@ -28,9 +28,10 @@ Two assemblies share the iteration loop:
   the HessD inertia from its own banded plan (K3);
 * the dense branch: the (B, nK, nK) saddle matrix for the solver's
   unpivoted LDL^T (``kkt_backend='dense'``), the fleet dense LDL^T
-  (``'fleet'``, or nK < 64) or, on a worthwhile band outside band mode,
-  the fleet banded LDL^T of the dense matrix (K1, K2); the HessD
-  inertia from the dense LDL^T.
+  (``'fleet'``, or nK < 64), the block-tridiagonal LDL^T
+  (``'tridiag'``) or, on a worthwhile band outside band mode, the fleet
+  banded LDL^T of the dense matrix (K1, K2); the HessD inertia from the
+  dense LDL^T.
 """
 
 from __future__ import annotations
@@ -924,7 +925,10 @@ class MinMaxSolver(SolverBase):
     ``kkt_backend``: 'dense'/'ldl' factor the saddle KKT with the
     unpivoted LDL^T of :mod:`tenscalc_tpu_torch.kkt.dense`; 'auto',
     'fleet' and 'fleet_banded' take the fleet backends of
-    :func:`tenscalc_tpu_torch.kkt.select.select_game_backend`.
+    :func:`tenscalc_tpu_torch.kkt.select.select_game_backend`, and
+    'tridiag' (or 'auto' under ``TENSCALC_AUTO_FLEET=0``) its
+    block-tridiagonal LDL^T, whose Schur blocks give the saddle KKT's
+    inertia.
 
     As in the JAX package, a result's ``addEq`` field holds the final
     addD (a quirk of its ``IPMResult`` that the port keeps)."""

@@ -581,13 +581,10 @@ def _to_blocks_lu(Wp: torch.Tensor, plan: BandedPlan):
     superdiagonal C_i (block (i-1, i)) of a batch of permuted matrices
     (B, n, n), padded to whole blocks with identity rows; B_0 = C_0 = 0.
     Each (B, n_blocks, s, s)."""
-    s, nb, n = plan.block, plan.n_blocks, plan.n
-    npad = nb * s
-    Bn = Wp.shape[0]
-    W = torch.eye(npad, dtype=Wp.dtype, device=Wp.device).repeat(Bn, 1, 1)
-    W[:, :n, :n] = Wp
-    blocks = W.view(Bn, nb, s, nb, s).transpose(2, 3)  # [:, i, k] = block (i, k)
-    idx = torch.arange(nb, device=Wp.device)
+    from .tridiag import _block_view
+
+    blocks = _block_view(Wp, plan)
+    idx = torch.arange(plan.n_blocks, device=Wp.device)
     A = blocks[:, idx, idx]
     Bs, C = torch.zeros_like(A), torch.zeros_like(A)
     Bs[:, 1:] = blocks[:, idx[1:], idx[:-1]]
@@ -644,12 +641,15 @@ class TridiagLUFactorization:
 def tridiag_lu_factorize(WW: torch.Tensor, plan: BandedPlan,
                          n_refine: int = 2) -> TridiagLUFactorization:
     """Block-tridiagonal LU of a batch WW (B, n, n) in original order, in
-    WW's own dtype (the JAX package's choice off the TPU).  A singular
+    :func:`.tridiag._factor_dtype` (WW's own, the JAX package's rule off
+    the TPU).  A singular
     diagonal block is factored anyway (no error check), so its zero pivot
     turns the solve into infinities and NaN, as LAPACK's getrf/getrs do
     in the JAX package."""
+    from .tridiag import _factor_dtype
+
     perm = torch.as_tensor(plan.perm, device=WW.device)
-    A, Bs, C = _to_blocks_lu(WW[:, perm][:, :, perm], plan)
+    A, Bs, C = _to_blocks_lu(WW[:, perm][:, :, perm].to(_factor_dtype(WW)), plan)
     nb = plan.n_blocks
     lu, piv = torch.linalg.lu_factor_ex(A[:, 0])[:2]
     Ls, lus, pivs = [torch.zeros_like(A[:, 0])], [lu], [piv]

@@ -49,13 +49,15 @@ def hdot(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def equilibration_scale(norm: torch.Tensor) -> torch.Tensor:
-    """The equilibration scale 1/sqrt(max(norm, 1e-30)) of float32 row or
-    column norms, correctly rounded to float32: formed in float64, then
-    rounded once.  torch's float32 ``rsqrt`` is off in the last bit for
-    about a quarter of the inputs, and differently on the CPU and the
-    card; the scaled matrix feeds an unpivoted elimination whose clamped
-    pivots can turn a last-bit change into another IPM path."""
-    return (1.0 / torch.sqrt(torch.clamp(norm, min=1e-30).double())).float()
+    """The equilibration scale 1/sqrt(max(norm, 1e-30)) of row or column
+    norms, in their dtype.  Of float32 norms it is correctly rounded:
+    formed in float64, then rounded once.  torch's float32 ``rsqrt`` is
+    off in the last bit for about a quarter of the inputs, and differently
+    on the CPU and the card; the scaled matrix feeds an unpivoted
+    elimination whose clamped pivots can turn a last-bit change into
+    another IPM path.  Of float64 norms it is 1/sqrt in float64."""
+    s = 1.0 / torch.sqrt(torch.clamp(norm, min=1e-30).double())
+    return s.to(norm.dtype)
 
 
 def hdotT(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

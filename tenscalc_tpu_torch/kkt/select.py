@@ -5,17 +5,19 @@ The KKT pattern is probed at build time, an RCM banded plan computed,
 and a factorization chosen.  The min-max saddle KKT is symmetric: a
 worthwhile band goes to the fleet banded LDL^T
 (:mod:`tenscalc_tpu_torch.kkt.fleet_banded`), a small or unbanded one to
-the fleet dense LDL^T (:mod:`tenscalc_tpu_torch.kkt.fleet`), and
-``'dense'``/``'ldl'`` to the solver's own unpivoted LDL^T.  The
-equilibrium KKT stacks two Lagrangians' rows, so it is unsymmetric and
-routes to the banded LU (:mod:`tenscalc_tpu_torch.kkt.banded_lu`): the
-fleet banded LU of a worthwhile band, the block-tridiagonal LU for
-``'tridiag'``, and the solver's dense pivoted LU below nK = 64, without a
-worthwhile band or for ``'dense'``/``'ldl'``.  ``kkt_backend='auto'``
-resolves to the fleet backends on the CPU and on the card alike (the
-plain versions of the kernels run on the CPU); the JAX package picks its
-pure-XLA block-tridiagonal factorizations on the CPU instead (the
-symmetric one is ROADMAP item M11).
+the fleet dense LDL^T (:mod:`tenscalc_tpu_torch.kkt.fleet`),
+``'tridiag'`` to the block-tridiagonal LDL^T
+(:mod:`tenscalc_tpu_torch.kkt.tridiag`), and ``'dense'``/``'ldl'`` to the
+solver's own unpivoted LDL^T.  The equilibrium KKT stacks two
+Lagrangians' rows, so it is unsymmetric and routes to the banded LU
+(:mod:`tenscalc_tpu_torch.kkt.banded_lu`): the fleet banded LU of a
+worthwhile band, the block-tridiagonal LU for ``'tridiag'``, and the
+solver's dense pivoted LU below nK = 64, without a worthwhile band or
+for ``'dense'``/``'ldl'``.  ``kkt_backend='auto'`` takes the fleet
+backends on the CPU and on the card alike (the plain versions of the
+kernels run on the CPU) unless ``TENSCALC_AUTO_FLEET=0``, which takes
+the JAX package's other branch: ``'tridiag'`` (symmetric) or
+``'tridiag_lu'`` (unsymmetric) of a worthwhile band, else ``'dense'``.
 """
 
 from __future__ import annotations
@@ -41,10 +43,6 @@ def compute_banded_plan(assemble_trial, nK):
     return plan_banded(pattern)
 
 
-def _deferred(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     """Return ``(kkt_solver, resolved_name, plan)`` for a game solver.
 
@@ -54,6 +52,8 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     to a factorization with ``solve`` and ``inertia``: the band-mode
     :class:`~tenscalc_tpu_torch.kkt.band_assemble.BandedOperator` or the
     dense (B, nK, nK) matrix."""
+    from ..api import _prefer_fleet
+
     kb = opts.kkt_backend
     if kb in ("dense", "ldl"):
         return None, "dense", None
@@ -63,15 +63,16 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
             f"kkt_backend={kb!r} is not supported for the game solvers; "
             f"use one of {('dense',) + allowed}"
         )
-    if symmetric:
-        return _select_symmetric(opts, nK, plan_fn)
-    if kb == "fleet":
+    fleet = kb in ("fleet", "fleet_banded") or (kb == "auto" and _prefer_fleet())
+    if kb == "fleet" and not symmetric:
         raise ValueError(
             "kkt_backend='fleet' (dense LDL fleet kernel) needs a "
             "symmetric KKT; the equilibrium system is unsymmetric — "
             "use 'fleet_banded' (banded LU) or 'dense'"
         )
-    if nK < 64:  # too small for a structured path to matter
+    if kb == "fleet" or nK < 64:  # too small for a structured path to matter
+        if fleet and symmetric:
+            return _fleet_dense(opts), "fleet", None
         return None, "dense", None
     plan = plan_fn()
     if plan is None or not plan.worthwhile:
@@ -80,15 +81,22 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
                 "kkt_backend='tridiag' requested but the probed KKT "
                 "pattern has no worthwhile band structure"
             )
+        if fleet and symmetric:
+            return _fleet_dense(opts), "fleet", None
         return None, "dense", None
-    from .banded_lu import (
-        FleetBandedLUFactorization,
-        FleetBandedLUFromBand,
-        tridiag_lu_factorize,
-    )
+    if not fleet:
+        # the block-tridiagonal factorizations (explicit 'tridiag', or
+        # 'auto' under TENSCALC_AUTO_FLEET=0)
+        if symmetric:
+            from .tridiag import tridiag_factorize
 
-    if kb == "tridiag":
+            return (lambda WW: tridiag_factorize(WW, plan), "tridiag", plan)
+        from .banded_lu import tridiag_lu_factorize
+
         return (lambda WW: tridiag_lu_factorize(WW, plan), "tridiag_lu", plan)
+    if symmetric:
+        return _fleet_banded_sym(opts, plan), "fleet_banded", plan
+    from .banded_lu import FleetBandedLUFactorization, FleetBandedLUFromBand
     from .band_assemble import BandedOperator
 
     n_ref = opts.refine_for("fleet_banded_lu")
@@ -102,29 +110,20 @@ def select_game_backend(opts, nK, plan_fn, symmetric: bool):
     return kkt_lu, "fleet_banded_lu", plan
 
 
-def _select_symmetric(opts, nK, plan_fn):
-    """The min-max branch: the fleet dense LDL^T below nK = 64 or without
-    a worthwhile band, else the fleet banded LDL^T, on the directly
-    assembled band in band mode and on the dense saddle KKT outside it."""
-    if opts.kkt_backend == "tridiag":
-        raise _deferred("the block-tridiagonal LDL^T (tridiag_factorize)", "M11")
-    if opts.kkt_backend == "fleet" or nK < 64:
-        return _fleet_dense(opts), "fleet", None
-    plan = plan_fn()
-    if plan is None or not plan.worthwhile:
-        return _fleet_dense(opts), "fleet", None
+def _fleet_banded_sym(opts, plan):
+    """The fleet banded LDL^T of the saddle KKT: on the directly
+    assembled band in band mode, on the dense saddle KKT outside it."""
     from .band_assemble import BandedOperator
     from .fleet_banded import FleetBandedFromBand, fleet_banded_kkt_factorize
 
     n_ref = opts.refine_for("fleet_banded")
 
     def kkt_sym(op):
-        # band mode hands over its band, the dense branch its saddle KKT
         if isinstance(op, BandedOperator):
             return FleetBandedFromBand(op, plan, n_refine=n_ref)
         return fleet_banded_kkt_factorize(op, plan, n_refine=n_ref)
 
-    return kkt_sym, "fleet_banded", plan
+    return kkt_sym
 
 
 def _fleet_dense(opts):

@@ -1,29 +1,86 @@
-"""Batched solving of a fleet (port of ``tenscalc_tpu/parallel/batch.py``
-without the device meshes, which are ROADMAP item M16).
+"""Batched solving of a fleet, optionally split over a device mesh (port
+of ``tenscalc_tpu/parallel/batch.py``).
 
 The fleet is the solver's own batch dimension: every instance runs in
 lockstep, and each keeps its own iterates, status and iteration count.
 A parameter passed in its declared (unbatched) shape is shared, so any
 hoisted derivative that depends only on shared parameters is computed
 once for the whole fleet.
+
+With a mesh (:class:`.mesh.Mesh`), the fleet is split into as many
+equal shards as the mesh has entries, shard j on entry j's device, the
+shared parameters replicated onto every device; as in the JAX package's
+``shard_map``, the solve itself needs no communication.  The shards
+that share a device run as one fleet on it (their instances in shard
+order), and the devices one after another from this process; the
+result comes back on the solver's device in the fleet's order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
+
+import torch
 
 from ..interop import inits_from_numpy, params_from_numpy
+from .mesh import Mesh, devices as list_devices
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "batch",
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A one-axis mesh over the first ``n_devices`` of ``devices``
+    (default :func:`.mesh.devices`: the CUDA devices, or the CPU)."""
+    devs = list(devices) if devices is not None else list_devices()
+    n = n_devices or len(devs)
+    if n > len(devs):
+        raise ValueError(f"{n} devices asked, {len(devs)} listed")
+    return Mesh(devs[:n], (axis,))
+
+
+def solve_sharded(solver, u0: torch.Tensor, penv, shared, mesh: Mesh,
+                  mu0: float = 1.0, max_iter: Optional[int] = None,
+                  addEye2Hessian=(1e-9, 1e-9)):
+    """The fleet (u0 (B, nU), ``penv`` batched but for the names in
+    ``shared``) split over ``mesh``; B must be a multiple of its size.
+    Returns the batched result on u0's device."""
+    P = mesh.size
+    B = u0.shape[0]
+    if B % P != 0:
+        raise ValueError(f"batch {B} must be a multiple of the mesh size {P}")
+    kind = torch.device(solver.device).type
+    if any(d.type != kind for d in mesh.devices):
+        raise ValueError(f"a mesh of {kind} devices is needed for a solver on {solver.device}")
+    per = B // P
+    pieces = []
+    for dev, idx in mesh.groups():
+        rows = torch.cat([torch.arange(j * per, (j + 1) * per) for j in idx]).to(u0.device)
+        pe = {k: (v.to(dev) if k in shared else v[rows].to(dev)) for k, v in penv.items()}
+        res = solver._solve_raw(u0[rows].to(dev), pe, shared, mu0, max_iter,
+                                *addEye2Hessian)
+        pieces.append((rows, res))
+    fields = []
+    for k in range(len(pieces[0][1])):
+        first = pieces[0][1][k]
+        out = first.new_empty((B,) + tuple(first.shape[1:]), device=u0.device)
+        for rows, res in pieces:
+            out[rows] = res[k].to(u0.device)
+        fields.append(out)
+    return type(pieces[0][1])(*fields)
 
 
 def solve_batched(solver, parameters: Mapping[str, Any],
                   inits: Optional[Mapping[str, Any]] = None,
                   mu0: float = 1.0, max_iter: Optional[int] = None,
-                  addEye2Hessian=(1e-9, 1e-9)):
-    """Solve a fleet on the solver's device; returns the batched
-    IPMResult (tensors on that device).  ``addEye2Hessian`` holds the
-    solver's initial regularizations: (addU, addEq) for a minimization,
-    (addU, addD, addEq) for a min-max problem."""
+                  addEye2Hessian=(1e-9, 1e-9), mesh: Optional[Mesh] = None):
+    """Solve a fleet on the solver's device, or split over ``mesh``;
+    returns the batched IPMResult (tensors on the solver's device).
+    ``addEye2Hessian`` holds the solver's initial regularizations: (addU,
+    addEq) for a minimization, (addU, addD, addEq) for a min-max
+    problem."""
     dt = solver.opts.torch_dtype
     penv, shared, B = params_from_numpy(solver, parameters, solver.device, dt)
     u0 = inits_from_numpy(solver, inits, B, solver.device, dt)
+    if mesh is not None:
+        return solve_sharded(solver, u0, penv, shared, mesh, mu0, max_iter,
+                             addEye2Hessian)
     return solver._solve_raw(u0, penv, shared, mu0, max_iter, *addEye2Hessian)

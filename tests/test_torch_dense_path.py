@@ -240,15 +240,16 @@ def test_hessian_not_hoisted(dtype, auto_fleet):
 
 @pytest.mark.parametrize("backend", ["dense", "ldl", "tridiag", "cyclic", "spike"])
 def test_unported_backends_raise(backend):
-    """The backends still to port raise naming their ROADMAP item; 'dense'
-    and 'ldl' (M4) are ported and resolve as named."""
+    """Every backend is ported now and resolves as in the JAX package:
+    'dense' and 'ldl' as named; this problem's KKT has fewer than 64 rows,
+    so 'tridiag', 'cyclic' and 'spike' resolve to 'dense' (JAX
+    api.py:348), 'spike' without asking for a mesh."""
     x = ttc.variable("tub_x", (3,))
-    if backend in ("dense", "ldl"):
-        s = ttc.optimize((x ** 2).sum(), [x], constraints=[x >= 0], device="cpu",
-                         kkt_backend=backend)
-        assert s.kkt_backend_resolved == backend
-        return
-    item = "M11" if backend == "tridiag" else "M16"
-    with pytest.raises(NotImplementedError, match=item):
-        ttc.optimize((x ** 2).sum(), [x], constraints=[x >= 0], device="cpu",
+    s = ttc.optimize((x ** 2).sum(), [x], constraints=[x >= 0], device="cpu",
                      kkt_backend=backend)
+    jtc.expr.clear_variables()
+    xj = jtc.variable("tub_x", (3,))
+    sj = jtc.optimize((xj ** 2).sum(), [xj], constraints=[xj >= 0], kkt_backend=backend)
+    assert s.kkt_backend_resolved == sj.kkt_backend_resolved
+    assert s.kkt_backend_resolved == (backend if backend == "ldl" else "dense")
+    assert s.kkt_plan is None and sj.kkt_plan is None

@@ -226,10 +226,17 @@ def test_skip_affine_false_raises():
 
 
 def test_deferred_backend_raises():
+    """'tridiag' is ported now: a game whose KKT has fewer than 64 rows
+    resolves to 'dense', as in the JAX package (its kkt/select.py:78-82)."""
     u, d = ttc.variable("mm9_u", ()), ttc.variable("mm9_d", ())
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttc.minmax(objective=u ** 2 - d ** 2, minOptimizationVariables=[u],
-                   maxOptimizationVariables=[d], kkt_backend="tridiag", device="cpu")
+    st = ttc.minmax(objective=u ** 2 - d ** 2, minOptimizationVariables=[u],
+                    maxOptimizationVariables=[d], kkt_backend="tridiag", device="cpu")
+    jtc.expr.clear_variables()
+    uj, dj = jtc.variable("mm9_u", ()), jtc.variable("mm9_d", ())
+    sj = jtc.minmax(objective=uj ** 2 - dj ** 2, minOptimizationVariables=[uj],
+                    maxOptimizationVariables=[dj], kkt_backend="tridiag")
+    assert st.kkt_backend_resolved == sj.kkt_backend_resolved == "dense"
+    assert st.kkt_plan is None
 
 
 def test_minmax_without_device_raises_without_cuda():

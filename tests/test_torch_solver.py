@@ -164,9 +164,16 @@ def test_optimize_without_device_raises_without_cuda():
 
 
 def test_deferred_backends_raise():
+    """'tridiag' is ported now: a problem whose KKT has fewer than 64 rows
+    resolves to 'dense', as in the JAX package (its api.py:348)."""
+    import tenscalc_tpu as jtc
+
     x = ttc.variable("tdb_x", (3,))
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttc.optimize((x ** 2).sum(), [x], device="cpu", kkt_backend="tridiag")
+    st = ttc.optimize((x ** 2).sum(), [x], device="cpu", kkt_backend="tridiag")
+    jtc.expr.clear_variables()
+    xj = jtc.variable("tdb_x", (3,))
+    sj = jtc.optimize((xj ** 2).sum(), [xj], kkt_backend="tridiag")
+    assert st.kkt_backend_resolved == sj.kkt_backend_resolved == "dense"
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
@@ -177,6 +184,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import tenscalc_tpu_torch.kkt.band_assemble, tenscalc_tpu_torch.kkt.select\n"
         "import tenscalc_tpu_torch.kkt.fleet, tenscalc_tpu_torch.kkt.pallas_ldl\n"
         "import tenscalc_tpu_torch.kkt.dense_ldl, tenscalc_tpu_torch.examples.sls\n"
+        "import tenscalc_tpu_torch.kkt.tridiag, tenscalc_tpu_torch.kkt.arrow\n"
+        "import tenscalc_tpu_torch.kkt.cyclic, tenscalc_tpu_torch.kkt.spike\n"
+        "import tenscalc_tpu_torch.parallel.scaling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tenscalc_tpu' or m.startswith('tenscalc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
