@@ -174,7 +174,27 @@ Phases:
      against the unsharded fleet (statuses equal, iterations within one,
      u within 2e-3; the bitwise-equal count logged), and measure_scaling
      at 1, 2 and 4 entries of cuda:0 with 256 instances an entry (its
-     solves/s no target: one card).
+     solves/s no target: one card);
+ 19. the tooling and the run across processes: [profiling] the flagship
+     fleet (T = 30, B = 1024, f32) with profiling=True and allowSave=True,
+     bitwise [slice]'s fleet, its history on the card (every instance's
+     rows finite up to its iters - 1), K1/K2 as profiling.kernel_times
+     reads them (1.00 and 2.00 a lockstep iteration) and flop_counts;
+     [capture-ww] tests/test_diagnostics.py:193's mis-scaled problem on
+     the card (one instance: K8/K7; capture_ww localizes it, with the CPU
+     port's iterate and advice, WW at it = 2 within 1e-8 of the CPU's); [distributed] two
+     processes of two mesh entries of cuda:0 each, in one gloo group
+     (parallel/distributed_smoke.py): the JAX run's T = 6 fleet (B = 8,
+     K4/K5) and 16-stage 'spike' solve, then the flagship fleet split over
+     the processes, bitwise each process's instances solved as one fleet
+     of 512 in the parent and the unsplit fleet of 1024 solved with its
+     batched gemv (aten.bmm) in calls of 512 rows (the one operator whose
+     rows round by the batch's size: parallel/batch_rounding.py), and
+     against the unsplit fleet of 1024 as it is: status 0, iterations
+     within one, the objective within 1e-4 and u within 2e-2 (as
+     [tridiag]'s), the count above 2e-3 and the bitwise-equal count
+     logged; solves/s; the workers load the libraries built at setup and
+     build none.
 
 Every cross-check's CPU side (phases 4, 8, 11, 12, 14, 15, the
 quadcopter's, [deconv]'s, [tutorials]', phase 17's and phase 18's) runs in
@@ -1521,14 +1541,19 @@ def collect_cpu_side(side):
 def numpy_result(res, idx=None):
     """A fleet's result (its instances ``idx``, or all) as numpy arrays on
     the host, field by field."""
+    from tenscalc_tpu_torch.interop import map_fields
+
     if idx is not None:
-        res = type(res)(*(v[torch.as_tensor(idx, device=v.device)] for v in res))
-    return SimpleNamespace(**{k: v.cpu().numpy() for k, v in res._asdict().items()})
+        res = map_fields(lambda v: v[torch.as_tensor(idx, device=v.device)], res)
+    return SimpleNamespace(**map_fields(lambda v: v.cpu().numpy(), res)._asdict())
 
 
 def torch_result(res):
     """numpy_result's fields as CPU tensors again."""
-    return SimpleNamespace(**{k: torch.as_tensor(v) for k, v in vars(res).items()})
+    return SimpleNamespace(**{
+        k: (v if v is None else tuple(map(torch.as_tensor, v)) if isinstance(v, tuple)
+            else torch.as_tensor(v))
+        for k, v in vars(res).items()})
 
 
 def deconv_cpu(params, inits):
@@ -1875,7 +1900,7 @@ def phase_slice(mpc, fb, lu):
                        mu0=1e-3, max_iter=100)
     check(sol.status == 0, f"single solve status {sol.describe()}")
     log(f"[slice] single solve: status 0, {sol.iters} iters, {sol.time:.4f} s")
-    return solver, params, inits, res, launches, entry_launches
+    return solver, params, inits, res, launches, entry_launches, wall
 
 
 def flagship_cpu(params, inits):
@@ -1906,22 +1931,15 @@ def phase_cross_check(out, res):
 
 def device_profile(fn, host_ops: bool = False):
     """One call of ``fn`` under the profiler (with the host's operators
-    if ``host_ops``): (wall s, device kernel s, kernel launches, device
-    us by kernel name)."""
-    from torch.profiler import ProfilerActivity, profile
+    if ``host_ops``; profiling.kernel_events, no warm-up): (wall s,
+    device kernel s, kernel launches, device us by kernel name)."""
+    from tenscalc_tpu_torch.profiling import kernel_events
 
-    acts = [ProfilerActivity.CPU] if host_ops else []
-    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # kernel events only: operator events also carry their kernels' time
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    check(bool(kern), "the profiler saw device kernels")
-    dev_us = {e.key: e.self_device_time_total for e in kern}
-    return wall, sum(dev_us.values()) / 1e6, sum(e.count for e in kern), dev_us
+    got = kernel_events(fn, n=1, warmup=False, host_ops=host_ops)
+    check(got is not None, "the profiler saw device kernels")
+    wall, ev = got
+    dev_us = {k: us for k, (us, _) in ev.items()}
+    return wall, sum(dev_us.values()) / 1e6, sum(c for _, c in ev.values()), dev_us
 
 
 def phase_profile(label: str, run_fleet, watch=(), host_ops: bool = True):
@@ -4070,6 +4088,245 @@ def phase_mesh(mpc, solver, params, inits, flag_res, fb, kmods):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the tooling (M17) and the run across processes (M16's last item);
+# K1/K2 on the flagship fleet with the history recorded, and split over
+# two processes of cuda:0
+# ---------------------------------------------------------------------------
+
+# the two-process run: processes, mesh entries a process; its whole run's
+# time limit (two processes reaching the card, five solver builds each)
+DIST_NPROC, DIST_LOCAL, DIST_TIMEOUT = 2, 2, 400
+
+
+def phase_profiling(mpc, fb, lu, solver, params, inits, slice_res, slice_wall, prof_k12):
+    """[profiling]: the flagship fleet (T = 30, B = 1024, f32) with
+    profiling=True and allowSave=True: bitwise [slice]'s fleet, its history
+    on the card and finite up to each instance's iters - 1 (NaN after),
+    K1/K2 as profiling.kernel_times reads them (1.00 and 2.00 a lockstep
+    iteration, their device us beside [profile]'s), flop_counts; the
+    profiled wall time beside [slice]'s unprofiled one."""
+    import re
+
+    from tenscalc_tpu_torch.ipm.solver import HISTORY_COLUMNS
+    from tenscalc_tpu_torch.profiling import flop_counts, kernel_times
+
+    ns = "fleet_"
+    t0 = time.perf_counter()
+    on = mpc.build_solver(T=FLEET_T, namespace=ns, dtype="float32", profiling=True,
+                          allowSave=True)
+    build = time.perf_counter() - t0
+    check(on.kkt_backend_resolved == "fleet_banded" and on._solve_raw.band_mode == "hoisted",
+          "[profiling] the flagship's backend and band mode")
+
+    def run():
+        res = on.solve_many(params, inits=inits, mu0=1e-3, max_iter=100)
+        torch.cuda.synchronize()
+        return res
+
+    run()
+    reset_counts(fb, lu)
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(fb.LAUNCHES)
+    check(torch.equal(res.u, slice_res.u) and torch.equal(res.status, slice_res.status)
+          and torch.equal(res.iters, slice_res.iters),
+          "[profiling] status, iterations and u bitwise [slice]'s")
+    iters = res.iters
+    lockstep = int(iters.max()) - 1
+    check(launches["factor_solve"] == lockstep and launches["solve"] == 2 * lockstep
+          and launches["factor"] == 0, f"[profiling] K1 1.00, K2 2.00: {launches}")
+    h = res.history
+    check(h.device.type == "cuda", f"[profiling] the history on the card, not {h.device}")
+    check(tuple(h.shape) == (FLEET_B, on.opts.maxIter, len(HISTORY_COLUMNS)),
+          f"[profiling] history shape {tuple(h.shape)}")
+    rows = torch.arange(h.shape[1], device=h.device)[None, :] < (iters - 1)[:, None]
+    check(bool(torch.isfinite(h[rows]).all()) and bool(torch.isnan(h[~rows]).all()),
+          "[profiling] every instance's rows finite up to its iters - 1, NaN after")
+    check(len(res.saved) == 6 and all(v.device.type == "cuda" for v in res.saved),
+          "[profiling] the allowSave snapshot on the card")
+    nu_res = res.nu_init_residual
+    check(nu_res.device.type == "cuda" and bool(torch.isfinite(nu_res).all()),
+          "[profiling] the CG nu-initializer's residual")
+    kt = kernel_times(lambda: on.solve_many(params, inits=inits, mu0=1e-3, max_iter=100), n=1)
+    check(kt is not None, "[profiling] kernel_times saw the hand-written kernels")
+    k1 = {k: v for k, v in kt.items() if re.search(r"\bfactor_solve_kernel\b", k)}
+    k2 = {k: v for k, v in kt.items() if re.search(r"\bsolve_kernel\b", k)}
+    occ1 = sum(v["occ_per_call"] for v in k1.values())
+    occ2 = sum(v["occ_per_call"] for v in k2.values())
+    check(k1 and k2 and occ1 == lockstep and occ2 == 2 * lockstep,
+          f"[profiling] kernel_times: K1 {occ1}, K2 {occ2} launches a solve ({lockstep} "
+          f"lockstep iterations): {kt}")
+    us1 = sum(v["us_per_occ"] * v["occ_per_call"] for v in k1.values()) / occ1
+    us2 = sum(v["us_per_occ"] * v["occ_per_call"] for v in k2.values()) / occ2
+    fc = flop_counts(on)
+    log(f"[profiling] flagship B={FLEET_B} T={FLEET_T} f32, profiling and allowSave on (built "
+        f"in {build:.1f} s): bitwise [slice]'s fleet; wall {wall:.4f} s profiled, "
+        f"{slice_wall:.4f} s unprofiled ([slice]), {FLEET_B / wall:.1f} solves/s; history "
+        f"{tuple(h.shape)} on {h.device}, rows finite up to iters - 1; nu-init residual max "
+        f"{float(nu_res.max()):.3e}; launches {launches}")
+    log(f"[profiling] kernel_times: K1 {occ1 / lockstep:.2f} and K2 {occ2 / lockstep:.2f} a "
+        f"lockstep iteration, {us1:.2f} and {us2:.2f} us a launch ([profile]: "
+        f"{prof_k12[0]:.2f} and {prof_k12[1]:.2f}); all: {kt}")
+    log(f"[profiling] flop_counts (a lockstep iteration of one instance): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in fc.items()))
+    return launches
+
+
+def _misscaled(ttc, device):
+    """tests/test_diagnostics.py:193's problem: a variable on a 1e6-worse
+    scale."""
+    n = 4
+    good, bad, pvar = (ttc.variable("cw_good", (n,)), ttc.variable("cw_bad", (n,)),
+                       ttc.variable("cw_p", (n,)))
+    J = ttc.norm2(good - pvar) + 1e10 * ttc.norm2(bad) + ttc.norm2(good - 1e4 * bad)
+    return ttc.optimize(objective=J, optimizationVariables=[good, bad],
+                        constraints=[good >= -2.0, good <= 2.0], parameters=[pvar],
+                        allowSave=True, profiling=True, maxIter=40, device=device)
+
+
+MISSCALED_P = {"cw_p": np.array([0.5, -0.25, 1.0, 0.1])}
+
+
+def phase_capture_ww(ttc, dl):
+    """[capture-ww]: the mis-scaled problem on the card ('fleet', one
+    instance: K8/K7): capture_ww at the largest direction error
+    localizes the mis-scaled variable, with the iterate and advice the
+    port on the CPU gives; WW at it = 2 against the CPU's.  Returns the
+    dense kernels' launches of its three solves, and leaves their counts
+    at 0."""
+    t0 = time.perf_counter()
+    card = _misscaled(ttc, None)
+    reset_counts(dl)
+    cap = card.capture_ww(MISSCALED_P, mu0=1.0)
+    cap2 = card.capture_ww(MISSCALED_P, it=2, mu0=1.0)
+    launches = dict(dl.LAUNCHES)
+    reset_counts(dl)
+    seconds = time.perf_counter() - t0
+    check(launches["ldl_factor_solve"] > 0 and launches["ldl_solve"] > 0,
+          f"[capture-ww] K8 and K7 on the card: {launches}")
+    cpu = _misscaled(ttc, "cpu")
+    ref, ref2 = cpu.capture_ww(MISSCALED_P, mu0=1.0), cpu.capture_ww(MISSCALED_P, it=2, mu0=1.0)
+    rep = cap["report"]["variables"]
+    ratio = rep["cw_bad"]["hess_diag_range"][1] / rep["cw_good"]["hess_diag_range"][1]
+    check(ratio > 1e6 and any("rescal" in a for a in cap["report"]["advice"]),
+          f"[capture-ww] the mis-scaled variable localized ({ratio:.3e})")
+    check(cap["it"] == ref["it"] and cap["report"]["advice"] == ref["report"]["advice"],
+          f"[capture-ww] it {cap['it']} and advice as the CPU's (it {ref['it']})")
+    rel = np.abs(cap2["WW"] - ref2["WW"]).max() / np.abs(ref2["WW"]).max()
+    check(cap2["it"] == 2 and rel <= 1e-8, f"[capture-ww] WW at it = 2 against the CPU's: {rel:.3e}")
+    log(f"[capture-ww] {card.kkt_backend_resolved} on the card ({seconds:.2f} s, two "
+        f"captures): it {cap['it']} (the CPU's {ref['it']}), cw_bad's Hessian diagonal "
+        f"{ratio:.3e}x cw_good's, advice {cap['report']['advice']}; WW at it = 2 within "
+        f"{rel:.3e} of the CPU's (relative to its largest entry); dense kernels' launches "
+        f"{launches}")
+    return launches
+
+
+def phase_distributed(solver, params, inits, flag_res):
+    """[distributed]: two processes on cuda:0 in one gloo group, two mesh
+    entries each (parallel/distributed_smoke.py): the JAX run's workload
+    (the T = 6 fleet, B = 8; the 16-stage 'spike' solve), then the
+    flagship fleet (T = 30, B = 1024) split over the four entries: bitwise
+    the same instances solved here as one fleet a process (each process's
+    two entries share cuda:0, so it solves them as one fleet of 512) and
+    the fleet of 1024 with its batched gemv in calls of 512 rows, and
+    held against the unsplit fleet of 1024 ([slice]); the workers load
+    the libraries this run built and build none."""
+    import tempfile
+
+    from tenscalc_tpu_torch.parallel.batch_rounding import ChunkedBmm
+    from tenscalc_tpu_torch.parallel.distributed_smoke import run
+
+    ref = numpy_result(flag_res)
+    # each process's instances solved here as one fleet: what the split
+    # should give bitwise (a fleet of 512 is not bitwise one of 1024: the
+    # CG nu-initializer's Gu.v, aten.bmm (B,60,89)@(B,89,1), takes
+    # cuBLAS's gemvx kernel at B = 1024 and gemv2N at 512;
+    # parallel/batch_rounding.py finds it the only operator whose rows
+    # round by the batch's size)
+    per_proc = FLEET_B // DIST_NPROC
+    local = []
+    for r in range(DIST_NPROC):
+        idx = np.arange(r * per_proc, (r + 1) * per_proc)
+        p, i = fleet_subset(params, inits, solver.namespace, idx)
+        local.append(numpy_result(solver.solve_many(p, inits=i, mu0=1e-3, max_iter=100)))
+    local = SimpleNamespace(**{k: np.concatenate([getattr(x, k) for x in local])
+                               for k in ("u", "status", "iters", "f")})
+    # the unsplit fleet with that bmm in calls of 512 rows
+    with ChunkedBmm(FLEET_B, per_proc) as cut:
+        chunked = numpy_result(solver.solve_many(params, inits=inits, mu0=1e-3, max_iter=100))
+    with tempfile.TemporaryDirectory(prefix="tc_dist_") as td:
+        t0 = time.perf_counter()
+        art = run(nproc=DIST_NPROC, n_local=DIST_LOCAL, device="cuda", flagship_dir=td,
+                  timeout=DIST_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        outs = [np.load(f"{td}/flagship_rank{r}.npz") for r in range(DIST_NPROC)]
+        outs = [{k: o[k] for k in o.files} for o in outs]
+    ws = art["workers"]
+    check(art["ok"] and len(ws) == DIST_NPROC, f"[distributed] both workers ok: {art}")
+    for w in ws:
+        check(w["device"] == "cuda" and w["n_global"] == DIST_NPROC * DIST_LOCAL
+              and w["fleet_converged"] == w["fleet_batch"] == 2 * DIST_NPROC * DIST_LOCAL
+              and w["spike_status"] == 0 and w["spike_backend"] == "spike",
+              f"[distributed] process {w['process']}: the JAX run's checks: {w}")
+        check(w["built"] == [], f"[distributed] process {w['process']} built {w['built']}")
+        check(w["flagship_backend"] == "fleet_banded" and w["flagship_u_device"].startswith("cuda"),
+              f"[distributed] process {w['process']}: the flagship on the card through K1/K2")
+        lock = w["flagship_local_lockstep"]
+        lc = w["flagship_launches"]
+        check(lc["factor_solve"] == lock and lc["solve"] == 2 * lock,
+              f"[distributed] process {w['process']}: K1 1.00, K2 2.00 a lockstep iteration "
+              f"of its fleet ({lock}): {lc}")
+    dj_spike = abs(ws[0]["spike_J"] - ws[1]["spike_J"])
+    check(dj_spike < 1e-12, f"[distributed] the spike's J equal in both processes "
+          f"({dj_spike:.3e})")
+    check(all(np.array_equal(outs[0][k], o[k]) for o in outs[1:] for k in outs[0]),
+          "[distributed] both processes hold the same whole result")
+    r = outs[0]
+    check(all(np.array_equal(r[k], getattr(local, k)) for k in ("u", "status", "iters", "f")),
+          "[distributed] the split flagship bitwise its processes' instances solved here as "
+          f"fleets of {per_proc} (max |du| {np.abs(r['u'] - local.u).max():.3e})")
+    check(cut.calls > 0 and all(np.array_equal(r[k], getattr(chunked, k))
+                                for k in ("u", "status", "iters", "f")),
+          f"[distributed] the split flagship bitwise the unsplit fleet of {FLEET_B} solved with "
+          f"its batched gemv (aten.bmm, {cut.calls} calls) in calls of {per_proc} rows")
+    du = np.abs(r["u"] - ref.u).max(axis=1)
+    dj = np.abs(r["f"] - ref.f) / np.abs(ref.f)
+    log(f"[distributed] the split flagship against the unsplit fleet of {FLEET_B}: statuses "
+        f"{np.bincount(r['status']).tolist()}, iterations differ on "
+        f"{int((r['iters'] != ref.iters).sum())} (max {int(np.abs(r['iters'] - ref.iters).max())}), "
+        f"max |du| {du.max():.3e} ({int((du > U_ATOL).sum())} above {U_ATOL}), objective rel "
+        f"diff max {dj.max():.3e}")
+    # that gemv's last bits (3.7e-9 apart) move u by up to 8.3e-3 at
+    # objectives 5.2e-5 apart: as at [tridiag], u is not determined to
+    # U_ATOL on part of the fleet at the flagship's tolerances, so the
+    # objective holds J_RTOL and u STRUCT_U_ATOL against the fleet of 1024
+    check((r["status"] == 0).all() and (np.abs(r["iters"] - ref.iters) <= 1).all()
+          and (dj <= J_RTOL).all() and (du <= STRUCT_U_ATOL).all(),
+          f"[distributed] the split flagship: status 0, iterations within one, objective "
+          f"within {J_RTOL} and u within {STRUCT_U_ATOL} of the unsplit fleet")
+    log(f"[distributed] {DIST_NPROC} processes x {DIST_LOCAL} entries of cuda:0, gloo on host "
+        f"copies, {seconds:.1f} s in all: the T = 6 fleet {ws[0]['fleet_converged']} of "
+        f"{ws[0]['fleet_batch']} at status 0 ({ws[0]['fleet_backend']}, K4/K5 launches "
+        f"{[w['oracle_launches'] for w in ws]}); the spike at status 0 in "
+        f"{ws[0]['spike_iters']} iterations, J {ws[0]['spike_J']!r} in both (|dJ| {dj_spike:.1e}); "
+        f"no library built")
+    log(f"[distributed] the flagship fleet B={FLEET_B} split over the {DIST_NPROC} processes: "
+        f"status 0 for all, bitwise its processes' fleets of {per_proc} solved here and the "
+        f"unsplit fleet with its bmm in calls of {per_proc} ({cut.calls} calls); against "
+        f"the unsplit fleet max |du| {du.max():.3e}, {int((du == 0).sum())} of {FLEET_B} "
+        f"instances bitwise, iterations equal on {int((r['iters'] == ref.iters).sum())}; solves/s "
+        f"{[round(w['flagship_solves_per_s'], 1) for w in ws]} (wall "
+        f"{[round(w['flagship_wall_s'], 4) for w in ws]} s); K1/K2 launches "
+        f"{[w['flagship_launches'] for w in ws]} over "
+        f"{[w['flagship_local_lockstep'] for w in ws]} lockstep iterations")
+    fb_counts = {k: sum(w["flagship_launches"][k] for w in ws) for k in ws[0]["flagship_launches"]}
+    dense_counts = {k: sum(w["oracle_launches"][k] for w in ws) for k in ws[0]["oracle_launches"]}
+    return fb_counts, dense_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4213,14 +4470,17 @@ def main() -> int:
     elapsed("the tutorials")
     tutorials_card = phase_tutorials(ttc)
 
-    solver, params, inits, res, launches, entry_launches = phase_slice(mpc, fb, lu)
+    solver, params, inits, res, launches, entry_launches, slice_wall = phase_slice(mpc, fb, lu)
     check(not any(dl.LAUNCHES.values()), "no dense kernel on the flagship path")
     # every cross-check's CPU side runs in a process of its own beside the
     # later phases; each is held at the end
     flagship_side = start_cpu_side(flagship_cpu, params, inits)
-    phase_profile("profile", lambda: solver.solve_many(
+    _, pbusy0, pshares0 = phase_profile("profile", lambda: solver.solve_many(
         params, inits=inits, mu0=1e-3, max_iter=100),
         watch=(("K1", r"\bfactor_solve_kernel<"), ("K2", r"\bsolve_kernel<")))
+    # [profile]'s K1 and K2 device us a launch, for [profiling]'s kernel_times
+    prof_k12 = (pshares0[0] * pbusy0 * 1e6 / launches["factor_solve"],
+                pshares0[1] * pbusy0 * 1e6 / launches["solve"])
 
     # slice 20: the structured backends and the mesh paths, their CPU
     # sides beside the later phases
@@ -4237,6 +4497,16 @@ def main() -> int:
     spk_res, spk_side = phase_spike(mpc, kmods)
     elapsed("[mesh]")
     mesh_launches = phase_mesh(mpc, solver, params, inits, res, fb, kmods)
+    torch.cuda.empty_cache()
+
+    # the tooling and the run across processes
+    elapsed("the tooling's [profiling]")
+    prof_launches = phase_profiling(mpc, fb, lu, solver, params, inits, res, slice_wall,
+                                    prof_k12)
+    elapsed("[capture-ww]")
+    cap_launches = phase_capture_ww(ttc, dl)
+    elapsed("[distributed]")
+    dist_fb, dist_dense = phase_distributed(solver, params, inits, res)
     torch.cuda.empty_cache()
 
     elapsed("slice 2")
@@ -4368,7 +4638,8 @@ def main() -> int:
     # are in its [minmax] line); K3: the min-max HessD inertia, its only
     # main-path caller, at the shape that path gives it
     fb_launches = {**launches, "factor": mm_launches["factor"]}
-    fb_paths = {"flagship": launches, "mesh": mesh_launches, "minmax": mm_launches,
+    fb_paths = {"flagship": launches, "mesh": mesh_launches, "profiling": prof_launches,
+                "distributed": dist_fb, "minmax": mm_launches,
                 "unicycle": uni_launches,
                 "quadcopter": quad_launches, "deconv": dc_launches, "l1l2": l12_launches,
                 "l1l2_fleet": l12f_launches,
@@ -4381,8 +4652,15 @@ def main() -> int:
          "block_route": block_rows[k]}
         for k in ("factor_solve", "solve", "factor")
     ] + [
-        entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,
-              dense_recs[k])
+        {**entry(DENSE_NAMES[k], DENSE_SOURCE, DENSE_REPLACES[k], dense_launches[k], None,
+                 dense_recs[k]),
+         **({"launches_by_path": {"sls_fleet": fleet_launches[k], "sls_wide": wide_launches[k],
+                                  "distributed_oracle": dist_dense[k]}}
+            if k in ("fleet_factor", "fleet_solve") else {}),
+         **({"launches_by_path": {"sls_single": single_launches[k], "flops": flops_launches[k],
+                                  "mls": mls_launches[k], "slseq": slseq_launches[k],
+                                  "lasso": lasso_launches[k], "capture_ww": cap_launches[k]}}
+            if k in ("ldl_solve", "ldl_factor_solve") else {})}
         for k in DENSE_REPLACES
     ] + [
         {**entry(LU_NAMES[k], LU_SOURCE, LU_REPLACES[k], lu_launches[k],

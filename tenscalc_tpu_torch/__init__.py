@@ -107,6 +107,9 @@ from .apps.mpcmhe import Mpcmhe
 from .apps.lasso import Lasso
 from .apps.nlss import NLSS
 from .apps.sysid import Sysid, ParameterSpec
+from .introspect import spy, sparsity, op_tree
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Constraint", "Expr", "Tconstant", "Teye", "Tones", "Tvariable", "Tzeros",
@@ -127,4 +130,5 @@ __all__ = [
     "optimize", "minmax", "equilibrium", "solve_batched", "compute", "compute_object",
     "ComputeFunction", "ComputeObject",
     "Mpc", "Mpcmhe", "Lasso", "NLSS", "Sysid", "ParameterSpec",
+    "spy", "sparsity", "op_tree",
 ]

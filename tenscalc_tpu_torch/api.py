@@ -146,8 +146,9 @@ class Solution:
     lam: Any
     nu: Any
     time: float = 0.0
-    # the per-iteration profiling history (None: profiling is M17's, not
-    # ported) and the internal scales sensitivity() unscales the duals by
+    # the per-iteration profiling history (iters - 1 rows of
+    # ipm.solver.HISTORY_COLUMNS; None without profiling) and the
+    # internal scales sensitivity() unscales the duals by
     history: Any = None
     scale_ineq: Any = None
     scale_cost: Any = None
@@ -165,10 +166,6 @@ def _first_or_none(res, field: str):
     has no such field."""
     v = getattr(res, field, None)
     return None if v is None else v[0].cpu().numpy()
-
-
-def _deferred_m17(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item M17)")
 
 
 class SolverBase:
@@ -209,6 +206,7 @@ class SolverBase:
         return self.packing.pack(env)
 
     def _make_solution(self, res: IPMResult, penv, elapsed: float) -> Solution:
+        iters = int(res.iters[0])
         var_env = self.packing.unpack(res.u[0])
         out_env = {**penv, **var_env, **self._internal_env(res)}
         outputs = {
@@ -216,7 +214,7 @@ class SolverBase:
             for name, e in self.outputExpressions.items()
         }
         return Solution(
-            status=int(res.status[0]), iters=int(res.iters[0]), outputs=outputs,
+            status=int(res.status[0]), iters=iters, outputs=outputs,
             variables={k: v.cpu().numpy() for k, v in var_env.items()},
             mu=float(res.mu[0]), norminf_grad=float(res.norminf_grad[0]),
             norminf_eq=float(res.norminf_eq[0]), gap=float(res.gap[0]),
@@ -224,6 +222,9 @@ class SolverBase:
             nu=res.nu[0].cpu().numpy(), time=elapsed,
             scale_ineq=_first_or_none(res, "scale_ineq"),
             scale_cost=_first_or_none(res, "scale_cost"),
+            # the last iteration only runs the exit tests: no row
+            history=(res.history[0, : max(iters - 1, 0)].cpu().numpy()
+                     if getattr(res, "history", None) is not None else None),
         )
 
     @staticmethod
@@ -525,22 +526,64 @@ class OptimizeSolver(SolverBase):
         """One instance's raw :class:`IPMResult` (JAX ``api.py:553-563``):
         the tensors on the solver's device, one instance's fields without
         the batch dimension, with no synchronization and no copy to the
-        host after the solve.  ``save_iter`` (allowSave) is M17's."""
-        if save_iter != -1:
-            raise _deferred_m17("save_iter (allowSave)")
+        host after the solve.  Under ``allowSave`` its ``saved`` holds
+        (u, nu, lam, mu, addU, addEq) at iteration ``save_iter``."""
+        from .interop import map_fields
+
         penv = self._param_env(parameters)
         u0 = self._pack_init(init)[None]
         res = self._solve_raw(
             u0, penv, frozenset(penv), mu0, max_iter,
-            addEye2Hessian[0], addEye2Hessian[1],
+            addEye2Hessian[0], addEye2Hessian[1], save_iter,
         )
-        return IPMResult(*(f[0] for f in res))
+        return map_fields(lambda v: v[0], res)
 
-    def capture_ww(self, *args, **kwargs):
-        """The KKT matrix at a chosen iterate (JAX ``api.py:565``) needs
-        ``allowSave``, ``profiling`` and ``diagnostics.analyze_assembled``,
-        which are M17's."""
-        raise _deferred_m17("capture_ww")
+    def capture_ww(self, parameters, init=None, it: Optional[int] = None,
+                   mu0: float = 1.0, max_iter: Optional[int] = None,
+                   addEye2Hessian=(1e-9, 1e-9)) -> Dict[str, Any]:
+        """The KKT matrix at a chosen iterate of an actual solve (JAX
+        ``api.py:565-620``; the reference's saveWW__, lib/ipmPD_CS.m:511-515).
+
+        Needs ``allowSave=True``.  With ``it=None`` (and ``profiling=True``)
+        the iterate with the largest direction error in the solve's own
+        history is taken.  The solve is run again with ``save_iter=it``,
+        and the dense Newton matrix of the options' variant is assembled
+        at the saved state (:func:`.ipm.solver.dense_kkt`, whatever the
+        backend).  Returns ``it``, ``WW`` and the ``state`` as numpy, and
+        the report of :func:`tenscalc_tpu_torch.diagnostics.analyze_assembled`."""
+        from .diagnostics import analyze_assembled
+
+        if not self.opts.allowSave:
+            raise ValueError("capture_ww requires SolverOptions(allowSave=True)")
+        if it is None:
+            if not self.opts.profiling:
+                raise ValueError(
+                    "capture_ww(it=None) selects the worst-direction-error "
+                    "iterate from the profiling history; set profiling=True "
+                    "or pass an explicit iteration"
+                )
+            res0 = self.solve_result(parameters, init, mu0, max_iter, addEye2Hessian)
+            hist = res0.history[: max(int(res0.iters) - 1, 0)].cpu().numpy()
+            if hist.size == 0:
+                raise ValueError("solve recorded no iterations")
+            it = int(np.nanargmax(np.nan_to_num(hist[:, 7], nan=-1.0))) + 1
+        res = self.solve_result(parameters, init, mu0, max_iter, addEye2Hessian,
+                                save_iter=int(it))
+        u, nu, lam, mu, addU, addEq = res.saved
+        assemble = dense_kkt(self._fns, self.nU, self.nF, self.nG, self.opts, parts=True)
+        a = assemble(u, nu, lam, addU, addEq, self._param_env(parameters),
+                     res.scale_ineq, res.scale_cost)
+        a = {k: v.detach().cpu().numpy() for k, v in a.items()}
+        return {
+            "it": int(it),
+            "WW": a["WW"],
+            "state": {
+                "u": u.cpu().numpy(), "nu": nu.cpu().numpy(),
+                "lam": lam.cpu().numpy(), "mu": float(mu),
+                "addU": float(addU), "addEq": float(addEq),
+            },
+            "report": analyze_assembled(self, a),
+        }
 
     def sensitivity(self, solution: Solution, parameters: Mapping[str, Any],
                     wrt: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, np.ndarray]]:

@@ -87,6 +87,21 @@ def fleet_from_numpy(solver, params: Mapping[str, Any],
     return penv, shared, inits_from_numpy(solver, inits, B, device, dtype)
 
 
-def result_to_numpy(res) -> Dict[str, np.ndarray]:
-    """Every field of an IPMResult as a numpy array on the host."""
-    return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()}
+def map_fields(fn, res):
+    """``res`` (a result NamedTuple) with ``fn`` applied to each tensor
+    field: a None field (profiling off) stays None, and a tuple field
+    (the allowSave snapshot) is mapped entry by entry."""
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return tuple(one(x) for x in v)
+        return fn(v)
+
+    return type(res)(*(one(v) for v in res))
+
+
+def result_to_numpy(res) -> Dict[str, Any]:
+    """Every field of an IPMResult as numpy arrays on the host (None and
+    the snapshot's tuple kept as such)."""
+    return map_fields(lambda v: v.detach().cpu().numpy(), res)._asdict()

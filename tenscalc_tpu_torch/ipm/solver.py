@@ -85,6 +85,12 @@ class IPMState(NamedTuple):
     inc_prev: torch.Tensor
 
 
+HISTORY_COLUMNS = (
+    "J", "norminf_grad", "norminf_eq", "gap", "mu", "alphaPrimal",
+    "addU", "directionError",
+)
+
+
 class IPMResult(NamedTuple):
     u: torch.Tensor
     nu: torch.Tensor
@@ -100,6 +106,16 @@ class IPMResult(NamedTuple):
     addEq: torch.Tensor
     scale_ineq: torch.Tensor
     scale_cost: torch.Tensor
+    # profiling: (B, maxIter, len(HISTORY_COLUMNS)), row it-1 written by
+    # iteration it (NaN where no iteration ran); None when off
+    history: Optional[torch.Tensor] = None
+    # allowSave: (u, nu, lam, mu, addU, addEq) at iteration save_iter,
+    # after its adaptation (reference: saveWW__, lib/ipmPD_CS.m:511-515);
+    # () when off
+    saved: tuple = ()
+    # profiling: ||residual||_inf of the CG nu-initializer (B,); None
+    # when off or when the CG did not run
+    nu_init_residual: Optional[torch.Tensor] = None
 
 
 class Direction(NamedTuple):
@@ -363,12 +379,6 @@ class Linearization(NamedTuple):
     assemble: Callable
 
 
-def _deferred(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item {item})"
-    )
-
-
 def _large_kkt(WW11, Fu, Gu, Fval, lam, addEq, times_lambda: bool):
     """The large Newton matrix of a batch, (B, nU + nG + nF) square:
     ``[[WW11, Gu', -Fu'], [Gu, -addEq I, 0], [-Fu, 0, -diag(F/lam)]]``, or
@@ -390,16 +400,21 @@ def _large_kkt(WW11, Fu, Gu, Fval, lam, addEq, times_lambda: bool):
     )
 
 
-def dense_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int, opts: SolverOptions):
+def dense_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int, opts: SolverOptions,
+              parts: bool = False):
     """Single-instance dense KKT assembly of the options' Newton matrix
     (the branch the build-time structure probe reads): the condensed
     ``[[H + addU I + Fu' diag(lam/F) Fu, Gu'], [Gu, -addEq I]]`` or the
-    large matrix of the standard or ``timesLambda`` variant."""
+    large matrix of the standard or ``timesLambda`` variant.  With
+    ``parts`` the assembly returns the JAX package's ``_assemble_ww``
+    dict instead (``WW``, ``WW11`` = H + addU I, the scaled ``Fu``,
+    ``Gu``, ``f_u`` = the scaled objective's gradient, ``Fval``,
+    ``Gval``), what :mod:`tenscalc_tpu_torch.diagnostics` reads."""
     small = bool(opts.smallerNewtonMatrix)
     times_lambda = opts.variant == "timesLambda"
 
     def assemble(u, nu, lam, addU, addEq, penv, scale_ineq, scale_cost):
-        dt = u.dtype
+        dt, dev = u.dtype, u.device
 
         def Fs(uu):
             return scale_ineq * fns.F(uu, penv)
@@ -417,25 +432,29 @@ def dense_kkt(fns: IPMFunctions, nU: int, nF: int, nG: int, opts: SolverOptions)
 
         H = jacfwd(grad(lagr, argnums=0), argnums=0)(u, nu, lam)
         H = 0.5 * (H + H.T)
-        WW = H + addU * torch.eye(nU, dtype=dt)
+        WW11 = H + addU * torch.eye(nU, dtype=dt, device=dev)
+        Fu = jacfwd(Fs)(u) if nF > 0 else u.new_zeros(0, nU)
+        Gu = jacfwd(Gs)(u) if nG > 0 else u.new_zeros(0, nU)
+        Fval = Fs(u)
         if not small:
-            Fu = jacfwd(Fs)(u) if nF > 0 else u.new_zeros(0, nU)
-            Gu = jacfwd(Gs)(u) if nG > 0 else u.new_zeros(0, nU)
-            return _large_kkt(WW[None], Fu[None], Gu[None], Fs(u)[None], lam[None],
-                              torch.full((1,), addEq, dtype=dt), times_lambda)[0]
-        if nF > 0:
-            Fu = jacfwd(Fs)(u)
-            Fval = Fs(u)
-            Fdiv = Fval if dt == torch.float64 else torch.clamp(Fval, min=1e-8)
-            WW = WW + Fu.T @ ((lam / Fdiv)[:, None] * Fu)
-        if nG == 0:
+            WW = _large_kkt(WW11[None], Fu[None], Gu[None], Fval[None], lam[None],
+                            torch.full((1,), float(addEq), dtype=dt, device=dev),
+                            times_lambda)[0]
+        else:
+            WW = WW11
+            if nF > 0:
+                Fdiv = Fval if dt == torch.float64 else torch.clamp(Fval, min=1e-8)
+                WW = WW + Fu.T @ ((lam / Fdiv)[:, None] * Fu)
+            if nG > 0:
+                WW = torch.cat(
+                    [torch.cat([WW, Gu.T], dim=1),
+                     torch.cat([Gu, -addEq * torch.eye(nG, dtype=dt, device=dev)], dim=1)],
+                    dim=0,
+                )
+        if not parts:
             return WW
-        Gu = jacfwd(Gs)(u)
-        return torch.cat(
-            [torch.cat([WW, Gu.T], dim=1),
-             torch.cat([Gu, -addEq * torch.eye(nG, dtype=dt)], dim=1)],
-            dim=0,
-        )
+        f_u = grad(lambda uu: scale_cost * fns.f(uu, penv))(u)
+        return dict(WW=WW, WW11=WW11, Fu=Fu, Gu=Gu, f_u=f_u, Fval=Fval, Gval=Gs(u))
 
     return assemble
 
@@ -446,9 +465,14 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
               fleet_init: bool = True):
     """Build the batched ``solve`` function for a problem.
 
-    ``solve(u0, penv, shared, mu0, max_iter, addU0, addEq0)``: ``u0`` is
-    (B, nU); each ``penv`` entry has a leading batch dimension except the
-    parameters named in ``shared``, which every instance shares.
+    ``solve(u0, penv, shared, mu0, max_iter, addU0, addEq0, save_iter)``:
+    ``u0`` is (B, nU); each ``penv`` entry has a leading batch dimension
+    except the parameters named in ``shared``, which every instance
+    shares.  Under ``opts.profiling`` the result carries the history
+    (:data:`HISTORY_COLUMNS`, a row an iteration) and the CG
+    nu-initializer's residual; under ``opts.allowSave`` the state at
+    iteration ``save_iter``.  With both off the loop launches what it
+    launches without them.
 
     ``kkt_solver`` factors the KKT each direction assembles: a
     ``BandKKT`` in band mode (``band_plan`` given), else the dense
@@ -462,8 +486,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
     f64 = dt == torch.float64
     small = bool(opts.smallerNewtonMatrix)
     times_lambda = opts.variant == "timesLambda" and not small
-    if opts.profiling or opts.allowSave:
-        raise _deferred("profiling and allowSave", "M17")
+    prof, save = bool(opts.profiling), bool(opts.allowSave)
     nK = nU + nG + (0 if small else nF)
     # the band's own assembly needs the condensed matrix with
     # inequalities and a banded backend; otherwise a banded plan's
@@ -503,7 +526,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
 
     def solve(u0: torch.Tensor, penv, shared=frozenset(), mu0: float = 1.0,
               max_iter: Optional[int] = None, addU0: float = 1e-9,
-              addEq0: float = 1e-9) -> IPMResult:
+              addEq0: float = 1e-9, save_iter: int = -1) -> IPMResult:
         max_iter_v = opts.maxIter if max_iter is None else int(max_iter)
         dev = u0.device
         u0 = u0.to(dt)
@@ -558,6 +581,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             return vmap(lambda uu, pe: jacfwd(lambda v: fns.G(v, pe))(uu),
                         in_dims=(0, pdims))(u, penv)
 
+        nu_init_res = None  # set by the CG nu-initializer under profiling
         # dual initialization: lam = mu0 / F; nu from
         # [I, Gu'; Gu, -eps I][x; nu] = [Fu' lam - f_u; 0], by CG on the
         # normal equations (Gu Gu' + eps I) nu = Gu (Fu' lam - f_u) for
@@ -587,6 +611,8 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                     p = z + beta[:, None] * p
                     rz = rz_new
                 nu0 = x
+                if prof:
+                    nu_init_res = _norminf(r)
             else:
                 eye_u = torch.eye(nU, dtype=dt, device=dev).expand(B, nU, nU)
                 eye_g = torch.eye(nG, dtype=dt, device=dev).expand(B, nG, nG)
@@ -1056,7 +1082,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 )
             done = nan_fail
             keep = done[:, None]
-            return IPMState(
+            new_st = IPMState(
                 u=torch.where(keep, u, new_u),
                 nu=torch.where(keep, nu, new_nu),
                 lam=torch.where(keep, lam, new_lam),
@@ -1068,6 +1094,16 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
                 it=st.it, done=done,
                 derr_prev=dirn.derr.to(dt), inc_prev=inc_state,
             )
+            # the history row of this iteration (J at the iterate it
+            # started from, the exit metrics, the new mu, the step, the
+            # adapted regularization, the direction error) and the
+            # allowSave snapshot's candidate (the iterate, after adaptation)
+            row = None
+            if prof:
+                row = torch.stack([(sc * f_b(u, penv)) / sc, ng, ne, gap, new_mu,
+                                   alphaPrimal, addU, dirn.derr.to(dt)], dim=1)
+            cur = (u, nu, lam, mu, addU, addEq) if save else None
+            return new_st, row, cur
 
         def infeasible(v):
             # f32: a legitimately active constraint rounds to 0 or -eps
@@ -1100,12 +1136,34 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             )
             run = ~st.done & ~early
             if bool(run.any()):
-                new = iterate(
+                new, row, cur = iterate(
                     st._replace(it=it, addU=addU, addEq=addEq),
                     ng, ne, gap, cached, run,
                 )
                 stop = _select(run, new, stop)
+                record(run, row, cur)
             return _select(st.done, st, stop)
+
+        # The instances that iterate run in lockstep: at the k-th step
+        # each of them is at iteration k, so its history row and its
+        # snapshot are chosen on the host, and a finished instance, which
+        # no longer iterates, keeps its rows and its snapshot unwritten
+        # (the JAX package's lax.cond(st.done) freezes its whole state).
+        hist = torch.full((B, opts.maxIter, len(HISTORY_COLUMNS)), math.nan,
+                          dtype=dt, device=dev) if prof else None
+        snap = ((u0.new_zeros(B, nU), u0.new_zeros(B, nG), u0.new_zeros(B, nF),
+                 full(0.0), full(0.0), full(0.0)) if save else ())
+        k_step = [0]
+
+        def record(run, row, cur):
+            nonlocal snap
+            k = k_step[0]
+            if row is not None:
+                j = min(k - 1, opts.maxIter - 1)
+                hist[:, j] = torch.where(run[:, None], row, hist[:, j])
+            if cur is not None and k == save_iter:
+                snap = tuple(torch.where(run.view((-1,) + (1,) * (c.dim() - 1)), c, s)
+                             for c, s in zip(cur, snap))
 
         st = IPMState(
             u=u0, nu=nu0, lam=lam0, mu=full(mu0),
@@ -1117,6 +1175,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             derr_prev=full(math.inf), inc_prev=full(False, torch.bool),
         )
         while not bool(st.done.all()):
+            k_step[0] += 1
             st = step(st)
 
         # status completion when maxIter was reached
@@ -1149,6 +1208,7 @@ def build_ipm(fns: IPMFunctions, nU: int, nF: int, nG: int,
             iters=st.it, norminf_grad=ng, norminf_eq=ne, gap=gap,
             f=(sc * f_b(st.u, penv)) / sc, addU=st.addU, addEq=st.addEq,
             scale_ineq=scale_ineq, scale_cost=scale_cost,
+            history=hist, saved=snap, nu_init_residual=nu_init_res,
         )
 
     solve.band_mode = "hoisted" if band_mode else ("periter" if band_periter else None)

@@ -10,12 +10,15 @@ decomposition, SPIKE-style.
    gathered onto every device and factored there.
 4. The interiors back-substitute.
 
-The mesh is :class:`tenscalc_tpu_torch.parallel.mesh.Mesh`: one process
-drives every entry, the JAX ``all_gather`` becomes copies onto each
-device, and the chunks that share a device run as one batch over the
-chunk axis.  Everything is batched over the fleet as well: A and B are
-(Bn, nb, s, s), b is (Bn, nb, s).  Plain PyTorch (the JAX package's XLA
-scans and LU solves; no Pallas kernel).
+The mesh is :class:`tenscalc_tpu_torch.parallel.mesh.Mesh`: a process
+drives its entries, the JAX ``all_gather`` becomes copies onto each
+device (and, on a mesh across processes, an exchange of host copies
+over the process group, :func:`..parallel.mesh.exchange`), and the
+chunks that share a device run as one batch over the chunk axis.  Each
+process factors its own chunks and the (small) reduced system, and
+every process returns the whole solution.  Everything is batched over
+the fleet as well: A and B are (Bn, nb, s, s), b is (Bn, nb, s).  Plain
+PyTorch (the JAX package's XLA scans and LU solves; no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, exchange
 from .tridiag import _to_blocks, block_ldl, block_ldl_solve
 
 
@@ -62,10 +65,13 @@ class SpikeFactor(NamedTuple):
 
 def _gather(parts: dict, mesh: Mesh, Bn: int, shape, dtype, device) -> torch.Tensor:
     """The all_gather: every chunk's piece (Bn, Pd, *shape per device)
-    copied into chunk order (Bn, P, *shape) on ``device``."""
+    copied into chunk order (Bn, P, *shape) on ``device``; on a mesh
+    across processes the other processes' chunks come by exchange."""
     out = torch.empty((Bn, mesh.size) + tuple(shape), dtype=dtype, device=device)
     for (_, idx), piece in parts.items():
         out[:, list(idx)] = piece.to(device)
+    if mesh.spans_processes:
+        out = exchange(out, mesh.ranks, 1)
     return out
 
 
@@ -85,8 +91,11 @@ def spike_factor(A: torch.Tensor, B: torch.Tensor, mesh: Mesh,
     mi = m - 1
     Ac = A.view(Bn, Pn, m, s, s)
     Bc = B.view(Bn, Pn, m, s, s)
+    groups = mesh.groups()
+    if not groups:
+        raise ValueError("this process owns no entry of the mesh")
     chunks, parts = [], {}
-    for dev, idx in mesh.groups():
+    for dev, idx in groups:
         Pd = len(idx)
         A_c = Ac[:, idx].to(dev).reshape(Bn * Pd, m, s, s)
         B_c = Bc[:, idx].to(dev).reshape(Bn * Pd, m, s, s)
@@ -109,8 +118,10 @@ def spike_factor(A: torch.Tensor, B: torch.Tensor, mesh: Mesh,
         parts[(dev, tuple(idx))] = torch.stack(
             [S_self, S_prev, S_next_corr], 1).view(Bn, Pd, 3, s, s)
     reduced = {}
-    for dev, _ in mesh.groups():
-        G = _gather(parts, mesh, Bn, (3, s, s), A.dtype, dev)
+    # one gather a call: every process makes the same exchanges
+    G_all = _gather(parts, mesh, Bn, (3, s, s), A.dtype, groups[0][0])
+    for dev, _ in groups:
+        G = G_all.to(dev)
         Sd, Sp, Sc = G[:, :, 0], G[:, :, 1], G[:, :, 2]
         diag = Sd.clone()
         diag[:, :Pn - 1] += Sc[:, 1:]
@@ -141,9 +152,10 @@ def spike_apply(factor: SpikeFactor, b: torch.Tensor, mesh: Mesh,
         parts[(ch.device, tuple(ch.idx))] = torch.cat(
             [r_self, r_next_corr], dim=-1).view(Bn, Pd, 2 * s)
     out = torch.empty(Bn, Pn, m, s, dtype=b.dtype, device=b.device)
+    R_all = _gather(parts, mesh, Bn, (2 * s,), b.dtype, factor.chunks[0].device)
     for ch, y in zip(factor.chunks, ys):
         Pd = len(ch.idx)
-        R = _gather(parts, mesh, Bn, (2 * s,), b.dtype, ch.device)
+        R = R_all.to(ch.device)
         rhs_red = R[..., :s].clone()
         rhs_red[:, :Pn - 1] += R[:, 1:, s:]
         Lr, r_lus, r_pivs = factor.reduced[ch.device]
@@ -155,6 +167,8 @@ def spike_apply(factor: SpikeFactor, b: torch.Tensor, mesh: Mesh,
               - torch.matmul(ch.Zv, t_prev[:, None, :, None])[..., 0])
         xc = torch.cat([xI, t_self[:, None]], dim=1).view(Bn, Pd, m, s)
         out[:, ch.idx] = xc.to(b.device)
+    if mesh.spans_processes:
+        out = exchange(out, mesh.ranks, 1)
     return out.view(Bn, Pn * m, s)
 
 

@@ -12,8 +12,17 @@ equal shards as the mesh has entries, shard j on entry j's device, the
 shared parameters replicated onto every device; as in the JAX package's
 ``shard_map``, the solve itself needs no communication.  The shards
 that share a device run as one fleet on it (their instances in shard
-order), and the devices one after another from this process; the
-result comes back on the solver's device in the fleet's order.
+order), and the result comes back on the solver's device in the
+fleet's order.  On a mesh across processes (:func:`.mesh.process_mesh`)
+every process is given the whole fleet, solves its own entries' shards,
+and the results meet by :func:`.mesh.exchange`, so each process returns
+the whole result (the JAX worker's ``process_allgather``).
+
+A limit, documented and not lifted: one process runs its distinct
+devices one after another (a loop over :meth:`.mesh.Mesh.groups`), as
+the JAX package's one process dispatches them (JAX
+``parallel/batch.py:52-60``), so a mesh of several cards driven by one
+process does not solve them at the same time; one process a card does.
 """
 
 from __future__ import annotations
@@ -22,8 +31,8 @@ from typing import Any, Mapping, Optional, Sequence
 
 import torch
 
-from ..interop import inits_from_numpy, params_from_numpy
-from .mesh import Mesh, devices as list_devices
+from ..interop import inits_from_numpy, map_fields, params_from_numpy
+from .mesh import Mesh, devices as list_devices, exchange
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "batch",
@@ -58,14 +67,31 @@ def solve_sharded(solver, u0: torch.Tensor, penv, shared, mesh: Mesh,
         res = solver._solve_raw(u0[rows].to(dev), pe, shared, mu0, max_iter,
                                 *addEye2Hessian)
         pieces.append((rows, res))
-    fields = []
-    for k in range(len(pieces[0][1])):
-        first = pieces[0][1][k]
-        out = first.new_empty((B,) + tuple(first.shape[1:]), device=u0.device)
-        for rows, res in pieces:
-            out[rows] = res[k].to(u0.device)
-        fields.append(out)
-    return type(pieces[0][1])(*fields)
+    if not pieces:
+        raise ValueError("this process owns no entry of the mesh")
+    out = type(pieces[0][1])(*(
+        _merge([res[k] for _, res in pieces], [rows for rows, _ in pieces], B, u0.device)
+        for k in range(len(pieces[0][1]))))
+    if mesh.spans_processes:
+        owners = [r for r in mesh.ranks for _ in range(per)]
+        out = map_fields(lambda v: exchange(v, owners, 0), out)
+    return out
+
+
+def _merge(values, rows, B: int, device):
+    """One result field of the fleet from its shards' (rows of each): a
+    tensor (B, ...) on ``device``, a tuple field entry by entry, None
+    kept."""
+    first = values[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        return tuple(_merge([v[i] for v in values], rows, B, device)
+                     for i in range(len(first)))
+    out = first.new_empty((B,) + tuple(first.shape[1:]), device=device)
+    for r, v in zip(rows, values):
+        out[r] = v.to(device)
+    return out
 
 
 def solve_batched(solver, parameters: Mapping[str, Any],

@@ -8,7 +8,8 @@ against the one-device rate.  Its device list is :func:`.mesh.devices`
 then measures no scaling, only that every mesh size gives the same
 answers.  :func:`init_distributed` wraps
 ``torch.distributed.init_process_group`` for runs over several processes
-(a no-op for one process, as the JAX package's is).
+(a no-op for one process, as the JAX package's is), which
+:mod:`.distributed_smoke` drives.
 """
 
 from __future__ import annotations
@@ -22,23 +23,32 @@ from .batch import make_mesh, solve_sharded
 from .mesh import devices as list_devices
 
 
+# a rendezvous or a collective that waits longer raises, so a process
+# whose peer died fails instead of hanging
+GROUP_TIMEOUT_S = 300.0
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
-    """Join a process group of ``num_processes`` (no-op for one process)
-    over nccl with CUDA, gloo without.  ``coordinator_address`` is
-    ``host:port`` (``tcp://`` added when missing)."""
+                     process_id: Optional[int] = None, backend: str = "gloo") -> None:
+    """Join the default process group of ``num_processes`` (no-op for one
+    process) through ``backend``.  ``coordinator_address`` is
+    ``host:port`` (``tcp://`` added when missing).  gloo by default: a
+    mesh across processes (:func:`.mesh.process_mesh`) exchanges host
+    copies, and NCCL refuses two ranks on one card."""
     if num_processes is None or num_processes <= 1:
         return
+    import datetime
+
     import torch.distributed as dist
 
     if coordinator_address is None:
         raise ValueError("coordinator_address is needed for more than one process")
     if "://" not in coordinator_address:
         coordinator_address = "tcp://" + coordinator_address
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=coordinator_address,
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
 def _sync(devs) -> None:

@@ -7,7 +7,8 @@ copy targets, a get that needs only its own inputs set),
 ``sensitivity`` (both cases of tests/test_diagnostics.py:96-164: against
 JAX's own sensitivity from the same solution to 1e-10, and the port's
 own solve against the closed form and the finite differences at that
-test's tolerances).  ``capture_ww`` raises, naming M17."""
+test's tolerances).  ``capture_ww`` without ``allowSave`` raises, as
+JAX's does (test_torch_tooling_introspect.py holds what it captures)."""
 
 import dataclasses
 import sys
@@ -180,15 +181,20 @@ def test_solve_result_fields_equal_solve():
     jres = _ls(jtc, A, b).solve_result(params, init=init)
     assert int(jres.status) == int(res.status) and int(jres.iters) == int(res.iters)
     np.testing.assert_allclose(_np(res.u), np.asarray(jres.u), rtol=1e-8, atol=1e-8)
-    with pytest.raises(NotImplementedError, match="M17"):
-        solver.solve_result(params, init=init, save_iter=2)
+    # without allowSave a save_iter takes no snapshot and changes nothing
+    res2 = solver.solve_result(params, init=init, save_iter=2)
+    assert res2.saved == () and res2.history is None and res.history is None
+    assert torch.equal(res2.u, res.u) and int(res2.iters) == int(res.iters)
 
 
 def test_capture_ww_raises_naming_m17():
+    """Ported with M17: without allowSave capture_ww raises the JAX
+    package's ValueError, naming the option, as JAX's does."""
     rng = np.random.default_rng(0)
-    solver = _ls(ttc, rng.standard_normal((12, 4)), rng.standard_normal(12), device="cpu")
-    with pytest.raises(NotImplementedError, match="M17"):
-        solver.capture_ww({}, it=1)
+    A, b = rng.standard_normal((12, 4)), rng.standard_normal(12)
+    for solver in (_ls(ttc, A, b, device="cpu"), _ls(jtc, A, b)):
+        with pytest.raises(ValueError, match="allowSave=True"):
+            solver.capture_ww({"asA": A, "asb": b}, it=1)
 
 
 def test_sensitivity_unconstrained_ls():

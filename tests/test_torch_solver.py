@@ -187,6 +187,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import tenscalc_tpu_torch.kkt.tridiag, tenscalc_tpu_torch.kkt.arrow\n"
         "import tenscalc_tpu_torch.kkt.cyclic, tenscalc_tpu_torch.kkt.spike\n"
         "import tenscalc_tpu_torch.parallel.scaling\n"
+        "import tenscalc_tpu_torch.diagnostics, tenscalc_tpu_torch.introspect\n"
+        "import tenscalc_tpu_torch.profiling, tenscalc_tpu_torch.cgexport\n"
+        "import tenscalc_tpu_torch.parallel.distributed_smoke\n"
+        "import tenscalc_tpu_torch.parallel._distributed_worker\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tenscalc_tpu' or m.startswith('tenscalc_tpu.')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
